@@ -1,0 +1,269 @@
+"""FGT generator — flow-guided transformer video inpainter in PyTorch;
+counterpart of ``fgt_tpu/models/fgt.py`` (reference
+FGT/models/model.py:12-283).
+
+Module names follow the reference tree (``net.frame_endoder.layers``,
+``net.first_t_transformer.attention.query_embedding`` ...). Inside,
+convolutions are NCHW with the (b, t) axes folded into the batch; tokens
+are [B·T, N, C]. :class:`Model` takes and returns the JAX package's
+``[B, T, H, W, C]`` layouts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from fgt_tpu_torch.ops.attention import LN_EPS, TMHSA, FlowGuidedSWMHSA
+from fgt_tpu_torch.ops.conv_blocks import (VanillaConv, VanillaDeconv,
+                                           init_normal, leaky_relu_02)
+from fgt_tpu_torch.ops.ffn import FusionFeedForward
+
+
+@dataclasses.dataclass
+class FGTConfig:
+    """Model hyperparameters (reference FGT/config/train.yaml:58-90)."""
+
+    in_channel: int = 4
+    cnum: int = 64
+    flow_in_channel: int = 2
+    flow_cnum: int = 64
+    frame_hidden: int = 512
+    flow_hidden: int = 256
+    num_blocks: int = 8
+    kernel_size: Tuple[int, int] = (7, 7)
+    stride: Tuple[int, int] = (3, 3)
+    padding: Tuple[int, int] = (3, 3)
+    num_heads: int = 4
+    use_bias: bool = True
+    ape: bool = True
+    mlp_ratio: int = 40
+    pass_mask: bool = True
+    tw: int = 2
+    sw: int = 8
+    gd: int = 4
+
+    @classmethod
+    def from_dict(cls, cfg: dict) -> "FGTConfig":
+        get = cfg.get
+        if str(get("conv_type", "vanilla")) != "vanilla" or \
+                str(get("norm", None)) not in ("None", "none"):
+            raise ValueError("the port implements conv_type=vanilla, norm=None")
+        return cls(
+            in_channel=get("in_channel", 4), cnum=get("cnum", 64),
+            flow_in_channel=get("flow_inChannel", 2),
+            flow_cnum=get("flow_cnum", 64),
+            frame_hidden=get("frame_hidden", 512),
+            flow_hidden=get("flow_hidden", 256),
+            num_blocks=get("numBlocks", 8),
+            kernel_size=(get("kernel_size_h", 7), get("kernel_size_w", 7)),
+            stride=(get("stride_h", 3), get("stride_w", 3)),
+            padding=(get("pad_h", 3), get("pad_w", 3)),
+            num_heads=get("num_head", 4), use_bias=bool(get("use_bias", 1)),
+            ape=bool(get("ape", 1)), mlp_ratio=get("mlp_ratio", 40),
+            pass_mask=bool(get("PASSMASK", 1)),
+            tw=get("tw", 2), sw=get("sw", 8), gd=get("gd", 4))
+
+
+class Encoder(nn.Module):
+    """9-conv frame encoder with grouped skip fusion (reference Encoder,
+    model.py:28-66); widths as multiples of ``cnum`` like the JAX
+    package (identical at cnum=64). ``layers`` alternates conv and
+    LeakyReLU, so the convs sit at even indices as in the reference."""
+
+    GROUPS = (2, 4, 8, 1)
+
+    def __init__(self, in_channels: int = 4, cnum: int = 64):
+        super().__init__()
+        c = cnum
+        spec = [(in_channels, c, 2, 1), (c, c, 1, 1), (c, 2 * c, 2, 1),
+                (2 * c, 4 * c, 1, 1), (4 * c, 6 * c, 1, 1),
+                (10 * c, 8 * c, 1, 2), (12 * c, 6 * c, 1, 4),
+                (10 * c, 4 * c, 1, 8), (8 * c, 2 * c, 1, 1)]
+        layers = []
+        for cin, cout, s, g in spec:
+            layers += [nn.Conv2d(cin, cout, 3, stride=s, padding=1, groups=g),
+                       nn.LeakyReLU(0.2)]
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x):
+        convs = self.layers[::2]
+        out = x
+        for i in range(5):
+            out = leaky_relu_02(convs[i](out))
+            if i == 3:
+                x0 = out
+        for i, g in enumerate(self.GROUPS):
+            bt, cs, h, w = x0.shape
+            cy = out.shape[1]
+            fused = torch.cat([x0.reshape(bt, g, cs // g, h, w),
+                               out.reshape(bt, g, cy // g, h, w)], dim=2)
+            out = leaky_relu_02(convs[5 + i](fused.reshape(bt, cs + cy, h, w)))
+        return out
+
+
+class AddPosEmb(nn.Module):
+    """Depthwise 3x3 conv positional encoding, residual (model.py:69-88)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.proj = nn.Conv2d(channels, channels, 3, 1, 1, groups=channels)
+
+    def forward(self, x, h: int, w: int):
+        b, n, c = x.shape
+        feat = x.transpose(1, 2).reshape(b, c, h, w)
+        return (self.proj(feat) + feat).flatten(2).transpose(1, 2)
+
+
+class Vec2Patch(nn.Module):
+    """Linear token -> patch embedding + fold (model.py:91-110)."""
+
+    def __init__(self, channels: int, hidden: int, kernel_size, stride,
+                 padding):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = \
+            tuple(kernel_size), tuple(stride), tuple(padding)
+        self.embedding = nn.Linear(hidden,
+                                   kernel_size[0] * kernel_size[1] * channels)
+
+    def forward(self, x, output_size):
+        feat = self.embedding(x).transpose(1, 2)
+        return F.fold(feat, output_size, self.kernel_size,
+                      stride=self.stride, padding=self.padding)
+
+
+class TemporalTransformer(nn.Module):
+    """Pre-norm TMHSA + fusion FFN (model.py:113-130)."""
+
+    def __init__(self, cfg: FGTConfig):
+        super().__init__()
+        self.attention = TMHSA(cfg.frame_hidden, cfg.tw, cfg.num_heads)
+        self.norm1 = nn.LayerNorm(cfg.frame_hidden, eps=LN_EPS)
+        self.norm2 = nn.LayerNorm(cfg.frame_hidden, eps=LN_EPS)
+        self.ffn = FusionFeedForward(cfg.frame_hidden, cfg.mlp_ratio,
+                                     cfg.kernel_size, cfg.stride, cfg.padding)
+
+    def forward(self, x, t, h, w, output_size):
+        x = x + self.attention(self.norm1(x), t, h, w)
+        return x + self.ffn(self.norm2(x), output_size)
+
+
+class SpatialTransformer(nn.Module):
+    """Flow-guided SWMHSA on the raw stream + fusion FFN
+    (model.py:133-149)."""
+
+    def __init__(self, cfg: FGTConfig):
+        super().__init__()
+        self.attention = FlowGuidedSWMHSA(cfg.frame_hidden, cfg.flow_hidden,
+                                          cfg.sw, cfg.gd, cfg.num_heads)
+        self.norm = nn.LayerNorm(cfg.frame_hidden, eps=LN_EPS)
+        self.ffn = FusionFeedForward(cfg.frame_hidden, cfg.mlp_ratio,
+                                     cfg.kernel_size, cfg.stride, cfg.padding)
+
+    def forward(self, x, f, h, w, output_size):
+        x = x + self.attention(x, f, h, w)
+        return x + self.ffn(self.norm(x), output_size)
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, cfg: FGTConfig):
+        super().__init__()
+        self.t_transformer = TemporalTransformer(cfg)
+        self.s_transformer = SpatialTransformer(cfg)
+
+
+class Decoder(nn.Module):
+    """Deconv x2 / conv decoder back to RGB (model.py:176-193)."""
+
+    def __init__(self, cfg: FGTConfig):
+        super().__init__()
+        c, bias = cfg.cnum * 2, cfg.use_bias
+        self.layer1 = VanillaDeconv(c, c, 3, 1, 1, bias=bias)
+        self.layer2 = VanillaConv(c, c // 2, 3, 1, 1, bias=bias)
+        self.layer3 = VanillaDeconv(c // 2, c // 2, 3, 1, 1, bias=bias)
+        self.final = VanillaConv(c // 2, 3, 3, 1, 1, bias=bias, activation=None)
+
+    def forward(self, x):
+        return self.final(self.layer3(self.layer2(self.layer1(x))))
+
+
+class FGT(nn.Module):
+    def __init__(self, cfg: FGTConfig):
+        super().__init__()
+        self.cfg = c = cfg
+        self.frame_endoder = Encoder(c.in_channel, c.cnum)  # reference typo
+        fc = c.flow_cnum
+        self.flow_encoder = nn.Sequential(
+            nn.ReplicationPad2d(2),
+            VanillaConv(c.flow_in_channel, fc, 5, 1, 0, bias=c.use_bias),
+            VanillaConv(fc, 2 * fc, 3, 2, 1, bias=c.use_bias),
+            VanillaConv(2 * fc, 2 * fc, 3, 1, 1, bias=c.use_bias),
+            VanillaConv(2 * fc, 2 * fc, 3, 2, 1, bias=c.use_bias))
+        self.patch2vec = nn.Conv2d(2 * c.cnum, c.frame_hidden, c.kernel_size,
+                                   c.stride, c.padding)
+        self.f_patch2vec = nn.Conv2d(2 * fc, c.flow_hidden, c.kernel_size,
+                                     c.stride, c.padding)
+        self.first_t_transformer = TemporalTransformer(c)
+        self.first_s_transformer = SpatialTransformer(c)
+        if c.ape:
+            self.add_pos_emb = AddPosEmb(c.frame_hidden)
+        self.transformer = nn.ModuleList(
+            [TransformerBlock(c) for _ in range(c.num_blocks // 2 - 1)])
+        self.vec2patch = Vec2Patch(2 * c.cnum, c.frame_hidden, c.kernel_size,
+                                   c.stride, c.padding)
+        self.decoder = Decoder(c)
+
+    def forward(self, masked_frames, flows, masks):
+        """[B, T, H, W, 3] frames in [-1, 1], [B, T, H, W, 2] flows,
+        [B, T, H, W, 1] masks -> [B, T, H, W, 3] in [-1, 1]."""
+        c = self.cfg
+        b, t, h, w, _ = masked_frames.shape
+        dt = self.patch2vec.weight.dtype
+        out_spatial = (h // 4, w // 4)
+        inputs = masked_frames
+        if c.pass_mask:
+            inputs = torch.cat([masked_frames, masks], dim=-1)
+        x = inputs.reshape(b * t, h, w, -1).permute(0, 3, 1, 2).to(dt)
+        f = flows.reshape(b * t, h, w, -1).permute(0, 3, 1, 2).to(dt)
+
+        enc_feats = self.frame_endoder(x)
+        flow_feats = self.flow_encoder(f)
+        trans = self.patch2vec(enc_feats)
+        th, tw = trans.shape[2:]
+        trans = trans.flatten(2).transpose(1, 2)           # [bt, N, hidden]
+        flow_patch = self.f_patch2vec(flow_feats).flatten(2).transpose(1, 2)
+
+        trans = self.first_t_transformer(trans, t, th, tw, out_spatial)
+        if c.ape:
+            trans = self.add_pos_emb(trans, th, tw)
+        trans = self.first_s_transformer(trans, flow_patch, th, tw,
+                                         out_spatial)
+        for blk in self.transformer:
+            trans = blk.t_transformer(trans, t, th, tw, out_spatial)
+            trans = blk.s_transformer(trans, flow_patch, th, tw, out_spatial)
+
+        enc_feats = enc_feats + self.vec2patch(trans, out_spatial)
+        out = torch.tanh(self.decoder(enc_feats))
+        return out.permute(0, 2, 3, 1).reshape(b, t, h, w, 3)
+
+
+class Model(nn.Module):
+    """Reference-compatible wrapper: ``Model(config)(frames, flows,
+    masks)`` (reference model.py:12-25)."""
+
+    def __init__(self, config: dict):
+        super().__init__()
+        self.net = FGT(FGTConfig.from_dict(config))
+
+    def forward(self, frames, flows, masks):
+        return self.net(frames, flows, masks)
+
+
+def init_fgt(model: Model, gen: torch.Generator) -> Model:
+    """Seeded N(0, 0.02) weights (reference init_weights 'normal')."""
+    init_normal(model, gen, 0.02)
+    return model

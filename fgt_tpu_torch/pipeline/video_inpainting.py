@@ -1,0 +1,595 @@
+"""Object-removal video inpainting driver — the port's counterpart of
+``fgt_tpu/pipeline/video_inpainting.py`` (reference
+tool/video_inpainting.py).
+
+Stages (device work on the card unless the caller asks for the CPU):
+
+  s1 RAFT     encode every frame once (2x upscale on the device under
+              350 px), then forward and backward pairs batched through
+              one refine; correlation from kernel K1; flows resized to
+              image resolution with an antialiased bilinear filter
+  s2 LAFC     device diffusion (multigrid-preconditioned CG), then the
+              P3D net over reflect-indexed windows, pivot composite
+  s3 host     gradients (forward differences, hole-touching ones zeroed)
+  s4 host     flowNN gradient propagation (native OpenMP kernels)
+  s5 host     Poisson blending (scipy splu)
+  s6 FGT      batched windows, temporal attention through kernel K2,
+              ordered 50/50 composite in pivot order, trunc-cast to u8
+
+Entry points: :func:`inpaint` (arrays in, arrays out) and
+:func:`video_inpainting` (the CLI: ``.npy`` stacks or PNG directories in,
+``result.npy`` and PNGs out).
+
+The hole is never seeded with cv2's TELEA inpainting as the JAX pipeline
+does: every value it would put there is zeroed out of the gradients,
+solved by Poisson, or masked out of FGT's input and replaced in the
+composite (``tests/test_torch_port_telea.py`` checks this on the JAX
+pipeline).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import logging
+import math
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import scipy.ndimage
+import torch
+import torch.nn.functional as F
+
+from fgt_tpu_torch import DEFAULT_DEVICE
+from fgt_tpu_torch.convert.weights import load_state
+from fgt_tpu_torch.models import fgt as fgt_mod
+from fgt_tpu_torch.models import lafc as lafc_mod
+from fgt_tpu_torch.models import raft as raft_mod
+from fgt_tpu_torch.ops.diffusion import diffuse_flows_device
+from fgt_tpu_torch.pipeline import image_io
+from fgt_tpu_torch.pipeline.poisson import poisson_blend
+from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
+                                                get_flownn_gradient_frames)
+
+logger = logging.getLogger("fgt_tpu_torch")
+
+DEFAULT_LAFC_CONFIG = {
+    "model": "lafc", "num_flows": 3, "flow_interval": 3, "cnum": 48,
+    "in_channel": 3, "PASSMASK": 1, "use_residual": 1, "resBlocks": 1,
+    "use_bias": 1, "conv_type": "vanilla", "init_weights": 1, "use_edges": 0,
+}
+DEFAULT_FGT_CONFIG = {
+    "model": "model", "in_channel": 4, "cnum": 64, "flow_inChannel": 2,
+    "flow_cnum": 64, "frame_hidden": 512, "flow_hidden": 256, "PASSMASK": 1,
+    "numBlocks": 8, "num_head": 4, "conv_type": "vanilla", "norm": None,
+    "use_bias": 1, "ape": 1, "mlp_ratio": 40, "drop": 0, "init_weights": 1,
+    "tw": 2, "sw": 8, "gd": 4, "kernel_size_w": 7, "kernel_size_h": 7,
+    "stride_h": 3, "stride_w": 3, "pad_h": 3, "pad_w": 3,
+    "res_h": 240, "res_w": 432, "num_frames": 5, "flow_direction": "for",
+}
+RAFT_ENCODE_CHUNK = 8
+
+
+# ---------------- helpers (own copies of the JAX pipeline's) ----------------
+
+def indices_gen(pivot: int, interval: int, frames: int, t: int) -> list:
+    """Reflect-padded window indices around a pivot (reference :90-100)."""
+    out = []
+    for i in range(-(frames // 2), frames // 2 + 1):
+        idx = pivot + interval * i
+        if idx < 0:
+            idx = abs(idx)
+        if idx > t - 1:
+            idx = 2 * (t - 1) - idx
+        out.append(idx)
+    return out
+
+
+def get_ref_index(f: int, neighbor_ids: list, length: int, ref_length: int,
+                  num_ref: int) -> list:
+    """Dilated global reference frames (reference :103-117)."""
+    ref_index = []
+    if num_ref == -1:
+        for i in range(0, length, ref_length):
+            if i not in neighbor_ids:
+                ref_index.append(i)
+    else:
+        start = max(0, f - ref_length * (num_ref // 2))
+        end = min(length, f + ref_length * (num_ref // 2))
+        for i in range(start, end + 1, ref_length):
+            if i not in neighbor_ids:
+                if len(ref_index) > num_ref:
+                    break
+                ref_index.append(i)
+    return ref_index
+
+
+def norm_flows(flows: torch.Tensor) -> torch.Tensor:
+    """Per-frame, per-channel division by the signed spatial max; a zero
+    max maps to divisor 1 (reference :402-407)."""
+    n, h, w, c = flows.shape
+    fmax = flows.reshape(n, h * w, c).amax(dim=1)[:, None, None, :]
+    return flows / torch.where(fmax == 0, torch.ones_like(fmax), fmax)
+
+
+def gradient_mask(mask: np.ndarray) -> np.ndarray:
+    """Expand a hole mask by one pixel down and right (reference :74-87)."""
+    down = np.concatenate((mask[1:, :], np.zeros((1, mask.shape[1]), bool)), 0)
+    right = np.concatenate((mask[:, 1:], np.zeros((mask.shape[0], 1), bool)), 1)
+    return np.logical_or.reduce((mask, down, right))
+
+
+def fgt_window_ids(n: int, neighbor_stride: int, step: int, num_ref: int):
+    """Fixed-shape window index matrix [W, T] (clamped neighbor windows +
+    padded global refs) and the neighbor count t_n."""
+    t_n = min(n, 2 * neighbor_stride + 1)
+    window_neighbors, window_refs = [], []
+    for f in range(0, n, neighbor_stride):
+        start = int(np.clip(f - neighbor_stride, 0, n - t_n))
+        window_neighbors.append(list(range(start, start + t_n)))
+        window_refs.append(get_ref_index(f, window_neighbors[-1], n, step,
+                                         num_ref))
+    n_ref = max(len(r) for r in window_refs)
+    for neigh, refs in zip(window_neighbors, window_refs):
+        extra = (i for i in range(n) if i not in refs and i not in neigh)
+        while len(refs) < n_ref:
+            refs.append(next(extra, refs[-1] if refs else neigh[-1]))
+    ids = np.asarray([ne + re for ne, re in
+                      zip(window_neighbors, window_refs)], np.int64)
+    return ids, t_n
+
+
+def prepare_gradients(video: np.ndarray, mask: np.ndarray,
+                      mask_dilated: np.ndarray):
+    """Forward differences with every hole-touching one zeroed
+    (reference :584-619, without the TELEA seed).
+
+    video: [N, H, W, 3] f32 u8-valued/255 (the reference's round trip
+    through uint8 is then exact); mask/mask_dilated: [N, H, W] bool.
+    Returns (video with the hole zeroed, gx, gy)."""
+    n, h, w, _ = video.shape
+    gx = np.zeros((n, h, w, 3), np.float32)
+    gy = np.zeros((n, h, w, 3), np.float32)
+    video = video.copy()
+    for i in range(n):
+        img = video[i].copy()
+        img[mask[i]] = 0
+        gx[i, :, :-1] = np.diff(img, axis=1)
+        gy[i, :-1, :] = np.diff(img, axis=0)
+        gx[i][mask_dilated[i]] = 0
+        gy[i][mask_dilated[i]] = 0
+        video[i] = img
+    return video, gx, gy
+
+
+def chunk_backoff(dispatch, chunk: int, stage: str,
+                  backoffs: Optional[list] = None):
+    """Run ``dispatch(chunk)``, halving the chunk and retrying on device
+    OOM. Each retry is logged (and appended to ``backoffs`` if given)."""
+    while True:
+        try:
+            return dispatch(chunk), chunk
+        except torch.cuda.OutOfMemoryError:
+            if chunk <= 1:
+                raise
+            smaller = chunk // 2
+            logger.warning("%s: device OOM at chunk %d; retrying with %d",
+                           stage, chunk, smaller)
+            if backoffs is not None:
+                backoffs.append((stage, chunk, smaller))
+            torch.cuda.empty_cache()
+            chunk = smaller
+
+
+class StageTimer:
+    """Per-stage wall seconds. On a CUDA device it synchronizes before a
+    stage starts and before it stops, so device work is charged to the
+    stage that queued it."""
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.times: dict = {}
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        self._sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._sync()
+            self.times[name] = self.times.get(name, 0.0) + \
+                time.perf_counter() - t0
+
+
+# ---------------- models ----------------
+
+class Models:
+    """RAFT + LAFC + FGT on one device, in one dtype, random-initialized
+    from ``seed`` (a ``torch.Generator``) unless state dicts are given."""
+
+    def __init__(self, device: str = DEFAULT_DEVICE, bf16: bool = True,
+                 raft_iters: int = 20, lafc_config: Optional[dict] = None,
+                 fgt_config: Optional[dict] = None, seed: int = 0,
+                 raft_state=None, lafc_state=None, fgt_state=None):
+        self.device = torch.device(device)
+        self.dtype = torch.bfloat16 if bf16 else torch.float32
+        self.raft_iters = raft_iters
+        self.lafc_config = dict(lafc_config or DEFAULT_LAFC_CONFIG)
+        self.fgt_config = dict(fgt_config or DEFAULT_FGT_CONFIG)
+        gen = torch.Generator().manual_seed(seed)
+        self.raft = raft_mod.init_raft(raft_mod.RAFT(), gen)
+        self.lafc = lafc_mod.init_lafc(lafc_mod.Model(self.lafc_config), gen)
+        self.fgt = fgt_mod.init_fgt(fgt_mod.Model(self.fgt_config), gen)
+        for module, state in ((self.raft, raft_state),
+                              (self.lafc, lafc_state),
+                              (self.fgt, fgt_state)):
+            if state is not None:
+                load_state(module, state)
+            module.to(device=self.device, dtype=self.dtype).eval()
+        for p in (*self.raft.parameters(), *self.lafc.parameters(),
+                  *self.fgt.parameters()):
+            p.requires_grad_(False)
+
+
+# ---------------- stages ----------------
+
+def resize_flows(flow: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """[B, H, W, 2] -> [B, out_h, out_w, 2] with the vectors rescaled:
+    bilinear with antialiasing when shrinking, the counterpart of
+    ``jax.image.resize(..., "bilinear")``."""
+    b, h, w, _ = flow.shape
+    if (h, w) == (out_h, out_w):
+        return flow
+    out = F.interpolate(flow.permute(0, 3, 1, 2), size=(out_h, out_w),
+                        mode="bilinear", align_corners=False, antialias=True)
+    scale = torch.tensor([out_w / w, out_h / h], dtype=flow.dtype,
+                         device=flow.device)
+    return out.permute(0, 2, 3, 1) * scale
+
+
+def calculate_flows(models: Models, video_u8: torch.Tensor, flow_h: int,
+                    flow_w: int, chunk: Optional[int] = None,
+                    backoffs: Optional[list] = None):
+    """s1: forward and backward RAFT flows, f32 [N-1, H, W, 2] each at
+    the video's resolution. ``video_u8``: [N, H, W, 3] on the device."""
+    raft = models.raft
+    n, h, w = video_u8.shape[:3]
+    feats = []
+    for s in range(0, n, RAFT_ENCODE_CHUNK):
+        fr = video_u8[s:s + RAFT_ENCODE_CHUNK].to(models.dtype)
+        if (h, w) != (flow_h, flow_w):
+            fr = F.interpolate(fr.permute(0, 3, 1, 2), size=(flow_h, flow_w),
+                               mode="bilinear", align_corners=False
+                               ).permute(0, 2, 3, 1)
+        feats.append(raft.encode(fr))
+    fmap, net, inp = (torch.cat(parts, dim=0) for parts in zip(*feats))
+
+    pairs = n - 1
+    ar = torch.arange(pairs, device=video_u8.device)
+    src = torch.cat([ar, ar + 1])
+    dst = torch.cat([ar + 1, ar])
+    total = 2 * pairs
+
+    def dispatch(c):
+        outs = []
+        for s in range(0, total, c):
+            i, j = src[s:s + c], dst[s:s + c]
+            _, up = raft.refine(fmap[i], fmap[j], net[i], inp[i],
+                                models.raft_iters)
+            outs.append(resize_flows(up.float(), h, w))
+        return torch.cat(outs, dim=0)
+
+    flows, _ = chunk_backoff(dispatch, chunk or total, "s1_raft", backoffs)
+    return flows[:pairs], flows[pairs:]
+
+
+def complete_flows(models: Models, flows: torch.Tensor, masks: torch.Tensor,
+                   chunk: int = 16, backoffs: Optional[list] = None):
+    """s2: diffusion + LAFC over reflect-indexed windows, composited at
+    the pivot as out·m + flow·(1-m). flows: [T, H, W, 2] f32; masks:
+    [T, H, W] {0,1} on the device. Returns f32 [T, H, W, 2]."""
+    cfg = models.lafc_config
+    num_flows, interval = cfg["num_flows"], cfg.get("flow_interval", 3)
+    t, h, w, _ = flows.shape
+    diffused = diffuse_flows_device(flows, masks)
+    ids = torch.tensor([indices_gen(i, interval, num_flows, t)
+                        for i in range(t)], device=flows.device)
+    mf = masks.float()
+
+    def dispatch(c):
+        outs = []
+        for s in range(0, t, c):
+            ib = ids[s:s + c]
+            b = ib.shape[0]
+            wf = diffused[ib.reshape(-1)].reshape(b, num_flows, h, w, 2)
+            wm = mf[ib.reshape(-1)].reshape(b, num_flows, h, w, 1)
+            out, _ = models.lafc(wf, wm, with_edge=False)
+            piv = ib[:, num_flows // 2]
+            pm = mf[piv][..., None]
+            outs.append(out.float() * pm + flows[piv] * (1 - pm))
+        return torch.cat(outs, dim=0)
+
+    out, _ = chunk_backoff(dispatch, chunk, "s2_lafc", backoffs)
+    return out
+
+
+def fgt_synthesis(models: Models, video_u8: torch.Tensor,
+                  masks_u8: torch.Tensor, flows_f: torch.Tensor,
+                  neighbor_stride: int = 5, step: int = 10,
+                  num_ref: int = -1, window_batch: int = 6,
+                  backoffs: Optional[list] = None) -> torch.Tensor:
+    """s6: FGT over fixed-shape windows, batched, composited in pivot
+    order (new = out·m + valid·(1-m); an already-seen frame averages
+    50/50; f32 accumulation, one trunc-cast to u8 at the end).
+
+    video_u8: [N, H, W, 3] (round-cast Poisson output); masks_u8:
+    [N, H, W] (pixels left for FGT); flows_f: [N-1, H, W, 2] completed
+    forward flows. Returns [N, H, W, 3] u8."""
+    n, h, w, _ = video_u8.shape
+    ids_np, t_n = fgt_window_ids(n, neighbor_stride, step, num_ref)
+    ids_all = torch.from_numpy(ids_np).to(video_u8.device)
+    w_total, t = ids_np.shape
+    flows = norm_flows(torch.cat([flows_f, flows_f[-1:]], dim=0).float())
+    flows = flows.to(models.dtype)
+    mf = masks_u8.float()[..., None]
+    vf = video_u8.float()
+
+    def dispatch(wb):
+        comp = torch.zeros(n, h, w, 3, dtype=torch.float32,
+                           device=video_u8.device)
+        seen = torch.zeros(n, dtype=torch.bool, device=video_u8.device)
+        for s in range(0, w_total, wb):
+            ib = ids_all[s:s + wb]
+            b = ib.shape[0]
+            flat = ib.reshape(-1)
+            fr = video_u8[flat].to(models.dtype).reshape(b, t, h, w, 3) / 255.0
+            fr = fr * 2.0 - 1.0
+            m = masks_u8[flat].to(models.dtype).reshape(b, t, h, w, 1)
+            fl = flows[flat].reshape(b, t, h, w, 2)
+            out = models.fgt(fr * (1 - m), fl, m)
+            out_u8 = ((out.float() + 1.0) / 2.0 * 255.0).to(torch.uint8)
+            for j in range(b):
+                nb = ib[j, :t_n]
+                mj = mf[nb]
+                new = out_u8[j, :t_n].float() * mj + vf[nb] * (1 - mj)
+                sj = seen[nb][:, None, None, None]
+                comp[nb] = torch.where(sj, 0.5 * comp[nb] + 0.5 * new, new)
+                seen[nb] = True
+        return comp.to(torch.uint8)
+
+    comp, _ = chunk_backoff(dispatch, max(1, min(window_batch, w_total)),
+                            "s6_fgt", backoffs)
+    return comp
+
+
+def inpaint(frames_u8: np.ndarray, masks: np.ndarray, models: Models,
+            flow_mask_dilates: int = 8, frame_dilates: int = 0,
+            consistency_thres: float = 5.0, alpha: float = 0.1,
+            neighbor_stride: int = 5, step: int = 10, num_ref: int = -1,
+            raft_chunk: Optional[int] = None, lafc_chunk: Optional[int] = None,
+            window_batch: Optional[int] = None,
+            timer: Optional[StageTimer] = None) -> np.ndarray:
+    """Object removal on arrays: frames [N, H, W, 3] uint8, masks
+    [N, H, W] (nonzero = hole). Returns the inpainted [N, H, W, 3] uint8
+    frames; outside the hole they equal the input."""
+    dev = models.device
+    timer = timer or StageTimer(dev)
+    backoffs: list = []
+    n, img_h, img_w = frames_u8.shape[:3]
+    flow_h, flow_w = ((img_h * 2, img_w * 2) if img_h < 350
+                      else (img_h, img_w))
+    # batch sizes tuned at 240x432, scaled with the pixel count
+    pixel_scale = (240 * 432) / float(img_h * img_w)
+    lafc_chunk = lafc_chunk or max(1, int(16 * pixel_scale))
+    window_batch = window_batch or max(1, int(6 * pixel_scale))
+
+    holes = np.asarray(masks) > 0
+    flow_mask = np.stack([
+        scipy.ndimage.binary_dilation(m, iterations=flow_mask_dilates)
+        if flow_mask_dilates > 0 else m for m in holes])
+    mask = np.stack([
+        scipy.ndimage.binary_dilation(m, iterations=frame_dilates)
+        if frame_dilates > 0 else m for m in holes])
+    mask_dilated = np.stack([gradient_mask(m) for m in mask])
+
+    with torch.inference_mode():
+        with timer.stage("s1_raft"):
+            video_dev = torch.from_numpy(
+                np.ascontiguousarray(frames_u8, np.uint8)).to(dev)
+            flows_f, flows_b = calculate_flows(models, video_dev, flow_h,
+                                               flow_w, raft_chunk, backoffs)
+        with timer.stage("s2_lafc"):
+            fm = torch.from_numpy(flow_mask.astype(np.uint8)).to(dev)
+            comp_f = complete_flows(models, flows_f, fm[:-1], lafc_chunk,
+                                    backoffs)
+            comp_b = complete_flows(models, flows_b, fm[1:], lafc_chunk,
+                                    backoffs)
+            flow_f_np = comp_f.cpu().numpy()
+            flow_b_np = comp_b.cpu().numpy()
+
+        with timer.stage("s3_gradients"):
+            video, gx, gy = prepare_gradients(
+                frames_u8.astype(np.float32) / 255.0, mask, mask_dilated)
+        with timer.stage("s4_flownn"):
+            gx, gy, mask_tofill = get_flownn_gradient_frames(
+                PropagationConfig(consistency_thres, alpha), gx, gy, mask,
+                flow_f_np, flow_b_np)
+        with timer.stage("s5_poisson"):
+            mask_tofill = np.stack([scipy.ndimage.binary_fill_holes(m)
+                                    for m in mask_tofill])
+            mask_cur = mask.copy()
+            blends = []   # f64 where Poisson ran, as the JAX pipeline keeps
+            for i in range(n):
+                if mask_cur[i].any():
+                    blend, unfilled = poisson_blend(
+                        video[i], gx[i][:, :img_w - 1], gy[i][:img_h - 1],
+                        mask_cur[i], mask_tofill[i])
+                    blends.append(np.clip(blend, 0, 1.0))
+                    mask_cur[i] = unfilled
+                else:
+                    blends.append(video[i])
+            logger.info("poisson blending done; %d px left for FGT",
+                        int(mask_cur.sum()))
+
+        with timer.stage("s6_fgt"):
+            vid_u8 = np.clip(np.round(np.stack(blends) * 255.0), 0,
+                             255).astype(np.uint8)
+            comp = fgt_synthesis(
+                models, torch.from_numpy(vid_u8).to(dev),
+                torch.from_numpy(mask_cur.astype(np.uint8)).to(dev),
+                comp_f, neighbor_stride, step, num_ref, window_batch,
+                backoffs)
+            out = comp.cpu().numpy()
+    if backoffs:
+        logger.warning("OOM backoffs: %s", backoffs)
+    return out
+
+
+# ---------------- CLI ----------------
+
+def _load_ckpt_dir(path: Optional[str], default_cfg: dict):
+    """(config, state) from a directory holding ``config.json`` and one
+    ``*.pth`` state dict with the reference key names; defaults when the
+    directory is absent."""
+    config, state = dict(default_cfg), None
+    if path and os.path.isdir(path):
+        cfg_path = os.path.join(path, "config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                config.update(json.load(f))
+        weights = sorted(p for p in os.listdir(path) if p.endswith(".pth"))
+        if weights:
+            state = _load_torch_state(os.path.join(path, weights[-1]))
+    return config, state
+
+
+def _load_torch_state(path: str) -> dict:
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model_state_dict", "state_dict"):
+        if isinstance(state, dict) and key in state:
+            state = state[key]
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in state.items()}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags that apply to the object-removal path."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--mode", default="object_removal",
+                   choices=["object_removal"])
+    p.add_argument("--path", default="data/frames",
+                   help=".npy stack or directory of PNG frames")
+    p.add_argument("--path_mask", default="data/masks",
+                   help=".npy stack or directory of PNG masks")
+    p.add_argument("--outroot", default="out")
+    p.add_argument("--consistencyThres", type=float, default=5)
+    p.add_argument("--alpha", type=float, default=0.1)
+    p.add_argument("--raft_model", default="checkpoints/raft/raft.pth",
+                   help="reference RAFT state dict (random init if absent)")
+    p.add_argument("--lafc_ckpts", default="checkpoints/lafc",
+                   help="directory with config.json and a .pth state dict")
+    p.add_argument("--fgt_ckpts", default="checkpoints/fgt",
+                   help="directory with config.json and a .pth state dict")
+    p.add_argument("--imgH", type=int, default=256)
+    p.add_argument("--imgW", type=int, default=432)
+    p.add_argument("--flow_mask_dilates", type=int, default=8)
+    p.add_argument("--frame_dilates", type=int, default=0)
+    p.add_argument("--step", type=int, default=10)
+    p.add_argument("--num_ref", type=int, default=-1)
+    p.add_argument("--neighbor_stride", type=int, default=5)
+    p.add_argument("--raft_chunk", type=int, default=None)
+    p.add_argument("--raft_iters", type=int, default=20)
+    p.add_argument("--lafc_chunk", type=int, default=None)
+    p.add_argument("--window_batch", type=int, default=None)
+    p.add_argument("--bf16", action="store_true", default=True,
+                   help="bfloat16 weights and activations (default)")
+    p.add_argument("--f32", dest="bf16", action="store_false",
+                   help="float32 inference")
+    p.add_argument("--device", default=DEFAULT_DEVICE)
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random init of models without weights")
+    return p
+
+
+def _resize_frames(frames: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear resize of uint8 frames (cv2 INTER_LINEAR semantics: no
+    antialiasing), identity at the target size."""
+    if frames.shape[1:3] == (h, w):
+        return frames
+    t = torch.from_numpy(frames.astype(np.float32)).permute(0, 3, 1, 2)
+    t = F.interpolate(t, size=(h, w), mode="bilinear", align_corners=False)
+    return t.permute(0, 2, 3, 1).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def _resize_masks(masks: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Nearest resize (cv2 INTER_NEAREST: src = floor(dst * scale))."""
+    if masks.shape[1:3] == (h, w):
+        return masks
+    ys = np.minimum((np.arange(h) * masks.shape[1] / h).astype(int),
+                    masks.shape[1] - 1)
+    xs = np.minimum((np.arange(w) * masks.shape[2] / w).astype(int),
+                    masks.shape[2] - 1)
+    return masks[:, ys][:, :, xs]
+
+
+def video_inpainting(args, models: Optional[Models] = None) -> str:
+    """Run the CLI pipeline; returns the path of ``result.npy``."""
+    timer = StageTimer(torch.device(args.device))
+    with timer.stage("s0_init"):
+        if models is None:
+            lafc_cfg, lafc_state = _load_ckpt_dir(args.lafc_ckpts,
+                                                  DEFAULT_LAFC_CONFIG)
+            fgt_cfg, fgt_state = _load_ckpt_dir(args.fgt_ckpts,
+                                                DEFAULT_FGT_CONFIG)
+            raft_state = (_load_torch_state(args.raft_model)
+                          if os.path.exists(args.raft_model) else None)
+            for name, st in (("RAFT", raft_state), ("LAFC", lafc_state),
+                             ("FGT", fgt_state)):
+                if st is None:
+                    logger.warning("%s weights not found; random init "
+                                   "(seed %d)", name, args.seed)
+            models = Models(args.device, args.bf16, args.raft_iters,
+                            lafc_cfg, fgt_cfg, args.seed, raft_state,
+                            lafc_state, fgt_state)
+    with timer.stage("s0_load_frames"):
+        frames = image_io.read_stack(args.path)
+        if frames.ndim == 3:
+            frames = np.repeat(frames[..., None], 3, axis=-1)
+        frames = _resize_frames(frames[..., :3], args.imgH, args.imgW)
+        masks = image_io.read_stack(args.path_mask)
+        if masks.ndim == 4:
+            masks = masks[..., 0]
+        masks = _resize_masks(masks, args.imgH, args.imgW)
+    out = inpaint(frames, masks, models,
+                  flow_mask_dilates=args.flow_mask_dilates,
+                  frame_dilates=args.frame_dilates,
+                  consistency_thres=args.consistencyThres, alpha=args.alpha,
+                  neighbor_stride=args.neighbor_stride, step=args.step,
+                  num_ref=args.num_ref, raft_chunk=args.raft_chunk,
+                  lafc_chunk=args.lafc_chunk, window_batch=args.window_batch,
+                  timer=timer)
+    with timer.stage("s7_write"):
+        image_io.write_frames(args.outroot, out)
+    n = out.shape[0]
+    total = sum(timer.times.values())
+    logger.info("stages %s; %d frames in %.2f s (%.2f frames/s)",
+                {k: round(v, 3) for k, v in timer.times.items()}, n, total,
+                n / total if total else math.inf)
+    return os.path.join(args.outroot, "result.npy")
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO)
+    return video_inpainting(build_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()
