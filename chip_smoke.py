@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``fgt_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases (any failure exits nonzero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels
@@ -11,16 +11,34 @@ Phases (any failure exits nonzero; nothing is caught):
   3. kernel K2 (flash attention) against its plain version at
      N=80, L=2340, ch=128, in f32 and bf16; F.scaled_dot_product_attention
      is timed beside it as a yardstick only;
-  4. the object-removal main path at full model width (random weights
+  4. kernels K4 (dq) and K5 (dk, dv), the flash backward, at training's
+     N=32, L=900, ch=128, in f32 and bf16: against their plain versions
+     and against autograd of the plain forward; SDPA's backward (forward
+     + backward minus forward) is timed beside them as a yardstick only;
+     then the bytes bound of the unported K3 at its main-path shape;
+  5. the object-removal main path at full model width (random weights
      from seed 0, bf16): 24 synthetic panning frames at 432x240 with a
      moving 56x56 hole, run twice (cold, then warm); per pass the
      synchronized per-stage seconds, frames/s, peak memory and the
      kernels' launch counts (reset before the pass, read after it), which
      must all be > 0; output checked to be [24, 240, 432, 3] u8 and
      byte-identical to the input outside the hole;
-  5. a small input through the port on the card and on the CPU (plain
-     versions), which must agree;
-  6. one JSON line with every kernel's numbers, then the result line.
+  6. FGT stage-2 GAN training at the full width of
+     configs/fgt_train.yaml (240x432, 5 frames, batch 2, 512 hidden,
+     8 blocks, bf16 autocast) through ``FGTTrainer``, with the frozen
+     LAFC-single oracle (random weights from seed 0) loaded from a
+     checkpoint: 2 cold steps, then 10 timed steps (steps/s, peak memory,
+     K2/K4/K5 launches per step, which must be 4 each); losses finite,
+     l1 falling, every TMHSA q/k/v embedding weight with a finite nonzero
+     gradient; then a resume check (save the trio, 3 steps, reload,
+     3 steps: gen_loss must match);
+  7. small inputs through the port on the card and on the CPU (plain
+     versions), which must agree: an object-removal run, and one SGD
+     GAN step (losses and parameter deltas);
+  8. one JSON line with every kernel's numbers, then the result line.
+
+``--profile`` adds a torch.profiler trace of two training steps after
+phase 6 and prints the device time by kernel.
 
 Needs torch with CUDA, nvcc and g++; imports nothing of JAX.
 """
@@ -31,6 +49,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,6 +77,34 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def kernel_events(prof) -> list:
+    """The device kernels of a torch.profiler trace (key averages),
+    without user-annotation ranges."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Device time of the kernels ``fn`` launches, per call, from a
+    torch.profiler trace: unlike events around a loop, it does not count
+    the gaps where the card waits for a host-bound caller."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in kernel_events(prof)) / 1e3 / reps
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -163,6 +210,103 @@ def phase_k2(dtype, stats: dict):
                              library_ms=library_ms)
 
 
+def phase_k45(dtype, stats: dict):
+    """K4 and K5 at the training shape: batch 2 x 4 groups x 4 heads = 32
+    sequences of 5 frames x 10 x 18 = 900 tokens, head dim 128."""
+    import torch
+    import torch.nn.functional as F
+    from fgt_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    n, l, ch = 32, 900, 128
+    q, k, v, do = (torch.randn(n, l, ch, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    scale = ch ** -0.5
+    out, lse = fa.flash_mhsa(q, k, v, scale)
+    dsum = (do.float() * out.float()).sum(-1)
+    got = (fa.flash_attention_dq(q, k, v, do, lse, dsum, scale),
+           *fa.flash_attention_dkv(q, k, v, do, lse, dsum, scale))
+    plain = (fa.flash_attention_dq_plain(q, k, v, do, lse, dsum, scale),
+             *fa.flash_attention_dkv_plain(q, k, v, do, lse, dsum, scale))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    ref_out = fa.flash_attention_plain(*leaves, scale)[0]
+    auto = torch.autograd.grad(ref_out, leaves, do)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, plain, auto):
+        top = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        err_auto = (a.float() - c.float()).abs().max().item()
+        # f32: reassociated sums over 900 keys/queries; bf16 outputs:
+        # 1 ulp of the largest entry against the plain version, 2 ulp
+        # against autograd (whose dsum comes from the unrounded output)
+        f32 = dtype == torch.float32
+        tol = 1e-5 * max(1.0, top) if f32 else top * 2 ** -7
+        tol_auto = 1e-5 * max(1.0, top) if f32 else top * 2 ** -6
+        log(f"K4/K5 {str(dtype)[6:]} {name}: max_abs_err {err:.3g} "
+            f"(tol {tol:.3g}), vs autograd {err_auto:.3g} "
+            f"(tol {tol_auto:.3g}), max |{name}| {top:.3g}")
+        if not (err <= tol and err_auto <= tol_auto):
+            raise AssertionError(f"K4/K5 {name} disagrees")
+        errs[name] = err
+    dq_ms = cuda_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, dsum,
+                                                  scale), 10)
+    dkv_ms = cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, dsum,
+                                                    scale), 10)
+    dq_plain = cuda_ms(lambda: fa.flash_attention_dq_plain(
+        q, k, v, do, lse, dsum, scale), 5)
+    dkv_plain = cuda_ms(lambda: fa.flash_attention_dkv_plain(
+        q, k, v, do, lse, dsum, scale), 5)
+    # SDPA on [1, N, L, ch]: backward = (forward + backward) - forward,
+    # from the kernels' device time (its autograd call is host-bound)
+    q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+    do4 = do[None]
+    fwd_ms = kernel_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                       10)
+    fb_ms = kernel_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4), 10)
+    lib_ms = fb_ms - fwd_ms
+    item = q.element_size()
+    rows = 2 * n * l * 4                              # lse, dsum (f32)
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    for name, ms, pms, n_out, mats in (("dq", dq_ms, dq_plain, 1, 3),
+                                       ("dkv", dkv_ms, dkv_plain, 2, 4)):
+        nbytes = (4 + n_out) * n * l * ch * item + rows
+        flops = 2.0 * mats * n * l * l * ch
+        b_ms, b_by = bound(nbytes, flops, peak)
+        err = errs["dq"] if name == "dq" else max(errs["dk"], errs["dv"])
+        log(f"K{4 if name == 'dq' else 5} {str(dtype)[6:]}: kernel_ms "
+            f"{ms:.4f} plain_ms {pms:.4f} library_ms {lib_ms:.4f} (SDPA "
+            f"backward, dq+dk+dv) bound_ms {b_ms:.4f} ({b_by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        stats.setdefault(name, {})[str(dtype)] = dict(
+            ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, library_ms=lib_ms)
+
+
+def k3_bound():
+    """Bound of the unported K3 (fgt_tpu/ops/corr_lookup_pallas.py:43,
+    RAFT's pyramid lookup under the JAX package's --pallas_lookup) at the
+    main-path shape: one GRU iteration over 46 pairs x 60x108 pixels,
+    4 levels of bf16 all-pairs maps, radius 4 (81 f32 taps per level),
+    f32 coords. A bilinear lookup needs only the (k+1)^2 window of each
+    pixel's map per level (clipped to the level), so that is what the
+    bound counts; the TPU kernel streams every pixel's whole map."""
+    n, r, item = 46 * 60 * 108, 4, 2
+    k = 2 * r + 1
+    levels = [(60, 108), (30, 54), (15, 27), (7, 13)]
+    taps_out = n * len(levels) * k * k * 4
+    coords = n * 2 * 4
+    window = n * sum(min(k + 1, h) * min(k + 1, w) for h, w in levels) * item
+    stream = n * sum(h * w for h, w in levels) * item
+    for label, nbytes in (("window gather", window + coords + taps_out),
+                          ("whole-map stream", stream + coords + taps_out)):
+        b_ms, b_by = bound(nbytes, 2 * 4 * k * k * len(levels) * n,
+                           H100_BF16_FLOPS)
+        log(f"K3 (not ported) bound per GRU iteration, {label}: "
+            f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB)")
+
+
 def synthetic_video(n=24, h=240, w=432, hole=56, y0=90, x0=160, pan=2,
                     seed=0):
     """bench.py's data: a smoothed-noise background panning 2 px/frame and
@@ -248,6 +392,258 @@ def phase_small_reference():
         raise AssertionError("card and CPU runs of the port disagree")
 
 
+FGT_TRAIN_STEPS = 10
+
+
+def train_opt(root: str, **kw) -> dict:
+    """configs/fgt_train.yaml as a dict (the GPU machine has no PyYAML):
+    the full-width generator, T-PatchGAN with dist_cnum 32, bf16 mixed
+    precision, the oracle's LAFC-single config, the reference optimizer
+    recipe; logging every step for the per-step losses."""
+    from fgt_tpu_torch.pipeline.video_inpainting import DEFAULT_FGT_CONFIG
+
+    opt = dict(DEFAULT_FGT_CONFIG, name="FGT_train", outputdir=root,
+               seed=10, mixed_precision=1, dist_cnum=32, record_iter=1,
+               flow_direction="for", flow_checkPoint=f"{root}/oracle.pth",
+               flow_config={"cnum": 48, "in_channel": 3, "PASSMASK": 1,
+                            "use_residual": 1, "resBlocks": 1,
+                            "use_bias": 1, "conv_type": "vanilla"},
+               train={"lr": 1e-4, "lr_decay": 0.1, "BETA1": 0.9,
+                      "BETA2": 0.999, "MAX_ITERS": 0,
+                      "UPDATE_INTERVAL": 300000, "WARMUP": None,
+                      "log_freq": 1, "save_checkpoint_freq": 10 ** 9,
+                      "L1M": 1, "L1V": 1, "adv": 0.01})
+    opt.update(kw)
+    return opt
+
+
+def synthetic_train_batch(b=2, t=5, h=240, w=432, seed=0):
+    """bench_train.py's synth_fgt_batch: one random image repeated over
+    the frames plus 5% noise, a 72x96 hole, random flows."""
+    rng = np.random.RandomState(seed)
+    base = rng.rand(1, 1, h, w, 3).astype(np.float32)
+    frames = np.broadcast_to(base, (b, t, h, w, 3)).copy() * 2 - 1
+    frames += rng.randn(b, t, h, w, 3).astype(np.float32) * 0.05
+    masks = np.zeros((b, t, h, w, 1), np.float32)
+    masks[:, :, h // 3: h // 3 + 72, w // 3: w // 3 + 96] = 1.0
+    flows = rng.randn(b, t, h, w, 2).astype(np.float32)
+    return {"frames": frames.astype(np.float32), "masks": masks,
+            "forward_flo": flows}
+
+
+def save_oracle(path: str, config: dict, seed: int = 0):
+    import torch
+    from fgt_tpu_torch.models import lafc_single
+    from fgt_tpu_torch.utils import checkpoint
+
+    model = lafc_single.init_lafc_single(lafc_single.Model(config),
+                                         torch.Generator().manual_seed(seed))
+    checkpoint.save(model.state_dict(), path)
+
+
+def read_metrics(trainer, first_step: int) -> list:
+    with open(trainer.metrics.path) as f:
+        rows = [json.loads(line) for line in f]
+    return [r for r in rows if r["step"] > first_step]
+
+
+def phase_train(counters, profile: bool):
+    """Full-width FGT GAN training on the card (see the module doc)."""
+    import torch
+    from fgt_tpu_torch.ops.attention import TMHSA
+    from fgt_tpu_torch.train.trainer import FGTTrainer
+
+    with tempfile.TemporaryDirectory() as root:
+        opt = train_opt(root)
+        save_oracle(opt["flow_checkPoint"], opt["flow_config"])
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in synthetic_train_batch().items()}
+        t0 = time.perf_counter()
+        trainer = FGTTrainer(opt)
+        torch.cuda.synchronize()
+        n_gen = sum(p.numel() for p in trainer.gen.parameters())
+        log(f"train: trainer built in {time.perf_counter() - t0:.2f} s; "
+            f"generator {n_gen / 1e6:.2f} M parameters")
+
+        trainer.total_iterations = 2                 # cold steps
+        t0 = time.perf_counter()
+        trainer.train([batch])
+        torch.cuda.synchronize()
+        log(f"train: 2 cold steps (+ final checkpoint) in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        for c in counters:
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        trainer.total_iterations = 2 + FGT_TRAIN_STEPS
+        t0 = time.perf_counter()
+        trainer.train([batch])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = read_metrics(trainer, 2)
+        # steps/s between the first and last step's log stamps (each log
+        # syncs the card); the wall also holds the final checkpoint save
+        steps_per_s = (len(rows) - 1) / (rows[-1]["time"] - rows[0]["time"])
+        per_step = {k: v / FGT_TRAIN_STEPS for k, v in launches.items()}
+        log(f"train: {FGT_TRAIN_STEPS} steps, {steps_per_s:.4f} steps/s "
+            f"({1 / steps_per_s:.4f} s/step; wall {wall:.2f} s with the "
+            f"final checkpoint); peak device memory {peak:.2f} GiB; "
+            f"launches per step {per_step}")
+        for r in rows:
+            log("train step " + json.dumps(
+                {k: round(r[k], 6) for k in ("step", "gen_loss", "dis_loss",
+                                             "adv", "l1_valid", "l1_masked",
+                                             "lr")}))
+        if any(v != 4 for v in per_step.values()):
+            raise AssertionError(f"expected 4 launches per step: {per_step}")
+        keys = ("gen_loss", "dis_loss", "dis_real", "dis_fake", "adv",
+                "l1_valid", "l1_masked")
+        if not all(np.isfinite(r[k]) for r in rows for k in keys):
+            raise AssertionError("a loss is not finite")
+        l1 = [r["l1_valid"] + r["l1_masked"] for r in rows]
+        if not np.mean(l1[-3:]) < l1[0]:
+            raise AssertionError(f"l1 did not fall: {l1}")
+        n_emb = 0
+        for m in trainer.gen.modules():
+            if isinstance(m, TMHSA):
+                for lin in (m.query_embedding, m.key_embedding,
+                            m.value_embedding):
+                    gw = lin.weight.grad
+                    if gw is None or not torch.isfinite(gw).all() or \
+                            gw.abs().max().item() == 0:
+                        raise AssertionError("a TMHSA embedding got no "
+                                             "finite nonzero gradient")
+                    n_emb += 1
+        log(f"train: l1 {l1[0]:.4f} -> {l1[-1]:.4f}; {n_emb} TMHSA q/k/v "
+            f"embedding weights with finite nonzero gradients")
+
+        if profile:
+            profile_steps(trainer, batch)
+
+        # resume: save the trio, 3 steps, reload into a new trainer, 3 steps
+        paths = trainer.save_checkpoint(0)
+        start = trainer.current_step
+        trainer.total_iterations = start + 3
+        trainer.train([batch])
+        want = [r["gen_loss"] for r in read_metrics(trainer, start)]
+        del trainer
+        torch.cuda.empty_cache()
+        resumed = FGTTrainer(dict(opt, path=paths, resume=True))
+        if resumed.current_step != start:
+            raise AssertionError("resume did not restore the step")
+        resumed.total_iterations = start + 3
+        resumed.train([batch])
+        got = [r["gen_loss"] for r in read_metrics(resumed, start)][-3:]
+        log(f"train resume: gen_loss {want} (continued) vs {got} (resumed)")
+        if not np.allclose(got, want, rtol=1e-4, atol=0):
+            raise AssertionError("resumed run differs")
+        del resumed
+        torch.cuda.empty_cache()
+    return launches, dict(steps_per_s=steps_per_s, peak_gib=peak)
+
+
+def profile_steps(trainer, batch):
+    """Device time of two training steps (torch.profiler): busy and idle
+    share, the flash kernels' share, time by operator and by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.total_iterations = trainer.current_step + 1
+    trainer.train([batch])                    # warm, outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            trainer.current_step += 1
+            trainer._train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = sorted(kernel_events(prof),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 2e3
+    flash = sum(e.self_device_time_total for e in kernels
+                if "flash_" in e.key) / 2e3
+    log(f"profile: {wall / 2 * 1e3:.3f} ms/step wall under the profiler; "
+        f"kernels {busy:.3f} ms/step (idle share "
+        f"{max(0.0, 1 - busy / (wall / 2 * 1e3)):.3f}); K2+K4+K5 "
+        f"{flash:.3f} ms/step ({flash / busy:.3f} of kernel time)")
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::")),
+                 key=lambda e: -e.device_time_total)
+    for e in ops[:12]:
+        log(f"profile op: {e.device_time_total / 2e3:9.3f} ms/step "
+            f"x{e.count // 2:5d}  {e.key}")
+    for e in kernels[:16]:
+        log(f"profile kernel: {e.self_device_time_total / 2e3:9.3f} ms/step "
+            f"x{e.count // 2:5d}  {e.key[:110]}")
+
+
+def phase_small_train(devices=("cuda", "cpu")):
+    """One SGD GAN step at 64x64, 5 frames, FGT at 512 hidden / 4 heads
+    (head dim 128, the kernels' width) with 2 blocks, f32: on the card
+    (K2, K4, K5) and on the CPU (plain versions), from the same weights
+    and batch. SGD with lr 1 makes each parameter delta the negative
+    gradient. Losses must agree to 1e-4 relative; every tensor's delta
+    to 1e-3 of its own largest |delta| plus 1e-5 of the largest delta
+    of its model (tensors whose gradient is zero in exact arithmetic,
+    such as the key bias, hold rounding noise only)."""
+    import torch
+    from fgt_tpu_torch.models import discriminator, fgt, lafc_single
+    from fgt_tpu_torch.train.fgt_step import FGTTrainStep
+
+    cfg = dict(train_opt("."), numBlocks=2, mlp_ratio=4, res_h=64, res_w=64)
+    batch = synthetic_train_batch(b=1, t=5, h=64, w=64, seed=1)
+    batch["masks"][:] = 0
+    batch["masks"][:, :, 20:40, 16:44] = 1
+    batch = {"frames": batch["frames"], "masks": batch["masks"],
+             "flows": batch["forward_flo"]}
+    results = []
+    for dev in devices:
+        gen_rng = torch.Generator().manual_seed(5)
+        gen = fgt.init_fgt(fgt.Model(cfg), gen_rng)
+        disc = discriminator.init_discriminator(
+            discriminator.TemporalPatchGAN(3, 32), gen_rng)
+        oracle = lafc_single.init_lafc_single(
+            lafc_single.Model(cfg["flow_config"]), gen_rng)
+        for m in (gen, disc, oracle):
+            m.to(dev)
+        oracle.eval().requires_grad_(False)
+        before = {f"{tag}.{k}": p.detach().cpu().clone()
+                  for tag, m in (("g", gen), ("d", disc))
+                  for k, p in m.named_parameters()}
+        step = FGTTrainStep(gen, disc, oracle,
+                            torch.optim.SGD(gen.parameters(), lr=1.0),
+                            torch.optim.SGD(disc.parameters(), lr=1.0))
+        metrics = step({k: torch.from_numpy(v).to(dev)
+                        for k, v in batch.items()})
+        deltas = {f"{tag}.{k}": p.detach().cpu() - before[f"{tag}.{k}"]
+                  for tag, m in (("g", gen), ("d", disc))
+                  for k, p in m.named_parameters()}
+        results.append(({k: float(v) for k, v in metrics.items()}, deltas))
+    (m_gpu, d_gpu), (m_cpu, d_cpu) = results
+    loss_err = max(abs(m_gpu[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-6)
+                   for k in m_cpu)
+    top = {tag: max(v.abs().max().item() for k, v in d_cpu.items()
+                    if k.startswith(tag)) for tag in ("g", "d")}
+    worst, worst_key = 0.0, ""
+    for k, want in d_cpu.items():
+        tol = 1e-3 * want.abs().max().item() + 1e-5 * top[k[0]]
+        ratio = (d_gpu[k] - want).abs().max().item() / tol
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    log(f"small train step: card vs CPU losses max rel err {loss_err:.3g} "
+        f"(tol 1e-4); parameter deltas worst err/tol {worst:.3g} at "
+        f"{worst_key}; gen_loss {m_gpu['gen_loss']:.6f} vs "
+        f"{m_cpu['gen_loss']:.6f}")
+    if not (loss_err <= 1e-4 and worst <= 1.0):
+        raise AssertionError("card and CPU GAN steps disagree")
+
+
 def main() -> int:
     import torch
 
@@ -273,13 +669,19 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    k1, k2 = {}, {}
+    k1, k2, k45 = {}, {}, {}
     for dt in (torch.float32, torch.bfloat16):
         phase_k1(dt, k1)
         phase_k2(dt, k2)
+        phase_k45(dt, k45)
+    k3_bound()
     counters = (corr_fused.lookup_corr_fused, flash_attention.flash_mhsa)
     launches = phase_main_path(counters)
+    train_launches, _ = phase_train(
+        (flash_attention.flash_mhsa, flash_attention.flash_attention_dq,
+         flash_attention.flash_attention_dkv), "--profile" in sys.argv)
     phase_small_reference()
+    phase_small_train()
 
     bf16 = str(torch.bfloat16)
     kernels = [
@@ -291,6 +693,16 @@ def main() -> int:
              source="fgt_tpu_torch/csrc/flash_attention.cu",
              replaces="fgt_tpu/ops/flash_attention.py:33",
              launches=launches["flash_mhsa"], **k2[bf16]),
+        dict(name="flash_attention_dq", route="cuda",
+             source="fgt_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="fgt_tpu/ops/flash_attention.py:73",
+             launches=train_launches["flash_attention_dq"],
+             **k45["dq"][bf16]),
+        dict(name="flash_attention_dkv", route="cuda",
+             source="fgt_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="fgt_tpu/ops/flash_attention.py:105",
+             launches=train_launches["flash_attention_dkv"],
+             **k45["dkv"][bf16]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

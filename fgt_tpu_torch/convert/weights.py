@@ -10,7 +10,10 @@ both directions:
   conv3d   OIDHW  <-> DHWIO
   dwconv2d (O,1,kh,kw) <-> (kh,kw,1,O)
   linear   (out,in) <-> (in,out)
-  raw      copied as-is (biases, norms, running stats)
+  raw      copied as-is (biases, norms, running stats, spectral u)
+
+The discriminator's spectral ``v`` also needs its entries permuted
+(``_v_to_torch`` / ``_v_to_jax``).
 """
 
 from __future__ import annotations
@@ -210,6 +213,33 @@ def lafc_mapping(res_blocks: int = 1) -> Mapping:
     return m
 
 
+def lafc_single_mapping(res_blocks: int = 1) -> Mapping:
+    P = ("params", "net")
+    m: Mapping = {}
+    m.update(_vanilla(P + ("enc2_conv0",), "net.encoder2.1"))
+    m.update(_vanilla(P + ("enc2_conv1",), "net.encoder2.2"))
+    m.update(_vanilla(P + ("enc4_conv0",), "net.encoder4.0"))
+    m.update(_vanilla(P + ("enc4_conv1",), "net.encoder4.1"))
+    for i in range(res_blocks):
+        m.update(_conv(P + (f"res{i}", "conv1"), f"net.res_blocks.{i}.conv1"))
+        m.update(_conv(P + (f"res{i}", "conv2"), f"net.res_blocks.{i}.conv2"))
+    for i in range(4):
+        m.update(_vanilla(P + (f"middle{i}",), f"net.middle.{i}"))
+    m.update(_conv(P + ("dec2_deconv", "conv", "conv"),
+                   "net.decoder2.0.conv.featureConv"))
+    m.update(_vanilla(P + ("dec2_conv0",), "net.decoder2.1"))
+    m.update(_vanilla(P + ("dec2_conv1",), "net.decoder2.2"))
+    m.update(_conv(P + ("dec_deconv", "conv", "conv"),
+                   "net.decoder.0.conv.featureConv"))
+    m.update(_vanilla(P + ("dec_conv0",), "net.decoder.1"))
+    m.update(_vanilla(P + ("dec_conv1",), "net.decoder.2"))
+    for ours, theirs in (("projection", "projection"), ("mid1", "mid_layer_1"),
+                         ("mid2", "mid_layer_2"), ("out", "out_layer")):
+        m.update(_vanilla(P + ("edge_detector", ours),
+                          f"net.edgeDetector.{theirs}"))
+    return m
+
+
 def _transformer_t(flax_prefix, torch_prefix):
     m = {}
     att = flax_prefix + ("attention",)
@@ -275,6 +305,60 @@ def fgt_mapping(num_blocks: int = 8) -> Mapping:
                    "net.decoder.layer3.conv.featureConv"))
     m.update(_vanilla(P + ("decoder", "final"), "net.decoder.final"))
     return m
+
+
+def discriminator_mapping() -> Mapping:
+    """T-PatchGAN: flax params + spectral ``u``; the spectral ``v`` needs
+    a permutation and goes through :func:`jax_to_torch_discriminator_state`
+    / :func:`torch_to_jax_discriminator_leaves`."""
+    P = ("params",)
+    S = ("spectral",)
+    m: Mapping = {}
+    for i in range(5):
+        m[P + (f"conv{i}", "kernel")] = (f"conv.{2 * i}.weight_orig", "conv3d")
+        m[S + (f"conv{i}", "u")] = (f"conv.{2 * i}.weight_u", "raw")
+    m.update(_conv(P + ("conv5",), "conv.10", "conv3d"))
+    return m
+
+
+# The power iteration's v spans the flattened kernel minus its output
+# axis: torch flattens OIDHW as I·D·H·W, flax flattens DHWIO as D·H·W·I.
+
+def _v_to_torch(v: np.ndarray, kernel_oidhw: tuple) -> np.ndarray:
+    _, i, d, h, w = kernel_oidhw
+    return v.reshape(d, h, w, i).transpose(3, 0, 1, 2).reshape(-1)
+
+
+def _v_to_jax(v: np.ndarray, kernel_oidhw: tuple) -> np.ndarray:
+    _, i, d, h, w = kernel_oidhw
+    return v.reshape(i, d, h, w).transpose(1, 2, 3, 0).reshape(-1)
+
+
+def jax_to_torch_discriminator_state(variables_np: dict
+                                     ) -> Dict[str, torch.Tensor]:
+    """T-PatchGAN flax variables (params + spectral) -> torch
+    ``state_dict`` with ``weight_orig``, ``weight_u`` and ``weight_v``."""
+    state = jax_to_torch_state(variables_np, discriminator_mapping())
+    for i in range(5):
+        shape = tuple(state[f"conv.{2 * i}.weight_orig"].shape)
+        v = np.asarray(variables_np["spectral"][f"conv{i}"]["v"])
+        state[f"conv.{2 * i}.weight_v"] = torch.from_numpy(
+            np.ascontiguousarray(_v_to_torch(v, shape)).astype(
+                np.float32))
+    return state
+
+
+def torch_to_jax_discriminator_leaves(state: Dict[str, Any]
+                                      ) -> Dict[Tuple[str, ...], np.ndarray]:
+    """Torch T-PatchGAN ``state_dict`` -> {flax path: array}, spectral
+    ``v`` included."""
+    out = torch_to_jax_leaves(state, discriminator_mapping())
+    for i in range(5):
+        w = state[f"conv.{2 * i}.weight_orig"]
+        v = state[f"conv.{2 * i}.weight_v"].detach().cpu().float().numpy()
+        out[("spectral", f"conv{i}", "v")] = _v_to_jax(
+            v, tuple(w.shape))
+    return out
 
 
 def load_state(module: torch.nn.Module, state: Dict[str, torch.Tensor]):

@@ -53,7 +53,8 @@ class EdgeDetection(nn.Module):
 
 
 class _Pad(nn.Module):
-    """Edge replication of H and W (reference
+    """Edge replication of the two trailing dims, H and W, of an NCHW or
+    NCDHW tensor (reference ReplicationPad2d(p) /
     ReplicationPad3d((p, p, p, p, 0, 0)))."""
 
     def __init__(self, pad: int):
@@ -62,7 +63,8 @@ class _Pad(nn.Module):
 
     def forward(self, x):
         p = self.pad
-        return F.pad(x, (p, p, p, p, 0, 0), mode="replicate")
+        return F.pad(x, (p, p, p, p) + (0, 0) * (x.dim() - 4),
+                     mode="replicate")
 
 
 class P3DNet(nn.Module):

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 CUDA_SOURCES = {
     "corr_fused": "corr_fused.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 _lock = threading.Lock()

@@ -1,25 +1,44 @@
-"""Forward flash attention for FGT's temporal window attention — kernel K2.
+"""Flash attention for FGT's temporal window attention — kernels K2
+(forward), K4 (dq) and K5 (dk, dv).
 
-Replaces the TPU kernel ``fgt_tpu/ops/flash_attention.py::_flash_kernel``
-(forward, called through ``flash_mhsa``): softmax(q·kᵀ·scale)·v over
-[N, L, ch] with N = batch·groups·heads, plus the f32 row logsumexp kept
-for a later backward. The backward kernels (``_flash_dq_kernel``,
-``_flash_dkv_kernel``) serve training only and are not ported here.
+Replaces the TPU kernels of ``fgt_tpu/ops/flash_attention.py``:
+``_flash_kernel`` (forward, called through ``flash_mhsa``) and the two
+kernels of its custom VJP, ``_flash_dq_kernel`` and ``_flash_dkv_kernel``.
+The forward computes softmax(q·kᵀ·scale)·v over [N, L, ch] with
+N = batch·groups·heads, plus the f32 row logsumexp (lse) that the
+backward recomputes the probabilities from. :class:`FlashAttention`
+ties the three together as one differentiable op; :func:`flash_attend`,
+which TMHSA calls, goes through it.
 
-Design for Hopper (``csrc/flash_attention.cu``): one block of 256
-threads per (n, 64-query tile); q, k, v tiles of 64 rows × 128 staged in
-shared memory as f32 (~115 KB, dynamic shared memory); 4×4 score and 4×8
-output micro-tiles per thread; running max and sum in f32 registers
-(online softmax); keys past the ragged end of L masked to -1e30 in the
-kernel, so no padding to a block multiple ever reaches device memory.
-Head dim 128 only (the FGT main path: 512 hidden / 4 heads).
+Design for Hopper. Every kernel works on 64-row tiles of 128-wide rows
+staged in shared memory as f32, with 256 threads per block, each owning
+a 4×4 micro-tile of the 64×64 score tile, and handles the ragged end of
+L in the kernel (masked keys, masked query rows), so no padding to a
+block multiple reaches device memory. Head dim 128 only (the FGT path:
+512 hidden / 4 heads).
 
-Bound on the card: at the main path's N = 80, L = 2340, ch = 128 the
-call does 4·N·L²·ch ≈ 224 GFLOP and must move ≈0.2 GB, so operations
-bound it — ≈0.23 ms at the bf16 tensor-core peak (989 TFLOP/s). This
-first kernel runs the products on the f32 FMA units (67 TFLOP/s peak)
-and so cannot come near that bound; moving them onto ``mma``/``wgmma``
-is later work.
+* K2 (``csrc/flash_attention.cu``): one block per (n, 64-query tile);
+  online softmax with the running max and sum in f32 registers.
+* K4 (``csrc/flash_attention_bwd.cu``): one block per (n, 64-query
+  tile); loops over key tiles: s = q·kᵀ·scale, p = exp(s − lse),
+  dp = dO·vᵀ, ds = p∘(dp − dsum)·scale, dq += ds·k.
+* K5 (same file): one block per (n, 64-key tile); loops over query
+  tiles: dv += pᵀ·dO, dk += dsᵀ·q. The dk and dv accumulators (2×64×128
+  f32) live in registers, 64 per thread; the q, dO, k, v, p and ds tiles
+  take 165 KB of shared memory.
+
+Each output row belongs to one block, so the backward uses no atomics
+and is deterministic. dsum = rowsum(dO∘O) is taken in plain torch, as
+the JAX package takes it outside Pallas.
+
+Bounds on the card (H100 SXM). Forward at inference's N = 80,
+L = 2340: 4·N·L²·ch ≈ 224 GFLOP against ≈0.2 GB, operations-bound,
+≈0.23 ms at the bf16 tensor-core peak (989 TFLOP/s). Backward at
+training's N = 32, L = 900: K4 does 6·N·L²·ch ≈ 19.9 GFLOP (≈0.020 ms
+bf16 bound), K5 8·N·L²·ch ≈ 26.5 GFLOP (≈0.027 ms), both
+operations-bound. These first kernels run the products on the f32 FMA
+units (67 TFLOP/s peak) and so cannot come near those bounds; moving
+them onto ``mma``/``wgmma`` is later work.
 """
 
 from __future__ import annotations
@@ -37,14 +56,45 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 @functools.cache
-def _kernel():
-    fn = load_cuda_library("flash_attention").flash_attention_forward
+def _kernel(lib: str, name: str, n_ptrs: int):
+    fn = getattr(load_cuda_library(lib), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_float, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_float, ctypes.c_int,
+                                                ctypes.c_void_p]
     return fn
 
+
+def _check(name: str, q: torch.Tensor, *same: torch.Tensor) -> None:
+    """Raise unless ``q`` and ``same`` are CUDA [N, L, 128] tensors of one
+    supported dtype and shape."""
+    if not q.is_cuda:
+        raise RuntimeError(f"{name}: CUDA tensors expected")
+    if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in same):
+        raise TypeError(f"{name}: unsupported dtypes "
+                        f"{[str(t.dtype) for t in (q,) + same]}")
+    if q.dim() != 3 or any(t.shape != q.shape for t in same):
+        raise ValueError(f"{name}: operands must share one [N, L, ch] "
+                         f"shape, got {[tuple(t.shape) for t in (q,) + same]}")
+    if q.shape[2] != HEAD_DIM:
+        raise ValueError(f"{name}: head dim {q.shape[2]} != {HEAD_DIM}")
+
+
+def _rows(name: str, ref: torch.Tensor, *rows: torch.Tensor) -> list:
+    """The [N, L] f32 row vectors (lse, dsum), checked and contiguous."""
+    for r in rows:
+        if r.dtype != torch.float32 or r.shape != ref.shape[:2] or \
+                r.device != ref.device:
+            raise ValueError(f"{name}: row vectors must be f32 "
+                             f"{tuple(ref.shape[:2])} on {ref.device}")
+    return [r.contiguous() for r in rows]
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------- plain
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float):
@@ -57,32 +107,47 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse
 
 
+def _probs_and_ds(q, k, v, dout, lse, dsum, scale):
+    """p = exp(q·kᵀ·scale − lse) and ds = p∘(dO·vᵀ − dsum)·scale in f32,
+    recomputed as the TPU backward kernels recompute them."""
+    s = torch.einsum("nqc,nkc->nqk", q.float(), k.float()) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("nqc,nkc->nqk", dout.float(), v.float())
+    return p, p * (dp - dsum[..., None]) * scale
+
+
+def flash_attention_dq_plain(q, k, v, dout, lse, dsum, scale: float):
+    """Plain PyTorch version of K4: dq = ds·k, in q's dtype."""
+    _, ds = _probs_and_ds(q, k, v, dout, lse, dsum, scale)
+    return torch.einsum("nqk,nkc->nqc", ds, k.float()).to(q.dtype)
+
+
+def flash_attention_dkv_plain(q, k, v, dout, lse, dsum, scale: float):
+    """Plain PyTorch version of K5: (dk = dsᵀ·q, dv = pᵀ·dO), in the
+    input dtype."""
+    p, ds = _probs_and_ds(q, k, v, dout, lse, dsum, scale)
+    dk = torch.einsum("nqk,nqc->nkc", ds, q.float())
+    dv = torch.einsum("nqk,nqc->nkc", p, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ------------------------------------------------------------- wrappers
+
 def flash_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                scale: float):
-    """softmax(q kᵀ scale) v over [N, L, ch]. Returns (out, lse). CPU
+    """K2: softmax(q kᵀ scale) v over [N, L, ch]. Returns (out, lse). CPU
     tensors take the plain version; CUDA tensors launch the kernel (or
-    raise)."""
+    raise). Not differentiable on CUDA: use :class:`FlashAttention`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, scale)
-    if not q.is_cuda:
-        raise RuntimeError("flash_mhsa: CUDA tensors expected")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_mhsa: unsupported dtypes "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_mhsa: q/k/v must share one [N, L, ch] "
-                         f"shape, got {tuple(q.shape)}/{tuple(k.shape)}/"
-                         f"{tuple(v.shape)}")
-    n, l, ch = q.shape
-    if ch != HEAD_DIM:
-        raise ValueError(f"flash_mhsa: head dim {ch} != {HEAD_DIM}")
+    _check("flash_mhsa", q, k, v)
+    n, l, _ = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty(n, l, dtype=torch.float32, device=q.device)
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    out.data_ptr(), lse.data_ptr(), n, l, float(scale),
-                    _DTYPE_CODE[q.dtype],
-                    torch.cuda.current_stream(q.device).cuda_stream)
+    err = _kernel("flash_attention", "flash_attention_forward", 5)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), n, l, float(scale), _DTYPE_CODE[q.dtype], _stream(q))
     check_launch(err, "flash_attention_forward")
     flash_mhsa.launches += 1
     return out, lse
@@ -91,13 +156,81 @@ def flash_mhsa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_mhsa.launches = 0
 
 
+def flash_attention_dq(q, k, v, dout, lse, dsum, scale: float):
+    """K4: dq [N, L, ch] in q's dtype from the saved lse and
+    dsum = rowsum(dO∘O). CPU tensors take the plain version; CUDA tensors
+    launch the kernel (or raise)."""
+    if q.device.type == "cpu":
+        return flash_attention_dq_plain(q, k, v, dout, lse, dsum, scale)
+    _check("flash_attention_dq", q, k, v, dout)
+    lse, dsum = _rows("flash_attention_dq", q, lse, dsum)
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    n, l, _ = q.shape
+    dq = torch.empty_like(q)
+    err = _kernel("flash_attention_bwd", "flash_attention_dq", 7)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), n, l, float(scale),
+        _DTYPE_CODE[q.dtype], _stream(q))
+    check_launch(err, "flash_attention_dq")
+    flash_attention_dq.launches += 1
+    return dq
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, dout, lse, dsum, scale: float):
+    """K5: (dk, dv) [N, L, ch] in the input dtype from the saved lse and
+    dsum. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (or raise)."""
+    if q.device.type == "cpu":
+        return flash_attention_dkv_plain(q, k, v, dout, lse, dsum, scale)
+    _check("flash_attention_dkv", q, k, v, dout)
+    lse, dsum = _rows("flash_attention_dkv", q, lse, dsum)
+    q, k, v, dout = (t.contiguous() for t in (q, k, v, dout))
+    n, l, _ = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _kernel("flash_attention_bwd", "flash_attention_dkv", 8)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(), n, l,
+        float(scale), _DTYPE_CODE[q.dtype], _stream(q))
+    check_launch(err, "flash_attention_dkv")
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over [N, L, ch]: K2 forward, K4 and
+    K5 backward (plain versions for CPU tensors) — the JAX package's
+    ``_flash_core`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        out, lse = flash_mhsa(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.to(q.dtype)
+        dsum = (dout.float() * out.float()).sum(-1)
+        dq = flash_attention_dq(q, k, v, dout, lse, dsum, ctx.scale)
+        dk, dv = flash_attention_dkv(q, k, v, dout, lse, dsum, ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> torch.Tensor:
     """Attention over [..., L, ch] operands: collapses the leading dims
-    into N, runs :func:`flash_mhsa`, restores the shape."""
+    into N, runs :class:`FlashAttention`, restores the shape."""
     lead = q.shape[:-2]
     l, ch = q.shape[-2:]
     n = math.prod(lead) if lead else 1
-    out, _ = flash_mhsa(q.reshape(n, l, ch), k.reshape(n, l, ch),
-                        v.reshape(n, l, ch), scale)
+    out = FlashAttention.apply(q.reshape(n, l, ch), k.reshape(n, l, ch),
+                               v.reshape(n, l, ch), scale)
     return out.reshape(*lead, l, ch)

@@ -53,6 +53,7 @@ from fgt_tpu_torch.pipeline import image_io
 from fgt_tpu_torch.pipeline.poisson import poisson_blend
 from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
                                                 get_flownn_gradient_frames)
+from fgt_tpu_torch.utils.checkpoint import load_state_dict
 
 logger = logging.getLogger("fgt_tpu_torch")
 
@@ -467,17 +468,8 @@ def _load_ckpt_dir(path: Optional[str], default_cfg: dict):
                 config.update(json.load(f))
         weights = sorted(p for p in os.listdir(path) if p.endswith(".pth"))
         if weights:
-            state = _load_torch_state(os.path.join(path, weights[-1]))
+            state = load_state_dict(os.path.join(path, weights[-1]))
     return config, state
-
-
-def _load_torch_state(path: str) -> dict:
-    state = torch.load(path, map_location="cpu", weights_only=True)
-    for key in ("model_state_dict", "state_dict"):
-        if isinstance(state, dict) and key in state:
-            state = state[key]
-    return {k[len("module."):] if k.startswith("module.") else k: v
-            for k, v in state.items()}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -549,7 +541,7 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
                                                   DEFAULT_LAFC_CONFIG)
             fgt_cfg, fgt_state = _load_ckpt_dir(args.fgt_ckpts,
                                                 DEFAULT_FGT_CONFIG)
-            raft_state = (_load_torch_state(args.raft_model)
+            raft_state = (load_state_dict(args.raft_model)
                           if os.path.exists(args.raft_model) else None)
             for name, st in (("RAFT", raft_state), ("LAFC", lafc_state),
                              ("FGT", fgt_state)):

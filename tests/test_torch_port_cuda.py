@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain versions. These need a
+"""The port's CUDA kernels (K1, K2, K4, K5) against their plain versions. These need a
 GPU and nvcc: marked ``cuda``; they skip on machines without a card and
 run there with
 
@@ -60,3 +60,47 @@ def test_k2_rejects_other_head_dims(dev):
     q = torch.randn(2, 50, 64, device=dev)
     with pytest.raises(ValueError):
         fa.flash_mhsa(q, q, q, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [10, 300])
+def test_k4_k5_kernels_match_plain(dev, dtype, l):
+    """dq, dk, dv from K4/K5 against their plain versions on the same lse
+    and dsum, ragged L. f32: reassociation only; bf16 outputs: 1 ulp of
+    the largest entry."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, do = (torch.randn(3, l, 128, device=dev, generator=g).to(dtype)
+                   for _ in range(4))
+    scale = 128 ** -0.5
+    out, lse = fa.flash_mhsa(q, k, v, scale)
+    dsum = (do.float() * out.float()).sum(-1)
+    before = (fa.flash_attention_dq.launches, fa.flash_attention_dkv.launches)
+    got = (fa.flash_attention_dq(q, k, v, do, lse, dsum, scale),
+           *fa.flash_attention_dkv(q, k, v, do, lse, dsum, scale))
+    assert (fa.flash_attention_dq.launches,
+            fa.flash_attention_dkv.launches) == (before[0] + 1, before[1] + 1)
+    want = (fa.flash_attention_dq_plain(q, k, v, do, lse, dsum, scale),
+            *fa.flash_attention_dkv_plain(q, k, v, do, lse, dsum, scale))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        top = b.float().abs().max().item()
+        tol = 1e-5 * max(1.0, top) if dtype == torch.float32 else top * 2 ** -7
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+def test_flash_attend_gradients_on_the_card(dev):
+    """The FlashAttention Function (K2, K4, K5) against autograd of the
+    plain forward on the card, f32; tolerance 1e-5."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    base = [torch.randn(2, 2, 150, 128, device=dev, generator=g)
+            for _ in range(4)]
+    ours = [t.clone().requires_grad_() for t in base[:3]]
+    ref = [t.clone().requires_grad_() for t in base[:3]]
+    out = fa.flash_attend(*ours, 0.1)
+    assert out.grad_fn is not None
+    want = fa.flash_attention_plain(*(r.reshape(4, 150, 128) for r in ref),
+                                    0.1)[0].reshape(out.shape)
+    (out * base[3]).sum().backward()
+    (want * base[3]).sum().backward()
+    for a, b in zip(ours, ref):
+        assert (a.grad - b.grad).abs().max().item() <= 1e-5

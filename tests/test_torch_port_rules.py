@@ -3,10 +3,12 @@
 * no module of ``fgt_tpu_torch`` (nor ``chip_smoke.py``) imports JAX,
   flax, the JAX package, or cv2/imageio/yaml, which the GPU machine lacks;
 * entry points default to the ``cuda`` device;
-* the weight bridge round-trips every leaf of the RAFT, LAFC and FGT
-  tables with no key missing on either side, and its tables equal the
-  JAX package's converter tables;
+* the weight bridge round-trips every leaf of the RAFT, LAFC,
+  LAFC-single, FGT and T-PatchGAN tables with no key missing on either
+  side, and its tables equal the JAX package's converter tables;
 * CPU tensors take the kernels' plain versions without counting a launch;
+* flash attention stays differentiable when its forward is a kernel
+  whose output carries no autograd history;
 * frame I/O and the stage timer.
 """
 
@@ -22,12 +24,15 @@ import torch
 from fgt_tpu.convert import torch2jax
 from fgt_tpu_torch import DEFAULT_DEVICE
 from fgt_tpu_torch.convert import weights
+from fgt_tpu_torch.models import discriminator as tdisc
 from fgt_tpu_torch.models import fgt as tfgt
 from fgt_tpu_torch.models import lafc as tlafc
+from fgt_tpu_torch.models import lafc_single as tls
 from fgt_tpu_torch.models import raft as traft
 from fgt_tpu_torch.ops import corr_fused, flash_attention
 from fgt_tpu_torch.pipeline import image_io
 from fgt_tpu_torch.pipeline import video_inpainting as tvi
+from fgt_tpu_torch.train.trainer import FGTTrainer
 
 torch.set_num_threads(1)
 
@@ -67,15 +72,16 @@ def test_entry_points_default_to_cuda():
     sig = inspect.signature(tvi.Models.__init__)
     assert sig.parameters["device"].default == "cuda"
     assert tvi.build_parser().parse_args([]).device == "cuda"
+    sig = inspect.signature(FGTTrainer.__init__)
+    assert sig.parameters["device"].default == "cuda"
 
 
-def _bridge_roundtrip(module, mapping):
-    """Random flax-layout leaves for every mapped path -> torch state ->
-    strict load (no key missing either way) -> back to flax layout."""
+def _random_tree(own, paths):
+    """Random flax-layout leaves for ``paths`` ({path: (torch key, kind)})
+    shaped after the torch ``state_dict`` ``own``."""
     rng = np.random.RandomState(0)
-    own = module.state_dict()
     tree, leaves = {}, {}
-    for path, (key, kind) in mapping.items():
+    for path, (key, kind) in paths.items():
         shape = weights.torch_to_jax_array(kind, own[key].numpy()).shape
         leaf = rng.randn(*shape).astype(np.float32)
         node = tree
@@ -83,6 +89,14 @@ def _bridge_roundtrip(module, mapping):
             node = node.setdefault(p, {})
         node[path[-1]] = leaf
         leaves[path] = leaf
+    return tree, leaves
+
+
+def _bridge_roundtrip(module, mapping):
+    """Random flax-layout leaves for every mapped path -> torch state ->
+    strict load (no key missing either way) -> back to flax layout."""
+    own = module.state_dict()
+    tree, leaves = _random_tree(own, mapping)
     state = weights.jax_to_torch_state(tree, mapping)
     assert set(state) == set(own), sorted(set(state) ^ set(own))[:10]
     weights.load_state(module, state)
@@ -91,7 +105,31 @@ def _bridge_roundtrip(module, mapping):
         np.testing.assert_array_equal(back[path], leaf)
 
 
-@pytest.mark.parametrize("name", ["raft", "lafc", "fgt"])
+def _discriminator_roundtrip(module):
+    """As :func:`_bridge_roundtrip`, with the spectral ``v`` vectors,
+    whose entries the bridge permutes; the torch -> flax ``v`` must equal
+    the JAX package's ``convert_discriminator_state``."""
+    own = module.state_dict()
+    paths = dict(weights.discriminator_mapping())
+    for i in range(5):
+        paths[("spectral", f"conv{i}", "v")] = (f"conv.{2 * i}.weight_v",
+                                                "raw")
+    tree, leaves = _random_tree(own, paths)
+    state = weights.jax_to_torch_discriminator_state(tree)
+    assert set(state) == set(own), sorted(set(state) ^ set(own))[:10]
+    weights.load_state(module, state)
+    back = weights.torch_to_jax_discriminator_leaves(module.state_dict())
+    assert set(back) == set(leaves)
+    for path, leaf in leaves.items():
+        np.testing.assert_array_equal(back[path], leaf)
+    ref = torch2jax.convert_discriminator_state(module.state_dict(), tree)
+    for i in range(5):
+        np.testing.assert_array_equal(ref["spectral"][f"conv{i}"]["v"],
+                                      leaves[("spectral", f"conv{i}", "v")])
+
+
+@pytest.mark.parametrize("name", ["raft", "lafc", "lafc_single", "fgt",
+                                  "discriminator"])
 def test_weight_bridge_roundtrips_every_leaf(name):
     if name == "raft":
         mapping, module = weights.raft_mapping(), traft.RAFT()
@@ -100,6 +138,15 @@ def test_weight_bridge_roundtrips_every_leaf(name):
         mapping = weights.lafc_mapping(1)
         module = tlafc.Model(tvi.DEFAULT_LAFC_CONFIG)
         assert mapping == torch2jax.lafc_mapping(1)
+    elif name == "lafc_single":
+        mapping = weights.lafc_single_mapping(1)
+        module = tls.Model({"cnum": 48})
+        assert mapping == torch2jax.lafc_single_mapping(1)
+    elif name == "discriminator":
+        assert weights.discriminator_mapping() == \
+            torch2jax.discriminator_mapping()
+        _discriminator_roundtrip(tdisc.TemporalPatchGAN(3, 32))
+        return
     else:
         mapping = weights.fgt_mapping(8)
         module = tfgt.Model(tvi.DEFAULT_FGT_CONFIG)
@@ -117,8 +164,35 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     q = torch.randn(2, 10, 128)
     o, lse = flash_attention.flash_mhsa(q, q, q, 0.1)
     assert o.shape == q.shape and lse.shape == (2, 10)
+    dsum = lse * 0
+    dq = flash_attention.flash_attention_dq(q, q, q, q, lse, dsum, 0.1)
+    dk, dv = flash_attention.flash_attention_dkv(q, q, q, q, lse, dsum, 0.1)
+    assert dq.shape == dk.shape == dv.shape == q.shape
     assert corr_fused.lookup_corr_fused.launches == 0
-    assert flash_attention.flash_mhsa.launches == 0
+    for fn in (flash_attention.flash_mhsa, flash_attention.flash_attention_dq,
+               flash_attention.flash_attention_dkv):
+        assert fn.launches == 0, fn.__name__
+
+
+def test_flash_attend_keeps_autograd_history(monkeypatch):
+    """On the card the forward kernel fills its output through ctypes, so
+    that output has no autograd history. flash_attend must still return a
+    tensor with a grad_fn whose backward reaches q, k and v (the
+    FlashAttention Function, backward through K4/K5). The kernel is
+    stood in for by a detached plain forward."""
+    def kernel_like(q, k, v, scale):
+        out, lse = flash_attention.flash_attention_plain(
+            q.detach(), k.detach(), v.detach(), scale)
+        return out, lse
+
+    monkeypatch.setattr(flash_attention, "flash_mhsa", kernel_like)
+    q, k, v = (torch.randn(2, 3, 20, 128, requires_grad=True)
+               for _ in range(3))
+    out = flash_attention.flash_attend(q, k, v, 0.1)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and t.grad.abs().sum() > 0
 
 
 def test_png_roundtrip_and_reads_imageio_files(tmp_path):
