@@ -15,15 +15,28 @@ Phases (any failure exits nonzero; nothing is caught):
      N=32, L=900, ch=128, in f32 and bf16: against their plain versions
      and against autograd of the plain forward; SDPA's backward (forward
      + backward minus forward) is timed beside them as a yardstick only;
-     then the bytes bound of the unported K3 at its main-path shape;
-  5. the object-removal main path at full model width (random weights
+  5. kernel K3 (RAFT all-pairs pyramid lookup) against its plain version
+     at the main-path shape (one GRU iteration, 46 pairs x 60x108 pixels,
+     4 levels, r 4), f32 and bf16 storage, with coords on, past and far
+     outside the level edges; F.grid_sample, one call per level, timed
+     beside it as a yardstick only; then the all-pairs pyramid build of
+     one refine (TF32 product of bf16 features against the f32 product);
+  6. the object-removal main path at full model width (random weights
      from seed 0, bf16): 24 synthetic panning frames at 432x240 with a
-     moving 56x56 hole, run twice (cold, then warm); per pass the
-     synchronized per-stage seconds, frames/s, peak memory and the
-     kernels' launch counts (reset before the pass, read after it), which
-     must all be > 0; output checked to be [24, 240, 432, 3] u8 and
-     byte-identical to the input outside the hole;
-  6. FGT stage-2 GAN training at the full width of
+     moving 56x56 hole, run twice (cold, then warm) on each s1 path, K1
+     (default) and the all-pairs pyramid (K3); per pass the synchronized
+     per-stage seconds, frames/s, peak memory and the kernels' launch
+     counts (reset before the pass, read after it: 20 per video of the
+     path's correlation kernel, none of the other's, K2 > 0); output
+     checked to be [24, 240, 432, 3] u8 and byte-identical to the input
+     outside the hole; the two warm s1 times side by side;
+  7. through the CLI at full width: watermark removal from PNG
+     directories with premasked frames (default path), video
+     extrapolation to a 1.2x canvas of 288x516 (pyramid path; the centre
+     must be the input) and --Nonlocal on 12 frames (pyramid path);
+     offline flow extraction of 2 PNG videos x 8 frames (28 .flo files,
+     K3 160 launches); the batch driver over 2 videos (every row ok);
+  8. FGT stage-2 GAN training at the full width of
      configs/fgt_train.yaml (240x432, 5 frames, batch 2, 512 hidden,
      8 blocks, bf16 autocast) through ``FGTTrainer``, with the frozen
      LAFC-single oracle (random weights from seed 0) loaded from a
@@ -32,13 +45,14 @@ Phases (any failure exits nonzero; nothing is caught):
      l1 falling, every TMHSA q/k/v embedding weight with a finite nonzero
      gradient; then a resume check (save the trio, 3 steps, reload,
      3 steps: gen_loss must match);
-  7. small inputs through the port on the card and on the CPU (plain
-     versions), which must agree: an object-removal run, and one SGD
-     GAN step (losses and parameter deltas);
-  8. one JSON line with every kernel's numbers, then the result line.
+  9. small inputs through the port on the card and on the CPU (plain
+     versions), which must agree: object-removal runs on the K1 path and
+     on the pyramid path with --Nonlocal, and one SGD GAN step (losses
+     and parameter deltas);
+ 10. one JSON line with every kernel's numbers, then the result line.
 
 ``--profile`` adds a torch.profiler trace of two training steps after
-phase 6 and prints the device time by kernel.
+phase 8 and prints the device time by kernel.
 
 Needs torch with CUDA, nvcc and g++; imports nothing of JAX.
 """
@@ -284,27 +298,134 @@ def phase_k45(dtype, stats: dict):
             max_abs_err=err, library_ms=lib_ms)
 
 
-def k3_bound():
-    """Bound of the unported K3 (fgt_tpu/ops/corr_lookup_pallas.py:43,
-    RAFT's pyramid lookup under the JAX package's --pallas_lookup) at the
-    main-path shape: one GRU iteration over 46 pairs x 60x108 pixels,
-    4 levels of bf16 all-pairs maps, radius 4 (81 f32 taps per level),
-    f32 coords. A bilinear lookup needs only the (k+1)^2 window of each
-    pixel's map per level (clipped to the level), so that is what the
-    bound counts; the TPU kernel streams every pixel's whole map."""
-    n, r, item = 46 * 60 * 108, 4, 2
-    k = 2 * r + 1
-    levels = [(60, 108), (30, 54), (15, 27), (7, 13)]
-    taps_out = n * len(levels) * k * k * 4
-    coords = n * 2 * 4
-    window = n * sum(min(k + 1, h) * min(k + 1, w) for h, w in levels) * item
-    stream = n * sum(h * w for h, w in levels) * item
-    for label, nbytes in (("window gather", window + coords + taps_out),
-                          ("whole-map stream", stream + coords + taps_out)):
-        b_ms, b_by = bound(nbytes, 2 * 4 * k * k * len(levels) * n,
-                           H100_BF16_FLOPS)
-        log(f"K3 (not ported) bound per GRU iteration, {label}: "
-            f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB)")
+def phase_k3(dtype, stats: dict):
+    """K3 at the main-path shape: one GRU iteration over 46 pairs x
+    60x108 pixels, 4 levels of all-pairs maps (60x108, 30x54, 15x27,
+    7x13 — odd sizes floor-pooled), radius 4, f32 coords that include
+    far-out-of-range pixels and pixels on and past the level edges.
+    F.grid_sample (align_corners=True, zero padding), one call per level
+    on [N, 1, H_l, W_l] with a [N, k, k, 2] grid — the reference
+    bilinear_sampler — is timed beside it as a yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    from fgt_tpu_torch.ops import corr_lookup as cl
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, H, W, r, L = 46, 60, 108, 4, 4
+    n, k = B * H * W, 2 * r + 1
+    pyr = [torch.randn(n, h, w, device="cuda", generator=g).to(dtype)
+           for h, w in cl.pyramid_sizes(H, W, L)]
+    ys, xs = torch.meshgrid(torch.arange(H, device="cuda"),
+                            torch.arange(W, device="cuda"), indexing="ij")
+    coords = torch.stack([xs, ys], -1).float()[None].repeat(B, 1, 1, 1)
+    coords = coords + 8 * torch.randn(B, H, W, 2, device="cuda", generator=g)
+    coords[:, :4] = 1e4                       # far out of range: zero taps
+    coords[:, 4:8] = -3e3
+    coords[:, 8, :, 0] = W - 1                # on the right edge
+    coords[:, 9, :, 0] = -0.5                 # straddling the left edge
+    coords[:, 10, :, 1] = H - 0.75            # straddling the bottom edge
+    got = cl.lookup_corr_pyramid(pyr, coords, r)
+    want = cl.lookup_corr_pyramid_plain(pyr, coords, r)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    top = want.abs().max().item()
+    # same arithmetic in the same order, each product and sum rounded on
+    # its own: equal; one f32 ulp of the largest tap is the bound
+    tol = top * 2 ** -23
+    far = got[:, :8].abs().max().item()
+    log(f"K3 {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol:.3g}; "
+        f"{int((diff > 0).sum())} of {got.numel()} taps differ; max |tap| "
+        f"{top:.3g}); far-coord taps max {far}")
+    if not err <= tol or far != 0.0:
+        raise AssertionError("K3 disagrees with its plain version")
+    kernel_ms = cuda_ms(lambda: cl.lookup_corr_pyramid(pyr, coords, r), 20)
+    plain_ms = cuda_ms(lambda: cl.lookup_corr_pyramid_plain(pyr, coords, r),
+                       2)
+    # the reference bilinear_sampler: dx on the slow axis of the [k, k]
+    # grid (corr.py:37-43), coordinates normalized to [-1, 1]
+    d = torch.arange(-r, r + 1, device="cuda", dtype=torch.float32)
+    delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1)
+    grids, vols = [], []
+    for lvl, vol in enumerate(pyr):
+        hl, wl = vol.shape[1:]
+        c = coords.reshape(n, 1, 1, 2) / 2 ** lvl + delta
+        scale = torch.tensor([2.0 / max(wl - 1, 1), 2.0 / max(hl - 1, 1)],
+                             device="cuda")
+        grids.append((c * scale - 1).to(dtype))
+        vols.append(vol[:, None])
+
+    def library():
+        # PyTorch's own kernel: cuDNN's sampler refuses batches this large
+        with torch.backends.cudnn.flags(enabled=False):
+            return [F.grid_sample(v, gr, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True)
+                    for v, gr in zip(vols, grids)]
+
+    lib = torch.cat([o.reshape(n, k * k) for o in library()], -1)
+    lib_err = (lib.float() - want.reshape(n, -1)).abs().max().item()
+    library_ms = cuda_ms(library, 10)
+    del grids, vols, lib
+    # bytes this run's data needs: each pixel's in-level window per level
+    item = pyr[0].element_size()
+    window = 0
+    for lvl, vol in enumerate(pyr):
+        hl, wl = vol.shape[1:]
+        c0 = torch.floor(coords / 2 ** lvl).clamp(-1e6, 1e6)
+        dd = torch.arange(-r, r + 2, device="cuda")
+        vx = ((c0[..., :1] + dd >= 0) & (c0[..., :1] + dd <= wl - 1)).sum(-1)
+        vy = ((c0[..., 1:] + dd >= 0) & (c0[..., 1:] + dd <= hl - 1)).sum(-1)
+        window += (vx * vy).sum().item()
+    nbytes = window * item + coords.numel() * 4 + got.numel() * 4
+    flops = 9 * got.numel()                  # 6 multiplies, 3 adds per tap
+    b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS)
+    log(f"K3 {str(dtype)[6:]}: kernel_ms {kernel_ms:.4f} plain_ms "
+        f"{plain_ms:.4f} library_ms {library_ms:.4f} (grid_sample, 4 calls; "
+        f"max |diff| to the plain taps {lib_err:.3g}) bound_ms {b_ms:.4f} "
+        f"({b_by}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
+    stats[str(dtype)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=err,
+                             library_ms=library_ms)
+
+
+def phase_pyramid_build():
+    """The all-pairs pyramid of one refine at the main-path shape (46
+    pairs x 60x108 pixels, C = 256, bf16 storage), built 8 pairs at a
+    time: from bf16 features (f32 product on TF32 tensor cores, exact for
+    bf16-valued inputs — the port's path) and from the same values in
+    f32 features (full-f32 product), which must agree."""
+    import torch
+    from fgt_tpu_torch.ops import corr_lookup as cl
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    f1, f2 = (torch.randn(46, 60, 108, 256, device="cuda", generator=g)
+              .to(torch.bfloat16) for _ in range(2))
+    times = {}
+    for label, a, b in (("bf16 features, TF32 product", f1, f2),
+                        ("f32 features, f32 product", f1.float(),
+                         f2.float())):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pyr = cl.build_corr_pyramid(a, b, 4, dtype=torch.bfloat16)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        times[label] = cuda_ms(lambda: cl.build_corr_pyramid(
+            a, b, 4, dtype=torch.bfloat16), 3)
+        if label.startswith("bf16"):
+            ref = pyr
+        else:
+            err = max((p.float() - q.float()).abs().max().item()
+                      for p, q in zip(pyr, ref))
+        log(f"pyramid build ({label}): {times[label]:.3f} ms; "
+            f"{sum(p.numel() * 2 for p in pyr) / 1e9:.3f} GB stored, peak "
+            f"{peak:.2f} GiB above the features")
+        del pyr
+    del ref
+    top = 2 ** -7 * 16                        # bf16 ulp near the largest maps
+    log(f"pyramid build: the two products' pyramids differ by at most "
+        f"{err:.3g} (one bf16 ulp at |corr| ~ 16: {top:.3g})")
+    if not err <= top:
+        raise AssertionError("TF32 and f32 pyramid builds disagree")
+    return times
 
 
 def synthetic_video(n=24, h=240, w=432, hole=56, y0=90, x0=160, pan=2,
@@ -327,29 +448,49 @@ def synthetic_video(n=24, h=240, w=432, hole=56, y0=90, x0=160, pan=2,
     return frames, masks
 
 
-def phase_main_path(counters):
+def reset(counters):
+    for c in counters:
+        c.launches = 0
+
+
+def read(counters) -> dict:
+    return {c.__name__: c.launches for c in counters}
+
+
+def expect_launches(label: str, launches: dict, want: dict):
+    """``want``: counter name -> exact count, or None for "at least 1"."""
+    for name, n in want.items():
+        if (launches[name] <= 0) if n is None else (launches[name] != n):
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times, want "
+                                 f"{'> 0' if n is None else n}: {launches}")
+
+
+def phase_main_path(counters, corr: str, want: dict):
+    """Object removal, 24 frames at 432x240, full width, bf16, on the
+    ``corr`` path of s1; two passes (cold, warm). Returns (launches of the
+    warm pass, its stage seconds)."""
     import torch
     from fgt_tpu_torch.pipeline import video_inpainting as vi
 
     frames, masks = synthetic_video()
     t0 = time.perf_counter()
-    models = vi.Models("cuda", bf16=True, seed=0)
+    models = vi.Models("cuda", bf16=True, seed=0, corr=corr)
     torch.cuda.synchronize()
-    log(f"main path: models built in {time.perf_counter() - t0:.2f} s")
-    launches = {}
+    log(f"main path ({corr}): models built in "
+        f"{time.perf_counter() - t0:.2f} s")
     for label in ("cold", "warm"):   # the cold pass pays first-call costs
         torch.cuda.reset_peak_memory_stats()
         timer = vi.StageTimer("cuda")
-        for c in counters:
-            c.launches = 0
+        reset(counters)
         out = vi.inpaint(frames, masks, models, timer=timer)
-        launches = {c.__name__: c.launches for c in counters}
+        launches = read(counters)
         total = sum(timer.times.values())
-        log(f"main path {label} stages (s): " + json.dumps(
+        log(f"main path ({corr}) {label} stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in timer.times.items()}))
-        log(f"main path {label}: {len(frames)} frames in {total:.3f} s = "
-            f"{len(frames) / total:.3f} frames/s; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        log(f"main path ({corr}) {label}: {len(frames)} frames in "
+            f"{total:.3f} s = {len(frames) / total:.3f} frames/s; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
             f"launches {launches}")
         if out.shape != (24, 240, 432, 3) or out.dtype != np.uint8:
             raise AssertionError(f"output {out.shape} {out.dtype}")
@@ -357,19 +498,180 @@ def phase_main_path(counters):
         if not np.array_equal(out[keep], frames[keep]):
             raise AssertionError("output differs from the input outside "
                                  "the hole")
-        if min(launches.values()) <= 0:
-            raise AssertionError(f"a kernel was not launched: {launches}")
+        expect_launches(f"main path ({corr})", launches, want)
     hole_mean = out[masks > 0].astype(np.float64).mean()
-    log(f"main path: output ok; mean value inside the hole {hole_mean:.2f}")
-    return launches
+    log(f"main path ({corr}): output ok; mean value inside the hole "
+        f"{hole_mean:.2f}")
+    del models
+    torch.cuda.empty_cache()
+    return launches, dict(timer.times)
 
 
-def phase_small_reference():
+def write_pngs(root: str, frames: np.ndarray) -> str:
+    from fgt_tpu_torch.pipeline import image_io
+
+    os.makedirs(root, exist_ok=True)
+    for i, fr in enumerate(frames):
+        image_io.write_png(os.path.join(root, f"{i:05d}.png"), fr)
+    return root
+
+
+CLI_RANDOM = ["--raft_model", "/nonexistent", "--lafc_ckpts", "/nonexistent",
+              "--fgt_ckpts", "/nonexistent", "--imgH", "240", "--imgW", "432",
+              "--device", "cuda"]
+
+
+def run_cli(label: str, counters, argv: list, want: dict):
+    """One full-width CLI run (random weights from seed 0, bf16) with the
+    counts reset just before and read just after. Returns (output,
+    launches, seconds)."""
+    import torch
+    from fgt_tpu_torch.pipeline import video_inpainting as vi
+
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t0 = time.perf_counter()
+    path = vi.main(argv + CLI_RANDOM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    out = np.load(path)
+    with open(os.path.join(os.path.dirname(path), "timings.json")) as f:
+        stages = json.load(f)["stages"]
+    work = sum(v for k, v in stages.items() if k[:2] in ("s1", "s2", "s3",
+                                                        "s4", "s5", "s6"))
+    log(f"{label} stages (s): " + json.dumps(
+        {k: round(v, 4) for k, v in stages.items()}))
+    log(f"{label}: {out.shape[0]} frames, s1-s6 {work:.3f} s = "
+        f"{out.shape[0] / work:.3f} frames/s; CLI wall {wall:.2f} s (models "
+        f"built, PNG/npy I/O included); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{launches}")
+    expect_launches(label, launches, want)
+    return out, launches, wall
+
+
+def phase_modes(counters, root: str):
+    """The other two modes and --Nonlocal through the CLI at full width:
+    watermark removal from PNG directories (frames premasked, default
+    path), video extrapolation to a 1.2x canvas on the pyramid path, and
+    --Nonlocal on a 12-frame clip on the pyramid path."""
+    frames, masks = synthetic_video()
+    hole = masks > 0
+    premasked = frames * (~hole)[..., None].astype(np.uint8)
+    fdir = write_pngs(f"{root}/wm/frames", premasked)
+    mdir = write_pngs(f"{root}/wm/masks", masks * 255)
+    out, _, _ = run_cli("watermark removal", counters, [
+        "--mode", "watermark_removal", "--path", fdir, "--path_mask", mdir,
+        "--outroot", f"{root}/wm/out"],
+        {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
+         "flash_mhsa": None})
+    if out.shape != frames.shape or out.dtype != np.uint8:
+        raise AssertionError(f"watermark output {out.shape} {out.dtype}")
+    if not np.array_equal(out[~hole], frames[~hole]):
+        raise AssertionError("watermark output differs outside the hole")
+    log(f"watermark removal: output ok; mean value inside the hole "
+        f"{out[hole].astype(np.float64).mean():.2f}")
+
+    np.save(f"{root}/frames.npy", frames)
+    np.save(f"{root}/masks.npy", masks)
+    out, _, _ = run_cli("video extrapolation", counters, [
+        "--mode", "video_extrapolation", "--H_scale", "1.2", "--W_scale",
+        "1.2", "--fused_corr", "off", "--path", f"{root}/frames.npy",
+        "--outroot", f"{root}/ex/out"],
+        {"lookup_corr_fused": 0, "lookup_corr_pyramid": 20,
+         "flash_mhsa": None})
+    if out.shape != (24, 288, 516, 3) or out.dtype != np.uint8:
+        raise AssertionError(f"extrapolation output {out.shape} {out.dtype}")
+    y0, x0 = (288 - 240) // 2, (516 - 432) // 2
+    if not np.array_equal(out[:, y0:y0 + 240, x0:x0 + 432], frames):
+        raise AssertionError("extrapolation centre differs from the input")
+    log(f"video extrapolation: output [24, 288, 516, 3] ok, centre "
+        f"byte-identical; mean value of the border "
+        f"{out.astype(np.float64).mean():.2f} over the canvas")
+
+    np.save(f"{root}/frames12.npy", frames[:12])
+    np.save(f"{root}/masks12.npy", masks[:12])
+    # s1: 22 pairs in one refine (20 K3); s3b: 36 pairs per direction
+    out, _, _ = run_cli("--Nonlocal", counters, [
+        "--Nonlocal", "--fused_corr", "off", "--path",
+        f"{root}/frames12.npy", "--path_mask", f"{root}/masks12.npy",
+        "--outroot", f"{root}/nl/out"],
+        {"lookup_corr_fused": 0, "lookup_corr_pyramid": 60,
+         "flash_mhsa": None})
+    if out.shape != (12, 240, 432, 3) or not np.array_equal(
+            out[~hole[:12]], frames[:12][~hole[:12]]):
+        raise AssertionError("--Nonlocal output wrong outside the hole")
+    log("--Nonlocal: output ok")
+
+
+def phase_flow_extract(counters, root: str):
+    """Offline flow extraction: 2 synthetic PNG videos x 8 frames at
+    432x240, f32 RAFT (random weights, seed 0) on the pyramid path, 4
+    pairs per call: 2 x 7 x 2 .flo files read back finite at [240, 432,
+    2]; K3 launches 2 videos x 2 directions x 2 calls x 20 iterations."""
+    import torch
+    from fgt_tpu_torch.core import flow_io
+    from fgt_tpu_torch.pipeline import flow_extract
+
+    for v in range(2):
+        frames, _ = synthetic_video(n=8, seed=10 + v)
+        write_pngs(f"{root}/fx/data/video{v}", frames)
+    reset(counters)
+    t0 = time.perf_counter()
+    n = flow_extract.main(["--datapath", f"{root}/fx/data", "--outroot",
+                           f"{root}/fx/out", "--raft_model", "/nonexistent",
+                           "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    files = sorted(os.path.join(d, f) for d, _, fs in
+                   os.walk(f"{root}/fx/out") for f in fs if f.endswith(".flo"))
+    flows = [flow_io.read_flow(f) for f in files]
+    log(f"flow extraction: {n} frames, {len(files)} .flo files in "
+        f"{wall:.2f} s (model built, PNG I/O included); launches {launches}; "
+        f"max |flow| {max(np.abs(f).max() for f in flows):.3f} px")
+    if len(files) != 28 or any(f.shape != (240, 432, 2)
+                               or not np.isfinite(f).all() for f in flows):
+        raise AssertionError("flow extraction output wrong")
+    expect_launches("flow extraction", launches,
+                    {"lookup_corr_pyramid": 160, "lookup_corr_fused": 0})
+
+
+def phase_batch(counters, root: str):
+    """The batch driver: 2 synthetic videos x 8 frames at 432x240 (PNG
+    directories with masks) through one resident model set (full width,
+    bf16, default path); every summary row must be ok."""
+    import torch
+    from fgt_tpu_torch.pipeline import batch
+
+    for v in range(2):
+        frames, masks = synthetic_video(n=8, seed=20 + v)
+        write_pngs(f"{root}/bt/videos/v{v}", frames)
+        write_pngs(f"{root}/bt/masks/v{v}", masks * 255)
+    reset(counters)
+    t0 = time.perf_counter()
+    rows = batch.main(["--videos_root", f"{root}/bt/videos", "--masks_root",
+                       f"{root}/bt/masks", "--outroot", f"{root}/bt/out"]
+                      + CLI_RANDOM)
+    torch.cuda.synchronize()
+    launches = read(counters)
+    summary = [(r["video"], r["ok"], r["wall_s"]) for r in rows]
+    log(f"batch: {len(rows)} videos in {time.perf_counter() - t0:.2f} s "
+        f"(models built once); rows {summary}; launches {launches}")
+    if len(rows) != 2 or not all(r["ok"] for r in rows):
+        raise AssertionError(f"batch rows not all ok: {rows}")
+    expect_launches("batch", launches, {"lookup_corr_fused": 40,
+                                        "flash_mhsa": None})
+
+
+def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False):
     """6 frames at 64x64, full-width RAFT and LAFC, FGT at 512 hidden /
     4 heads (head dim 128 for K2) with 2 blocks, f32: the port on the card
-    (kernels) against the port on the CPU (plain versions). Outside the
-    hole the bytes must match; inside, flowNN's thresholded decisions can
-    amplify f32 reassociation, so the bound is on the mean."""
+    (kernels) against the port on the CPU (plain versions), on the
+    ``corr`` path of s1 (and with --Nonlocal). Outside the hole the bytes
+    must match; inside, flowNN's thresholded decisions can amplify f32
+    reassociation, so the bound is on the mean."""
     import torch
     from fgt_tpu_torch.pipeline import video_inpainting as vi
 
@@ -379,17 +681,20 @@ def phase_small_reference():
     outs = []
     for dev in ("cuda", "cpu"):
         models = vi.Models(dev, bf16=False, raft_iters=4, fgt_config=fgt_cfg,
-                           seed=3)
+                           seed=3, corr=corr)
         outs.append(vi.inpaint(frames, masks, models, flow_mask_dilates=2,
-                               neighbor_stride=3, step=4))
+                               neighbor_stride=3, step=4,
+                               use_nonlocal=use_nonlocal))
     gpu, cpu = (o.astype(np.int64) for o in outs)
     hole = masks > 0
     d = np.abs(gpu - cpu)[hole]
-    log(f"small reference: card vs CPU inside the hole: mean |diff| "
-        f"{d.mean():.4f}, max {d.max()}, share > 8 levels "
-        f"{(d > 8).mean():.4f}")
+    log(f"small reference ({corr}{', --Nonlocal' if use_nonlocal else ''}): "
+        f"card vs CPU inside the hole: mean |diff| {d.mean():.4f}, max "
+        f"{d.max()}, share > 8 levels {(d > 8).mean():.4f}")
     if not np.array_equal(gpu[~hole], cpu[~hole]) or d.mean() > 1.0:
         raise AssertionError("card and CPU runs of the port disagree")
+    del models
+    torch.cuda.empty_cache()
 
 
 FGT_TRAIN_STEPS = 10
@@ -653,7 +958,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fgt_tpu_torch import native
-    from fgt_tpu_torch.ops import _build, corr_fused, flash_attention
+    from fgt_tpu_torch.ops import (_build, corr_fused, corr_lookup,
+                                   flash_attention)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -669,18 +975,32 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    k1, k2, k45 = {}, {}, {}
+    k1, k2, k3, k45 = {}, {}, {}, {}
     for dt in (torch.float32, torch.bfloat16):
         phase_k1(dt, k1)
         phase_k2(dt, k2)
         phase_k45(dt, k45)
-    k3_bound()
-    counters = (corr_fused.lookup_corr_fused, flash_attention.flash_mhsa)
-    launches = phase_main_path(counters)
+        phase_k3(dt, k3)
+    phase_pyramid_build()
+    counters = (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
+                flash_attention.flash_mhsa)
+    launches, fused_s = phase_main_path(
+        counters, "fused", {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
+                            "flash_mhsa": None})
+    pyr_launches, pyr_s = phase_main_path(
+        counters, "pyramid", {"lookup_corr_fused": 0,
+                              "lookup_corr_pyramid": 20, "flash_mhsa": None})
+    log(f"s1 RAFT, warm, same run: K1 path {fused_s['s1_raft']:.4f} s, "
+        f"pyramid path (K3) {pyr_s['s1_raft']:.4f} s")
+    with tempfile.TemporaryDirectory() as root:
+        phase_modes(counters, root)
+        phase_flow_extract(counters, root)
+        phase_batch(counters, root)
     train_launches, _ = phase_train(
         (flash_attention.flash_mhsa, flash_attention.flash_attention_dq,
          flash_attention.flash_attention_dkv), "--profile" in sys.argv)
     phase_small_reference()
+    phase_small_reference("pyramid", use_nonlocal=True)
     phase_small_train()
 
     bf16 = str(torch.bfloat16)
@@ -693,6 +1013,10 @@ def main() -> int:
              source="fgt_tpu_torch/csrc/flash_attention.cu",
              replaces="fgt_tpu/ops/flash_attention.py:33",
              launches=launches["flash_mhsa"], **k2[bf16]),
+        dict(name="corr_lookup_pyramid", route="cuda",
+             source="fgt_tpu_torch/csrc/corr_lookup.cu",
+             replaces="fgt_tpu/ops/corr_lookup_pallas.py:43",
+             launches=pyr_launches["lookup_corr_pyramid"], **k3[bf16]),
         dict(name="flash_attention_dq", route="cuda",
              source="fgt_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="fgt_tpu/ops/flash_attention.py:73",

@@ -8,10 +8,17 @@ tree. Inside, tensors are NCHW; ``encode``/``refine`` keep the JAX
 package's NHWC layout at their boundary.
 
 ``encode`` runs fnet + cnet once per frame; ``refine`` runs the GRU loop
-over precomputed features with the correlation served by kernel K1
-(:mod:`fgt_tpu_torch.ops.corr_fused`) from a pooled feature pyramid built
-once per call. In test mode the 576-channel upsample-mask head runs on
-the final iteration only.
+over precomputed features. Its correlation comes from one of two paths,
+each set up once per call:
+
+* ``corr="fused"`` (default): kernel K1 (:mod:`fgt_tpu_torch.ops.corr_fused`)
+  dots f1 with the corners of a pooled feature pyramid;
+* ``corr="pyramid"``: the reference all-pairs pyramid
+  (:mod:`fgt_tpu_torch.ops.corr_lookup`), looked up by kernel K3.
+
+``forward`` is ``RAFT.__call__`` of the JAX package on the pyramid path.
+In test mode the 576-channel upsample-mask head runs on the final
+iteration only.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fgt_tpu_torch.ops.corr_fused import build_fmap_pyramid, lookup_corr_fused
+from fgt_tpu_torch.ops.corr_lookup import (build_corr_pyramid,
+                                           lookup_corr_pyramid)
 
 
 HIDDEN_DIM = 128      # GRU state
@@ -211,12 +220,28 @@ class RAFT(nn.Module):
         nhwc = lambda t: t.permute(0, 2, 3, 1).contiguous()  # noqa: E731
         return nhwc(fmap), nhwc(net), nhwc(inp)
 
-    def refine(self, fmap1, fmap2, net, inp, iters: int):
-        """Test-mode refinement over precomputed NHWC features. Returns
-        (low-res flow [B, H8, W8, 2], upsampled flow [B, 8·H8, 8·W8, 2])."""
+    def refine(self, fmap1, fmap2, net, inp, iters: int, corr: str = "fused",
+               corr_dtype: torch.dtype | None = None):
+        """Test-mode refinement over precomputed NHWC features. ``corr``
+        picks the correlation path ("fused": K1; "pyramid": all-pairs
+        volumes stored in ``corr_dtype``, default the model dtype, looked
+        up by K3). Returns (low-res flow [B, H8, W8, 2], upsampled flow
+        [B, 8·H8, 8·W8, 2])."""
         dt = self.dtype
-        pyramid = build_fmap_pyramid(fmap2, CORR_LEVELS, dtype=dt)
-        fmap1 = fmap1.to(dt).contiguous()
+        if corr == "fused":
+            pyramid = build_fmap_pyramid(fmap2, CORR_LEVELS, dtype=dt)
+            fmap1 = fmap1.to(dt).contiguous()
+
+            def lookup(coords):
+                return lookup_corr_fused(fmap1, pyramid, coords, CORR_RADIUS)
+        elif corr == "pyramid":
+            pyramid = build_corr_pyramid(fmap1, fmap2, CORR_LEVELS,
+                                         dtype=corr_dtype or dt)
+
+            def lookup(coords):
+                return lookup_corr_pyramid(pyramid, coords, CORR_RADIUS)
+        else:
+            raise ValueError(f"unknown correlation path {corr!r}")
         b, h8, w8, _ = fmap1.shape
         coords0 = coords_grid(b, h8, w8, fmap1.device)
         coords1 = coords0.clone()
@@ -224,15 +249,29 @@ class RAFT(nn.Module):
         inp = inp.permute(0, 3, 1, 2).to(dt)
         mask = None
         for i in range(iters):
-            corr = lookup_corr_fused(fmap1, pyramid, coords1, CORR_RADIUS)
+            taps = lookup(coords1).permute(0, 3, 1, 2).to(dt)
             flow = (coords1 - coords0).permute(0, 3, 1, 2).to(dt)
             net, mask, delta = self.update_block(
-                net, inp, corr.permute(0, 3, 1, 2), flow,
-                with_mask=i == iters - 1)
+                net, inp, taps, flow, with_mask=i == iters - 1)
             coords1 = coords1 + delta.permute(0, 2, 3, 1).float()
         flow_lo = coords1 - coords0
         up = upsample_flow_convex(flow_lo.permute(0, 3, 1, 2), mask.float())
         return flow_lo, up.permute(0, 2, 3, 1)
+
+    def forward(self, image1, image2, iters: int, corr: str = "pyramid",
+                corr_dtype: torch.dtype | None = None):
+        """``RAFT.__call__`` in test mode: frames [B, H, W, 3] in
+        [0, 255]; fnet encodes both, cnet image1; refine on the all-pairs
+        pyramid by default. Returns (low-res flow, upsampled flow)."""
+        b = image1.shape[0]
+        x = torch.cat([image1, image2]).permute(0, 3, 1, 2).to(self.dtype)
+        x = 2 * (x / 255.0) - 1.0
+        fmap = self.fnet(x).permute(0, 2, 3, 1).contiguous()
+        cnet = self.cnet(x[:b])
+        net = torch.tanh(cnet[:, :HIDDEN_DIM]).permute(0, 2, 3, 1)
+        inp = F.relu(cnet[:, HIDDEN_DIM:]).permute(0, 2, 3, 1)
+        return self.refine(fmap[:b], fmap[b:], net, inp, iters, corr=corr,
+                           corr_dtype=corr_dtype)
 
 
 def init_raft(model: RAFT, gen: torch.Generator) -> RAFT:

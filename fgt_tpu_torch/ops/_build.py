@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the kernels each wrapper loads: name -> source under csrc/
 CUDA_SOURCES = {
     "corr_fused": "corr_fused.cu",
+    "corr_lookup": "corr_lookup.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
 }

@@ -3,7 +3,12 @@ standard library's ``zlib``, and ``.npy`` stacks.
 
 The reader takes non-interlaced 8-bit grayscale, gray+alpha, RGB, RGBA
 and palette images with all five PNG row filters; that covers frames and
-masks as video tools write them. Anything else raises.
+masks as video tools write them. Anything else raises (JPEG included:
+the GPU machine has no decoder for it).
+
+:func:`resize_linear` and :func:`resize_nearest` reproduce cv2's
+``INTER_LINEAR`` (on float32 frames) and ``INTER_NEAREST`` resizes bit
+for bit, so the port's frames match the JAX package's loaders.
 """
 
 from __future__ import annotations
@@ -119,3 +124,53 @@ def write_frames(outdir: str, frames: np.ndarray) -> None:
     np.save(os.path.join(outdir, "result.npy"), frames)
     for i, fr in enumerate(frames):
         write_png(os.path.join(outdir, "frames", f"{i:05d}.png"), fr)
+
+
+def _linear_taps(src: int, dst: int):
+    """cv2's INTER_LINEAR source indices and fractions along one axis:
+    the position is taken in f64, its fraction stored in f32, both taps
+    clamped to the edge."""
+    pos = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    i0 = np.floor(pos).astype(np.int64)
+    frac = (pos - i0).astype(np.float32)
+    frac[i0 < 0] = 0
+    i0 = np.maximum(i0, 0)
+    edge = i0 >= src - 1
+    frac[edge] = 0
+    i0[edge] = src - 1
+    return i0, np.minimum(i0 + 1, src - 1), frac
+
+
+def lerp_f32(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """fma(b - a, t, a) in f32, the arithmetic of cv2's float resize and
+    remap (the product of two f32 values is exact in f64)."""
+    return ((b - a).astype(np.float64) * t + a).astype(np.float32)
+
+
+def resize_linear(frames: np.ndarray, h: int, w: int) -> np.ndarray:
+    """[N, H, W, C] frames -> [N, h, w, C] float32 with cv2.resize
+    ``INTER_LINEAR`` on float32 input: rows first, then columns."""
+    frames = np.asarray(frames, np.float32)
+    if frames.shape[1:3] == (h, w):
+        return frames.copy()
+    x0, x1, fx = _linear_taps(frames.shape[2], w)
+    y0, y1, fy = _linear_taps(frames.shape[1], h)
+    out = np.empty((frames.shape[0], h, w) + frames.shape[3:], np.float32)
+    ex = (slice(None),) + (None,) * (frames.ndim - 3)
+    for i, fr in enumerate(frames):
+        rows = lerp_f32(fr[:, x0], fr[:, x1], fx[ex])
+        out[i] = lerp_f32(rows[y0], rows[y1],
+                          fy[(slice(None), None) + ex[1:]])
+    return out
+
+
+def resize_nearest(masks: np.ndarray, h: int, w: int) -> np.ndarray:
+    """[N, H, W] -> [N, h, w] with cv2 ``INTER_NEAREST`` (source index
+    floor(dst · src / dst_size))."""
+    if masks.shape[1:3] == (h, w):
+        return masks
+    ys = np.minimum((np.arange(h) * masks.shape[1] / h).astype(int),
+                    masks.shape[1] - 1)
+    xs = np.minimum((np.arange(w) * masks.shape[2] / w).astype(int),
+                    masks.shape[2] - 1)
+    return masks[:, ys][:, :, xs]

@@ -1,16 +1,24 @@
-"""Object-removal video inpainting driver — the port's counterpart of
+"""Video inpainting driver — the port's counterpart of
 ``fgt_tpu/pipeline/video_inpainting.py`` (reference
-tool/video_inpainting.py).
+tool/video_inpainting.py), in its three modes: object removal, watermark
+removal (frames premasked at the source size) and video extrapolation
+(the frames centred in an enlarged canvas whose border is the hole).
 
 Stages (device work on the card unless the caller asks for the CPU):
 
-  s1 RAFT     encode every frame once (2x upscale on the device under
-              350 px), then forward and backward pairs batched through
-              one refine; correlation from kernel K1; flows resized to
-              image resolution with an antialiased bilinear filter
+  s1 RAFT     encode every frame once (2x upscale under 350 px), then
+              forward and backward pairs batched through one refine;
+              correlation from kernel K1 (``--fused_corr auto|on``) or
+              from the all-pairs pyramid looked up by kernel K3
+              (``--fused_corr off``); flows resized to image resolution
+              with an antialiased bilinear filter
+  s1b         extrapolation only: the canvas, zero-padded flows and the
+              border masks
   s2 LAFC     device diffusion (multigrid-preconditioned CG), then the
               P3D net over reflect-indexed windows, pivot composite
   s3 host     gradients (forward differences, hole-touching ones zeroed)
+  s3b RAFT    ``--Nonlocal`` only: flows between every frame and the key
+              frames [0, N//2, N-1], always on the pyramid path (K3)
   s4 host     flowNN gradient propagation (native OpenMP kernels)
   s5 host     Poisson blending (scipy splu)
   s6 FGT      batched windows, temporal attention through kernel K2,
@@ -18,13 +26,18 @@ Stages (device work on the card unless the caller asks for the CPU):
 
 Entry points: :func:`inpaint` (arrays in, arrays out) and
 :func:`video_inpainting` (the CLI: ``.npy`` stacks or PNG directories in,
-``result.npy`` and PNGs out).
+``result.npy``, PNGs and the synchronized stage seconds in
+``timings.json`` out).
+
+Frames stay float from the resize on, as in the JAX pipeline: RAFT reads
+them rounded to u8, the gradients and Poisson read them /255, and FGT's
+input and the composite read them rounded again.
 
 The hole is never seeded with cv2's TELEA inpainting as the JAX pipeline
 does: every value it would put there is zeroed out of the gradients,
 solved by Poisson, or masked out of FGT's input and replaced in the
 composite (``tests/test_torch_port_telea.py`` checks this on the JAX
-pipeline).
+pipeline, in object removal and extrapolation).
 """
 
 from __future__ import annotations
@@ -52,7 +65,9 @@ from fgt_tpu_torch.ops.diffusion import diffuse_flows_device
 from fgt_tpu_torch.pipeline import image_io
 from fgt_tpu_torch.pipeline.poisson import poisson_blend
 from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
-                                                get_flownn_gradient_frames)
+                                                get_flownn_gradient,
+                                                get_flownn_gradient_frames,
+                                                key_frames)
 from fgt_tpu_torch.utils.checkpoint import load_state_dict
 
 logger = logging.getLogger("fgt_tpu_torch")
@@ -72,6 +87,7 @@ DEFAULT_FGT_CONFIG = {
     "res_h": 240, "res_w": 432, "num_frames": 5, "flow_direction": "for",
 }
 RAFT_ENCODE_CHUNK = 8
+MODES = ("object_removal", "watermark_removal", "video_extrapolation")
 
 
 # ---------------- helpers (own copies of the JAX pipeline's) ----------------
@@ -148,9 +164,10 @@ def prepare_gradients(video: np.ndarray, mask: np.ndarray,
     """Forward differences with every hole-touching one zeroed
     (reference :584-619, without the TELEA seed).
 
-    video: [N, H, W, 3] f32 u8-valued/255 (the reference's round trip
-    through uint8 is then exact); mask/mask_dilated: [N, H, W] bool.
-    Returns (video with the hole zeroed, gx, gy)."""
+    video: [N, H, W, 3] f32 in [0, 1]; mask/mask_dilated: [N, H, W] bool.
+    Each frame goes through uint8 as the reference's seed does (trunc of
+    ·255, then /255: exact for u8-valued frames, a floor for resized
+    ones). Returns (that video with the hole zeroed, gx, gy)."""
     n, h, w, _ = video.shape
     gx = np.zeros((n, h, w, 3), np.float32)
     gy = np.zeros((n, h, w, 3), np.float32)
@@ -158,6 +175,7 @@ def prepare_gradients(video: np.ndarray, mask: np.ndarray,
     for i in range(n):
         img = video[i].copy()
         img[mask[i]] = 0
+        img = (img * 255).astype(np.uint8).astype(np.float32) / 255.0
         gx[i, :, :-1] = np.diff(img, axis=1)
         gy[i, :-1, :] = np.diff(img, axis=0)
         gx[i][mask_dilated[i]] = 0
@@ -214,14 +232,19 @@ class StageTimer:
 
 class Models:
     """RAFT + LAFC + FGT on one device, in one dtype, random-initialized
-    from ``seed`` (a ``torch.Generator``) unless state dicts are given."""
+    from ``seed`` (a ``torch.Generator``) unless state dicts are given.
+    ``corr`` is s1's correlation path ("fused": K1, "pyramid": K3); the
+    pyramid is stored in bf16 under bf16 compute unless ``corr_f32``."""
 
     def __init__(self, device: str = DEFAULT_DEVICE, bf16: bool = True,
                  raft_iters: int = 20, lafc_config: Optional[dict] = None,
                  fgt_config: Optional[dict] = None, seed: int = 0,
-                 raft_state=None, lafc_state=None, fgt_state=None):
+                 raft_state=None, lafc_state=None, fgt_state=None,
+                 corr: str = "fused", corr_f32: bool = False):
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if bf16 else torch.float32
+        self.corr = corr
+        self.corr_dtype = torch.float32 if corr_f32 else self.dtype
         self.raft_iters = raft_iters
         self.lafc_config = dict(lafc_config or DEFAULT_LAFC_CONFIG)
         self.fgt_config = dict(fgt_config or DEFAULT_FGT_CONFIG)
@@ -256,40 +279,81 @@ def resize_flows(flow: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return out.permute(0, 2, 3, 1) * scale
 
 
-def calculate_flows(models: Models, video_u8: torch.Tensor, flow_h: int,
-                    flow_w: int, chunk: Optional[int] = None,
-                    backoffs: Optional[list] = None):
-    """s1: forward and backward RAFT flows, f32 [N-1, H, W, 2] each at
-    the video's resolution. ``video_u8``: [N, H, W, 3] on the device."""
-    raft = models.raft
-    n, h, w = video_u8.shape[:3]
+def encode_frames(models: Models, video_u8: torch.Tensor, flow_h: int,
+                  flow_w: int):
+    """RAFT features (fmap, net, inp) of every frame at flow resolution;
+    ``video_u8`` [N, H, W, 3] on the device is upscaled there (bilinear)
+    when it is not at flow resolution yet."""
+    h, w = video_u8.shape[1:3]
     feats = []
-    for s in range(0, n, RAFT_ENCODE_CHUNK):
+    for s in range(0, video_u8.shape[0], RAFT_ENCODE_CHUNK):
         fr = video_u8[s:s + RAFT_ENCODE_CHUNK].to(models.dtype)
         if (h, w) != (flow_h, flow_w):
             fr = F.interpolate(fr.permute(0, 3, 1, 2), size=(flow_h, flow_w),
                                mode="bilinear", align_corners=False
                                ).permute(0, 2, 3, 1)
-        feats.append(raft.encode(fr))
-    fmap, net, inp = (torch.cat(parts, dim=0) for parts in zip(*feats))
+        feats.append(models.raft.encode(fr))
+    return tuple(torch.cat(parts, dim=0) for parts in zip(*feats))
 
-    pairs = n - 1
-    ar = torch.arange(pairs, device=video_u8.device)
-    src = torch.cat([ar, ar + 1])
-    dst = torch.cat([ar + 1, ar])
-    total = 2 * pairs
+
+def refine_pairs(models: Models, feats, src: torch.Tensor, dst: torch.Tensor,
+                 out_h: int, out_w: int, chunk: Optional[int], corr: str,
+                 stage: str, backoffs: Optional[list] = None) -> torch.Tensor:
+    """Flows src[i] -> dst[i] from encoded features, ``chunk`` pairs per
+    refine (all by default, halved on device OOM), resized to
+    [P, out_h, out_w, 2] f32."""
+    fmap, net, inp = feats
 
     def dispatch(c):
         outs = []
-        for s in range(0, total, c):
+        for s in range(0, src.shape[0], c):
             i, j = src[s:s + c], dst[s:s + c]
-            _, up = raft.refine(fmap[i], fmap[j], net[i], inp[i],
-                                models.raft_iters)
-            outs.append(resize_flows(up.float(), h, w))
+            _, up = models.raft.refine(fmap[i], fmap[j], net[i], inp[i],
+                                       models.raft_iters, corr=corr,
+                                       corr_dtype=models.corr_dtype)
+            outs.append(resize_flows(up.float(), out_h, out_w))
         return torch.cat(outs, dim=0)
 
-    flows, _ = chunk_backoff(dispatch, chunk or total, "s1_raft", backoffs)
-    return flows[:pairs], flows[pairs:]
+    flows, _ = chunk_backoff(dispatch, chunk or src.shape[0], stage, backoffs)
+    return flows
+
+
+def calculate_flows(models: Models, video_u8: torch.Tensor, flow_h: int,
+                    flow_w: int, chunk: Optional[int] = None,
+                    backoffs: Optional[list] = None,
+                    out_hw: Optional[tuple] = None):
+    """s1: forward and backward RAFT flows, f32 [N-1, H, W, 2] each at
+    ``out_hw`` (default: the video's resolution). ``video_u8``:
+    [N, H, W, 3] on the device, at image or flow resolution."""
+    n, h, w = video_u8.shape[:3]
+    out_h, out_w = out_hw or (h, w)
+    feats = encode_frames(models, video_u8, flow_h, flow_w)
+    ar = torch.arange(n - 1, device=video_u8.device)
+    flows = refine_pairs(models, feats, torch.cat([ar, ar + 1]),
+                         torch.cat([ar + 1, ar]), out_h, out_w, chunk,
+                         models.corr, "s1_raft", backoffs)
+    return flows[:n - 1], flows[n - 1:]
+
+
+def calculate_nonlocal_flows(models: Models, video_u8: torch.Tensor,
+                             out_h: int, out_w: int,
+                             chunk: Optional[int] = None,
+                             backoffs: Optional[list] = None):
+    """s3b, ``--Nonlocal``: flows between every frame and the key frames
+    [0, N//2, N-1] on the all-pairs pyramid path (K3), as the JAX
+    package's ``calculate_nonlocal_flows``. ``video_u8``: [N, H, W, 3] at
+    flow resolution on the device. Returns (nl_f, nl_b), each f32
+    [N, 3, out_h, out_w, 2]: nl_f[t, k] is the flow t -> key k, nl_b[t, k]
+    the flow key k -> t."""
+    n, fh, fw = video_u8.shape[:3]
+    feats = encode_frames(models, video_u8, fh, fw)
+    keys = torch.tensor(key_frames(n), device=video_u8.device)
+    t_idx = torch.arange(n, device=video_u8.device).repeat_interleave(3)
+    k_idx = keys.repeat(n)
+    nl = [refine_pairs(models, feats, a, b, out_h, out_w, chunk, "pyramid",
+                       "s3b_nonlocal", backoffs).reshape(n, 3, out_h, out_w, 2)
+          for a, b in ((t_idx, k_idx), (k_idx, t_idx))]
+    return nl[0], nl[1]
 
 
 def complete_flows(models: Models, flows: torch.Tensor, masks: torch.Tensor,
@@ -371,42 +435,97 @@ def fgt_synthesis(models: Models, video_u8: torch.Tensor,
     return comp
 
 
-def inpaint(frames_u8: np.ndarray, masks: np.ndarray, models: Models,
+def extrapolation(video: np.ndarray, flows_f: torch.Tensor,
+                  flows_b: torch.Tensor, h_scale: float, w_scale: float):
+    """Canvas enlargement for outpainting (reference :291-339): the
+    canvas is int(s·h) - int(s·h) % 4 per axis, the frames and flows are
+    centred in it (zero border), and the border is the hole.
+
+    video: [N, H, W, 3] f32 in [0, 1]; flows on the device. Returns (canvas
+    video, padded flows_f, flows_b, border mask [h2, w2] bool, its
+    gradient mask)."""
+    n, h, w, _ = video.shape
+    h2 = int(h_scale * h) - int(h_scale * h) % 4
+    w2 = int(w_scale * w) - int(w_scale * w) % 4
+    y0, x0 = (h2 - h) // 2, (w2 - w) // 2
+    flow_mask = np.ones((h2, w2), dtype=bool)
+    flow_mask[y0:y0 + h, x0:x0 + w] = False
+    big = np.zeros((n, h2, w2, 3), np.float32)
+    big[:, y0:y0 + h, x0:x0 + w] = video
+    padded = []
+    for fl in (flows_f, flows_b):
+        p = fl.new_zeros(fl.shape[0], h2, w2, 2)
+        p[:, y0:y0 + h, x0:x0 + w] = fl
+        padded.append(p)
+    return big, padded[0], padded[1], flow_mask, gradient_mask(flow_mask)
+
+
+def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
+            mode: str = "object_removal", h_scale: float = 2.0,
+            w_scale: float = 2.0, use_nonlocal: bool = False,
             flow_mask_dilates: int = 8, frame_dilates: int = 0,
             consistency_thres: float = 5.0, alpha: float = 0.1,
             neighbor_stride: int = 5, step: int = 10, num_ref: int = -1,
             raft_chunk: Optional[int] = None, lafc_chunk: Optional[int] = None,
-            window_batch: Optional[int] = None,
+            window_batch: Optional[int] = None, host_upscale: bool = False,
             timer: Optional[StageTimer] = None) -> np.ndarray:
-    """Object removal on arrays: frames [N, H, W, 3] uint8, masks
-    [N, H, W] (nonzero = hole). Returns the inpainted [N, H, W, 3] uint8
-    frames; outside the hole they equal the input."""
+    """Video inpainting on arrays. frames: [N, H, W, 3], uint8 or float in
+    [0, 255] (a resized source); masks: [N, H, W] (nonzero = hole),
+    unused by video extrapolation, whose hole is the canvas border.
+    ``host_upscale`` takes RAFT's flow-resolution frames from a host
+    resize of the float frames, rounded (the JAX loader's path when the
+    source size differs from the image size), instead of upscaling the
+    rounded frames on the device.
+
+    Returns the inpainted [N, H', W', 3] uint8 frames (H', W' the canvas
+    under extrapolation); outside the hole they equal the input, truncated
+    to uint8 where it was float (as the JAX CLI's)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     dev = models.device
     timer = timer or StageTimer(dev)
     backoffs: list = []
-    n, img_h, img_w = frames_u8.shape[:3]
+    video255 = np.asarray(frames, np.float32)
+    n, img_h, img_w = video255.shape[:3]
     flow_h, flow_w = ((img_h * 2, img_w * 2) if img_h < 350
                       else (img_h, img_w))
-    # batch sizes tuned at 240x432, scaled with the pixel count
-    pixel_scale = (240 * 432) / float(img_h * img_w)
-    lafc_chunk = lafc_chunk or max(1, int(16 * pixel_scale))
-    window_batch = window_batch or max(1, int(6 * pixel_scale))
 
-    holes = np.asarray(masks) > 0
-    flow_mask = np.stack([
-        scipy.ndimage.binary_dilation(m, iterations=flow_mask_dilates)
-        if flow_mask_dilates > 0 else m for m in holes])
-    mask = np.stack([
-        scipy.ndimage.binary_dilation(m, iterations=frame_dilates)
-        if frame_dilates > 0 else m for m in holes])
-    mask_dilated = np.stack([gradient_mask(m) for m in mask])
+    def to_u8(v):
+        return np.clip(np.round(v), 0, 255).astype(np.uint8)
+
+    def flow_frames():
+        """The JAX pipeline's host flow-resolution frames, rounded."""
+        return to_u8(image_io.resize_linear(video255, flow_h, flow_w))
 
     with torch.inference_mode():
         with timer.stage("s1_raft"):
-            video_dev = torch.from_numpy(
-                np.ascontiguousarray(frames_u8, np.uint8)).to(dev)
-            flows_f, flows_b = calculate_flows(models, video_dev, flow_h,
-                                               flow_w, raft_chunk, backoffs)
+            rgb = flow_frames() if host_upscale else to_u8(video255)
+            flows_f, flows_b = calculate_flows(
+                models, torch.from_numpy(rgb).to(dev), flow_h, flow_w,
+                raft_chunk, backoffs, out_hw=(img_h, img_w))
+        video = video255 / 255.0
+        if mode == "video_extrapolation":
+            with timer.stage("s1b_extrapolation"):
+                video, flows_f, flows_b, fm2d, md2d = extrapolation(
+                    video, flows_f, flows_b, h_scale, w_scale)
+                img_h, img_w = video.shape[1:3]
+                mask = np.repeat(fm2d[None], n, 0)
+                flow_mask = mask.copy()
+                mask_dilated = np.repeat(md2d[None], n, 0)
+        else:
+            holes = np.asarray(masks) > 0
+            flow_mask = np.stack([
+                scipy.ndimage.binary_dilation(m, iterations=flow_mask_dilates)
+                if flow_mask_dilates > 0 else m for m in holes])
+            mask = np.stack([
+                scipy.ndimage.binary_dilation(m, iterations=frame_dilates)
+                if frame_dilates > 0 else m for m in holes])
+            mask_dilated = np.stack([gradient_mask(m) for m in mask])
+        # batch sizes tuned at 240x432, scaled with the canvas pixel count
+        pixel_scale = (240 * 432) / float(img_h * img_w)
+        lafc_chunk = lafc_chunk or max(1, int(16 * pixel_scale))
+        window_batch = window_batch or max(1, int(6 * pixel_scale))
+
         with timer.stage("s2_lafc"):
             fm = torch.from_numpy(flow_mask.astype(np.uint8)).to(dev)
             comp_f = complete_flows(models, flows_f, fm[:-1], lafc_chunk,
@@ -417,12 +536,28 @@ def inpaint(frames_u8: np.ndarray, masks: np.ndarray, models: Models,
             flow_b_np = comp_b.cpu().numpy()
 
         with timer.stage("s3_gradients"):
-            video, gx, gy = prepare_gradients(
-                frames_u8.astype(np.float32) / 255.0, mask, mask_dilated)
+            video, gx, gy = prepare_gradients(video, mask, mask_dilated)
+        nl = None
+        if use_nonlocal:
+            with timer.stage("s3b_nonlocal_flows"):
+                nl_f, nl_b = calculate_nonlocal_flows(
+                    models, torch.from_numpy(flow_frames()).to(dev), img_h,
+                    img_w, raft_chunk, backoffs)
+                # propagation layout [H, W, 2, 3, N]
+                nl = [a.cpu().numpy().transpose(2, 3, 4, 1, 0)
+                      for a in (nl_f, nl_b)]
         with timer.stage("s4_flownn"):
-            gx, gy, mask_tofill = get_flownn_gradient_frames(
-                PropagationConfig(consistency_thres, alpha), gx, gy, mask,
-                flow_f_np, flow_b_np)
+            pcfg = PropagationConfig(consistency_thres, alpha)
+            if nl is None:
+                gx, gy, mask_tofill = get_flownn_gradient_frames(
+                    pcfg, gx, gy, mask, flow_f_np, flow_b_np)
+            else:
+                gx, gy, mask_tofill = get_flownn_gradient(
+                    pcfg, gx.transpose(1, 2, 3, 0), gy.transpose(1, 2, 3, 0),
+                    mask.transpose(1, 2, 0), flow_f_np.transpose(1, 2, 3, 0),
+                    flow_b_np.transpose(1, 2, 3, 0), *nl)
+                gx, gy = gx.transpose(3, 0, 1, 2), gy.transpose(3, 0, 1, 2)
+                mask_tofill = mask_tofill.transpose(2, 0, 1)
         with timer.stage("s5_poisson"):
             mask_tofill = np.stack([scipy.ndimage.binary_fill_holes(m)
                                     for m in mask_tofill])
@@ -441,10 +576,9 @@ def inpaint(frames_u8: np.ndarray, masks: np.ndarray, models: Models,
                         int(mask_cur.sum()))
 
         with timer.stage("s6_fgt"):
-            vid_u8 = np.clip(np.round(np.stack(blends) * 255.0), 0,
-                             255).astype(np.uint8)
             comp = fgt_synthesis(
-                models, torch.from_numpy(vid_u8).to(dev),
+                models, torch.from_numpy(to_u8(np.stack(blends) * 255.0)
+                                         ).to(dev),
                 torch.from_numpy(mask_cur.astype(np.uint8)).to(dev),
                 comp_f, neighbor_stride, step, num_ref, window_batch,
                 backoffs)
@@ -473,23 +607,31 @@ def _load_ckpt_dir(path: Optional[str], default_cfg: dict):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The JAX CLI's flags that apply to the object-removal path."""
+    """The JAX CLI's flags that apply to the port."""
     p = argparse.ArgumentParser()
-    p.add_argument("--mode", default="object_removal",
-                   choices=["object_removal"])
+    p.add_argument("--mode", default="object_removal", choices=MODES)
     p.add_argument("--path", default="data/frames",
-                   help=".npy stack or directory of PNG frames")
+                   help=".npy stack or directory of PNG frames (no JPEG: "
+                        "the port's reader is PNG only)")
     p.add_argument("--path_mask", default="data/masks",
                    help=".npy stack or directory of PNG masks")
     p.add_argument("--outroot", default="out")
     p.add_argument("--consistencyThres", type=float, default=5)
     p.add_argument("--alpha", type=float, default=0.1)
+    p.add_argument("--Nonlocal", nargs="?", const=True, default=False,
+                   type=lambda v: v.lower() not in ("0", "false", "no"),
+                   help="add flowNN candidates from the key frames "
+                        "[0, N//2, N-1] (flows on the all-pairs pyramid)")
     p.add_argument("--raft_model", default="checkpoints/raft/raft.pth",
                    help="reference RAFT state dict (random init if absent)")
     p.add_argument("--lafc_ckpts", default="checkpoints/lafc",
                    help="directory with config.json and a .pth state dict")
     p.add_argument("--fgt_ckpts", default="checkpoints/fgt",
                    help="directory with config.json and a .pth state dict")
+    p.add_argument("--H_scale", type=float, default=2,
+                   help="video extrapolation: canvas height / frame height")
+    p.add_argument("--W_scale", type=float, default=2,
+                   help="video extrapolation: canvas width / frame width")
     p.add_argument("--imgH", type=int, default=256)
     p.add_argument("--imgW", type=int, default=432)
     p.add_argument("--flow_mask_dilates", type=int, default=8)
@@ -501,6 +643,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--raft_iters", type=int, default=20)
     p.add_argument("--lafc_chunk", type=int, default=None)
     p.add_argument("--window_batch", type=int, default=None)
+    p.add_argument("--fused_corr", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="s1 correlation: auto/on = kernel K1 on pooled "
+                        "features, off = the all-pairs pyramid (kernel K3)")
+    p.add_argument("--pallas_lookup", choices=["auto", "on", "off"],
+                   default="auto",
+                   help="accepted for the JAX CLI's sake: on the card the "
+                        "pyramid lookup is always kernel K3")
+    p.add_argument("--corr_f32", action="store_true",
+                   help="keep the all-pairs pyramid in f32 under bf16")
     p.add_argument("--bf16", action="store_true", default=True,
                    help="bfloat16 weights and activations (default)")
     p.add_argument("--f32", dest="bf16", action="store_false",
@@ -511,62 +663,73 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _resize_frames(frames: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Bilinear resize of uint8 frames (cv2 INTER_LINEAR semantics: no
-    antialiasing), identity at the target size."""
-    if frames.shape[1:3] == (h, w):
-        return frames
-    t = torch.from_numpy(frames.astype(np.float32)).permute(0, 3, 1, 2)
-    t = F.interpolate(t, size=(h, w), mode="bilinear", align_corners=False)
-    return t.permute(0, 2, 3, 1).round().clamp(0, 255).to(torch.uint8).numpy()
+def build_models(args) -> Models:
+    """:class:`Models` from the CLI's checkpoint flags (random init from
+    ``--seed`` for any model without weights)."""
+    lafc_cfg, lafc_state = _load_ckpt_dir(args.lafc_ckpts, DEFAULT_LAFC_CONFIG)
+    fgt_cfg, fgt_state = _load_ckpt_dir(args.fgt_ckpts, DEFAULT_FGT_CONFIG)
+    raft_state = (load_state_dict(args.raft_model)
+                  if os.path.exists(args.raft_model) else None)
+    for name, st in (("RAFT", raft_state), ("LAFC", lafc_state),
+                     ("FGT", fgt_state)):
+        if st is None:
+            logger.warning("%s weights not found; random init (seed %d)",
+                           name, args.seed)
+    return Models(args.device, args.bf16, args.raft_iters, lafc_cfg, fgt_cfg,
+                  args.seed, raft_state, lafc_state, fgt_state,
+                  corr="pyramid" if args.fused_corr == "off" else "fused",
+                  corr_f32=args.corr_f32)
 
 
-def _resize_masks(masks: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Nearest resize (cv2 INTER_NEAREST: src = floor(dst * scale))."""
-    if masks.shape[1:3] == (h, w):
-        return masks
-    ys = np.minimum((np.arange(h) * masks.shape[1] / h).astype(int),
-                    masks.shape[1] - 1)
-    xs = np.minimum((np.arange(w) * masks.shape[2] / w).astype(int),
-                    masks.shape[2] - 1)
-    return masks[:, ys][:, :, xs]
+def load_frames(path: str, img_h: int, img_w: int,
+                premask_path: Optional[str] = None):
+    """Frames as the JAX loader makes them: RGB at the source size,
+    premasked there when ``premask_path`` is given (watermark removal),
+    then float cv2-INTER_LINEAR resized to img_h x img_w. Returns
+    (float32 [N, img_h, img_w, 3] in [0, 255], source (H, W))."""
+    frames = image_io.read_stack(path)
+    if frames.ndim == 3:
+        frames = np.repeat(frames[..., None], 3, axis=-1)
+    frames = frames[..., :3].astype(np.float32)
+    if premask_path is not None:
+        holes = image_io.read_stack(premask_path)
+        if holes.ndim == 4:
+            holes = holes[..., 0]
+        frames = frames * (1 - (holes > 0).astype(np.float32)[..., None])
+    return image_io.resize_linear(frames, img_h, img_w), frames.shape[1:3]
+
+
+def load_masks(path: str, img_h: int, img_w: int) -> np.ndarray:
+    """[N, img_h, img_w] masks (channel 0), nearest-resized."""
+    masks = image_io.read_stack(path)
+    if masks.ndim == 4:
+        masks = masks[..., 0]
+    return image_io.resize_nearest(masks, img_h, img_w)
 
 
 def video_inpainting(args, models: Optional[Models] = None) -> str:
-    """Run the CLI pipeline; returns the path of ``result.npy``."""
+    """Run the CLI pipeline; returns the path of ``result.npy``. Pass a
+    resident ``models`` to serve many videos (the batch driver)."""
     timer = StageTimer(torch.device(args.device))
     with timer.stage("s0_init"):
         if models is None:
-            lafc_cfg, lafc_state = _load_ckpt_dir(args.lafc_ckpts,
-                                                  DEFAULT_LAFC_CONFIG)
-            fgt_cfg, fgt_state = _load_ckpt_dir(args.fgt_ckpts,
-                                                DEFAULT_FGT_CONFIG)
-            raft_state = (load_state_dict(args.raft_model)
-                          if os.path.exists(args.raft_model) else None)
-            for name, st in (("RAFT", raft_state), ("LAFC", lafc_state),
-                             ("FGT", fgt_state)):
-                if st is None:
-                    logger.warning("%s weights not found; random init "
-                                   "(seed %d)", name, args.seed)
-            models = Models(args.device, args.bf16, args.raft_iters,
-                            lafc_cfg, fgt_cfg, args.seed, raft_state,
-                            lafc_state, fgt_state)
+            models = build_models(args)
     with timer.stage("s0_load_frames"):
-        frames = image_io.read_stack(args.path)
-        if frames.ndim == 3:
-            frames = np.repeat(frames[..., None], 3, axis=-1)
-        frames = _resize_frames(frames[..., :3], args.imgH, args.imgW)
-        masks = image_io.read_stack(args.path_mask)
-        if masks.ndim == 4:
-            masks = masks[..., 0]
-        masks = _resize_masks(masks, args.imgH, args.imgW)
-    out = inpaint(frames, masks, models,
+        frames, src_hw = load_frames(
+            args.path, args.imgH, args.imgW,
+            args.path_mask if args.mode == "watermark_removal" else None)
+        masks = (None if args.mode == "video_extrapolation"
+                 else load_masks(args.path_mask, args.imgH, args.imgW))
+    out = inpaint(frames, masks, models, mode=args.mode,
+                  h_scale=args.H_scale, w_scale=args.W_scale,
+                  use_nonlocal=bool(args.Nonlocal),
                   flow_mask_dilates=args.flow_mask_dilates,
                   frame_dilates=args.frame_dilates,
                   consistency_thres=args.consistencyThres, alpha=args.alpha,
                   neighbor_stride=args.neighbor_stride, step=args.step,
                   num_ref=args.num_ref, raft_chunk=args.raft_chunk,
                   lafc_chunk=args.lafc_chunk, window_batch=args.window_batch,
+                  host_upscale=tuple(src_hw) != (args.imgH, args.imgW),
                   timer=timer)
     with timer.stage("s7_write"):
         image_io.write_frames(args.outroot, out)
@@ -575,6 +738,9 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
     logger.info("stages %s; %d frames in %.2f s (%.2f frames/s)",
                 {k: round(v, 3) for k, v in timer.times.items()}, n, total,
                 n / total if total else math.inf)
+    with open(os.path.join(args.outroot, "timings.json"), "w") as f:
+        json.dump({"mode": args.mode, "frames": n, "shape": list(out.shape),
+                   "stages": timer.times}, f)
     return os.path.join(args.outroot, "result.npy")
 
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K4, K5) against their plain versions. These need a
+"""The port's CUDA kernels (K1-K5) against their plain versions. These need a
 GPU and nvcc: marked ``cuda``; they skip on machines without a card and
 run there with
 
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from fgt_tpu_torch.ops import corr_fused as cf
+from fgt_tpu_torch.ops import corr_lookup as cl
 from fgt_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
@@ -41,6 +42,39 @@ def test_k1_kernel_matches_plain(dev, dtype, c, radius, levels):
     tol = 1e-4 * max(1.0, top) if dtype == torch.float32 else top * 2 ** -7
     assert (got - want).abs().max().item() <= tol
     assert got[0, 0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype,radius,levels,h,w", [
+    (torch.float32, 4, 4, 15, 21), (torch.bfloat16, 4, 4, 15, 21),
+    (torch.float32, 3, 4, 9, 13), (torch.bfloat16, 3, 3, 12, 20),
+    (torch.float32, 2, 2, 5, 7)])
+def test_k3_kernel_matches_plain(dev, dtype, radius, levels, h, w):
+    """K3 against its plain version: the same products and sums, each
+    rounded on its own, so the taps are equal (f32 and bf16 storage);
+    pixels far outside every level give exact zeros."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    n = 2 * h * w
+    pyr = [torch.randn(n, hl, wl, device=dev, generator=g).to(dtype)
+           for hl, wl in cl.pyramid_sizes(h, w, levels)]
+    coords = torch.rand(2, h, w, 2, device=dev, generator=g) * (w + 6) - 3
+    coords[0, 0] = 1e4
+    coords[1, 1, :, 0] = w - 1
+    before = cl.lookup_corr_pyramid.launches
+    got = cl.lookup_corr_pyramid(pyr, coords, radius)
+    assert cl.lookup_corr_pyramid.launches == before + 1
+    want = cl.lookup_corr_pyramid_plain(pyr, coords, radius)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    assert got[0, 0].abs().max().item() == 0.0
+
+
+def test_k3_rejects_mismatched_levels(dev):
+    pyr = [torch.randn(6, 2, 3, device=dev)]
+    with pytest.raises(ValueError):
+        cl.lookup_corr_pyramid(pyr, torch.zeros(1, 2, 2, 2, device=dev), 1)
+    with pytest.raises(ValueError):
+        cl.lookup_corr_pyramid([pyr[0].transpose(1, 2)],
+                               torch.zeros(1, 2, 3, 2, device=dev), 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

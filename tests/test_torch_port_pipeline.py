@@ -75,6 +75,7 @@ def test_s1_flows_match_jax_driver_programs():
         jax.tree_util.tree_map(np.asarray, variables),
         weights.raft_mapping()))
     models.dtype, models.raft_iters = torch.float32, 2
+    models.corr, models.corr_dtype = "fused", torch.float32
     with torch.no_grad():
         ff, fb = tvi.calculate_flows(models, torch.from_numpy(frames), 64, 64,
                                      chunk=4)
@@ -136,9 +137,11 @@ TINY_FGT = {
 }
 
 
-def run_jax_pipeline(tmp_path, frames, masks):
-    """JAX ``video_inpainting --f32`` on PNG inputs; returns (output
-    frames from the --vis_frame PNGs, the JAX Models)."""
+def run_jax_pipeline(tmp_path, frames, masks, extra=(), size=None):
+    """JAX ``video_inpainting --f32`` on PNG inputs (written under
+    ``tmp_path``/frames and /masks), at ``size`` (default the frames'),
+    with ``extra`` flags; returns (output frames from the --vis_frame
+    PNGs, the JAX Models)."""
     import imageio.v2 as imageio
     import yaml
 
@@ -150,7 +153,8 @@ def run_jax_pipeline(tmp_path, frames, masks):
     for sub, cfg in (("lafc", TINY_LAFC), ("fgt", TINY_FGT)):
         with open(tmp_path / sub / "config.yaml", "w") as f:
             yaml.safe_dump(cfg, f)
-    n, h, w = frames.shape[:3]
+    n = frames.shape[0]
+    h, w = size or frames.shape[1:3]
     args = jvi.build_parser().parse_args([
         "--path", str(tmp_path / "frames"), "--path_mask",
         str(tmp_path / "masks"), "--outroot", str(tmp_path / "out"),
@@ -158,7 +162,7 @@ def run_jax_pipeline(tmp_path, frames, masks):
         str(tmp_path / "fgt"), "--raft_model", "/nonexistent",
         "--imgH", str(h), "--imgW", str(w), "--raft_iters", "2",
         "--flow_mask_dilates", "2", "--neighbor_stride", "3", "--step", "4",
-        "--f32", "--vis_frame"])
+        "--f32", "--vis_frame", *extra])
     models = jvi.Models(args)
     jvi.video_inpainting(args, models=models)
     out = np.stack([imageio.imread(tmp_path / "out" / "frames" /

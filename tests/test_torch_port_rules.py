@@ -6,7 +6,8 @@
 * the weight bridge round-trips every leaf of the RAFT, LAFC,
   LAFC-single, FGT and T-PatchGAN tables with no key missing on either
   side, and its tables equal the JAX package's converter tables;
-* CPU tensors take the kernels' plain versions without counting a launch;
+* CPU tensors take the kernels' plain versions (K1-K5) without counting a
+  launch;
 * flash attention stays differentiable when its forward is a kernel
   whose output carries no autograd history;
 * frame I/O and the stage timer.
@@ -29,8 +30,8 @@ from fgt_tpu_torch.models import fgt as tfgt
 from fgt_tpu_torch.models import lafc as tlafc
 from fgt_tpu_torch.models import lafc_single as tls
 from fgt_tpu_torch.models import raft as traft
-from fgt_tpu_torch.ops import corr_fused, flash_attention
-from fgt_tpu_torch.pipeline import image_io
+from fgt_tpu_torch.ops import corr_fused, corr_lookup, flash_attention
+from fgt_tpu_torch.pipeline import batch, flow_extract, image_io
 from fgt_tpu_torch.pipeline import video_inpainting as tvi
 from fgt_tpu_torch.train.trainer import FGTTrainer
 
@@ -74,6 +75,12 @@ def test_entry_points_default_to_cuda():
     assert tvi.build_parser().parse_args([]).device == "cuda"
     sig = inspect.signature(FGTTrainer.__init__)
     assert sig.parameters["device"].default == "cuda"
+    assert flow_extract.build_parser().parse_args(
+        ["--datapath", "d", "--outroot", "o"]).device == "cuda"
+    assert inspect.signature(flow_extract.load_raft).parameters[
+        "device"].default == "cuda"
+    # the batch driver parses the inference CLI's flags
+    assert batch.build_parser is tvi.build_parser
 
 
 def _random_tree(own, paths):
@@ -168,6 +175,11 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     dq = flash_attention.flash_attention_dq(q, q, q, q, lse, dsum, 0.1)
     dk, dv = flash_attention.flash_attention_dkv(q, q, q, q, lse, dsum, 0.1)
     assert dq.shape == dk.shape == dv.shape == q.shape
+    corr_lookup.lookup_corr_pyramid.launches = 0
+    vols = corr_lookup.build_corr_pyramid(f, f, 2)
+    taps = corr_lookup.lookup_corr_pyramid(vols, torch.zeros(1, 4, 6, 2), 1)
+    assert taps.shape == (1, 4, 6, 18) and taps.dtype == torch.float32
+    assert corr_lookup.lookup_corr_pyramid.launches == 0
     assert corr_fused.lookup_corr_fused.launches == 0
     for fn in (flash_attention.flash_mhsa, flash_attention.flash_attention_dq,
                flash_attention.flash_attention_dkv):
