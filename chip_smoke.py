@@ -128,6 +128,34 @@ def bound(nbytes: float, flops: float, peak_flops: float):
             "operations")
 
 
+def resource_usage():
+    """Registers, stack and local (spill) bytes and static shared memory
+    of every kernel in the built flash-attention libraries, as cuobjdump
+    reports them (dynamic shared memory is set at launch, from the
+    sources' constants)."""
+    import re
+    from fgt_tpu_torch.ops import _build
+
+    nvcc = _build.nvcc_path()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log("resources: cuobjdump not found")
+        return
+    for name in ("flash_attention", "flash_attention_bwd"):
+        lib = _build._target(name, os.path.join(
+            _build.CSRC_DIR, _build.CUDA_SOURCES[name]),
+            [nvcc] + _build.NVCC_FLAGS)
+        dump = subprocess.run([cuobjdump, "--dump-resource-usage", lib],
+                              capture_output=True, text=True).stdout
+        for fn, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:[^\n]*)",
+                                    dump):
+            kernel = re.search(r"flash_(fwd|dq|dkv)(_bf16)?_kernel",
+                               fn).group(0)
+            if "bf16_kernel" not in kernel:
+                kernel += "<bf16>" if "nv_bfloat16" in fn else "<f32>"
+            log(f"resources {kernel}: " + " ".join(usage.split()[:4]))
+
+
 def phase_k1(dtype, stats: dict):
     """K1 at the main-path shape: 46 pairs x 60x108 pixels, C=256, r=4,
     4 levels (60x108, 30x54, 15x27, 7x13 — odd sizes floor-pooled)."""
@@ -181,61 +209,107 @@ def phase_k1(dtype, stats: dict):
                              bound_by=b_by, max_abs_err=err, library_ms=None)
 
 
-def phase_k2(dtype, stats: dict):
-    """K2 at the main-path shape: 5 windows x 4 groups x 4 heads = 80
-    sequences of 13 frames x 10 x 18 = 2340 tokens, head dim 128."""
+def check_k2(q, k, v, scale: float, label: str) -> float:
+    """K2 against its plain version on the same inputs; returns the
+    largest output deviation. f32: online vs one-shot softmax
+    reassociation (2e-5); bf16 output: 1 ulp of the largest entry (the
+    kernel rounds p against the running max, the plain version against
+    the row max). lse within 1e-4 in both."""
     import torch
-    import torch.nn.functional as F
     from fgt_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(device="cuda").manual_seed(2)
-    n, l, ch = 80, 2340, 128
-    q, k, v = (torch.randn(n, l, ch, device="cuda", generator=g).to(dtype)
-               for _ in range(3))
-    scale = ch ** -0.5
     out, lse = fa.flash_mhsa(q, k, v, scale)
     want, want_lse = fa.flash_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
     err_lse = (lse - want_lse).abs().max().item()
     top = want.float().abs().max().item()
-    # f32: online vs one-shot softmax reassociation; bf16 output: 1 ulp
-    tol = 2e-5 if dtype == torch.float32 else top * 2 ** -7
-    log(f"K2 {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol:.3g}), "
+    tol = 2e-5 if q.dtype == torch.float32 else top * 2 ** -7
+    log(f"K2 {label}: max_abs_err {err:.3g} (tol {tol:.3g}), "
         f"lse err {err_lse:.3g} (tol 1e-4)")
     if not (err <= tol and err_lse <= 1e-4):
-        raise AssertionError("K2 disagrees with its plain version")
-    kernel_ms = cuda_ms(lambda: fa.flash_mhsa(q, k, v, scale), 5)
+        raise AssertionError(f"K2 {label} disagrees with its plain version")
+    return err
+
+
+def phase_k2(dtype, stats: dict):
+    """K2 at the main-path shape: 5 windows x 4 groups x 4 heads = 80
+    sequences of 13 frames x 10 x 18 = 2340 tokens, head dim 128 (ragged:
+    the last 64-row query and key tiles hold 36 rows); in bf16 also at
+    L = 65, one row past a tile edge."""
+    import torch
+    import torch.nn.functional as F
+    from fgt_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    n, l, ch = 80, 2340, 128
+    scale = ch ** -0.5
+    name = str(dtype)[6:]
+    if dtype == torch.bfloat16:
+        check_k2(*(torch.randn(4, 65, ch, device="cuda", generator=g)
+                   .to(dtype) for _ in range(3)), scale, f"{name} L=65")
+    q, k, v = (torch.randn(n, l, ch, device="cuda", generator=g).to(dtype)
+               for _ in range(3))
+    err = check_k2(q, k, v, scale, f"{name} N={n} L={l}")
+    kernel_ms = cuda_ms(lambda: fa.flash_mhsa(q, k, v, scale), 10)
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale), 3)
     # [1, N, L, ch]: batch 1 and N heads, the layout SDPA's fused paths take
     q4, k4, v4 = q[None], k[None], v[None]
     library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q4, k4, v4), 5)
+        lambda: F.scaled_dot_product_attention(q4, k4, v4), 10)
     item = q.element_size()
     nbytes = 4 * n * l * ch * item + n * l * 4
     flops = 4.0 * n * l * l * ch
     b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS if dtype ==
                        torch.bfloat16 else H100_F32_FLOPS)
-    log(f"K2 {str(dtype)[6:]}: kernel_ms {kernel_ms:.4f} plain_ms "
+    log(f"K2 {name}: kernel_ms {kernel_ms:.4f} plain_ms "
         f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
-        f"({b_by})")
+        f"({b_by}); {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+        f"{b_ms / kernel_ms:.3f} of the bound")
     stats[str(dtype)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, max_abs_err=err,
                              library_ms=library_ms)
 
 
+def check_k45_ragged(q, k, v, do, scale: float):
+    """K4 and K5 in bf16 at a ragged L against their plain versions on
+    the plain forward's lse and dsum: 1 ulp of the largest entry."""
+    import torch
+    from fgt_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa.flash_attention_plain(q, k, v, scale)
+    dsum = (do.float() * out.float()).sum(-1)
+    got = (fa.flash_attention_dq(q, k, v, do, lse, dsum, scale),
+           *fa.flash_attention_dkv(q, k, v, do, lse, dsum, scale))
+    want = (fa.flash_attention_dq_plain(q, k, v, do, lse, dsum, scale),
+            *fa.flash_attention_dkv_plain(q, k, v, do, lse, dsum, scale))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        top = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        log(f"K4/K5 bfloat16 L={q.shape[1]} {name}: max_abs_err {err:.3g} "
+            f"(tol {top * 2 ** -7:.3g})")
+        if not err <= top * 2 ** -7:
+            raise AssertionError(f"K4/K5 {name} at L={q.shape[1]} "
+                                 "disagrees")
+
+
 def phase_k45(dtype, stats: dict):
     """K4 and K5 at the training shape: batch 2 x 4 groups x 4 heads = 32
-    sequences of 5 frames x 10 x 18 = 900 tokens, head dim 128."""
+    sequences of 5 frames x 10 x 18 = 900 tokens, head dim 128 (ragged:
+    the last 64-row tile holds 4 rows); in bf16 also at L = 65."""
     import torch
     import torch.nn.functional as F
     from fgt_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(4)
     n, l, ch = 32, 900, 128
+    scale = ch ** -0.5
+    if dtype == torch.bfloat16:
+        check_k45_ragged(*(torch.randn(4, 65, ch, device="cuda", generator=g)
+                           .to(dtype) for _ in range(4)), scale)
     q, k, v, do = (torch.randn(n, l, ch, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
-    scale = ch ** -0.5
     out, lse = fa.flash_mhsa(q, k, v, scale)
     dsum = (do.float() * out.float()).sum(-1)
     got = (fa.flash_attention_dq(q, k, v, do, lse, dsum, scale),
@@ -266,7 +340,7 @@ def phase_k45(dtype, stats: dict):
     dq_ms = cuda_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, dsum,
                                                   scale), 10)
     dkv_ms = cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, dsum,
-                                                    scale), 10)
+                                                    scale), 50)
     dq_plain = cuda_ms(lambda: fa.flash_attention_dq_plain(
         q, k, v, do, lse, dsum, scale), 5)
     dkv_plain = cuda_ms(lambda: fa.flash_attention_dkv_plain(
@@ -292,7 +366,8 @@ def phase_k45(dtype, stats: dict):
         log(f"K{4 if name == 'dq' else 5} {str(dtype)[6:]}: kernel_ms "
             f"{ms:.4f} plain_ms {pms:.4f} library_ms {lib_ms:.4f} (SDPA "
             f"backward, dq+dk+dv) bound_ms {b_ms:.4f} ({b_by}; "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound")
         stats.setdefault(name, {})[str(dtype)] = dict(
             ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=err, library_ms=lib_ms)
@@ -972,6 +1047,7 @@ def main() -> int:
     native._load()
     log(f"build: CUDA kernels {secs:.2f} s, host flowNN library "
         f"{time.perf_counter() - t0:.2f} s")
+    resource_usage()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

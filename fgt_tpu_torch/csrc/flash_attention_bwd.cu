@@ -10,9 +10,28 @@
 //
 //   K4 (dq): one block per (n, 64-query tile); loops over key tiles:
 //            s = q.k^T*scale, p = exp(s - lse), dp = dO.v^T,
-//            ds = p*(dp - dsum)*scale, dq += ds.k.
+//            ds = p*(dp - dsum)*scale, dq += ds.k; f32 FMA units in both
+//            dtypes, ds rounded to bf16 before ds.k in bf16 (the TPU
+//            kernel's ds.astype(k.dtype)).
 //   K5 (dk, dv): one block per (n, 64-key tile); loops over query tiles:
-//            dv += p^T.dO, dk += ds^T.q; dk/dv accumulators in registers.
+//            dv += p^T.dO, dk += ds^T.q. Two bodies, chosen by dtype:
+//     bf16 (flash_dkv_bf16_kernel, tensor cores): 8 warps; k and v stay in
+//            bf16 shared memory for the block's life, q and dO tiles (and
+//            their lse, dsum) stream through a two-stage cp.async ring.
+//            Per query tile, rows = keys throughout:
+//              1. s^T = k.q^T and dp^T = v.dO^T (mma.sync m16n8k16, f32
+//                 accumulation), warp w on key rows 16*(w%4) and query
+//                 cols 32*(w/4);
+//              2. p^T = exp(s^T*scale - lse), ds^T = p^T*(dp^T - dsum)*scale
+//                 from the f32 p^T, both rounded to bf16 (the TPU kernel's
+//                 p.astype, ds.astype) into swizzled [64][64] tiles;
+//              3. dv += p^T.dO and dk += ds^T.q, warp w on key rows
+//                 16*(w%4) and head-dim cols 64*(w/4), B fragments of dO
+//                 and q from ldmatrix.trans; dk, dv (64 f32 a lane) stay
+//                 in registers. 113 KB of shared memory a block.
+//     f32 (flash_dkv_kernel, f32 FMA units, full f32): 256 threads, the
+//            k, v, q, dO, p and ds tiles as f32 in shared memory, dk/dv
+//            accumulators in registers.
 //
 // Keys >= L get p = 0 and query rows >= L get p = ds = 0 in the kernel
 // (their lse/dsum are never read), so ragged L needs no padding in memory.
@@ -23,6 +42,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -41,6 +62,11 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
+}
+// x rounded to the dtype the pointer argument points to (the input dtype)
+__device__ __forceinline__ float round_as(float x, const float*) { return x; }
+__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 // rows [r0, r0 + 64) of a [L, D] matrix into a [64][QS] f32 tile; rows
@@ -149,7 +175,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool ok = row_ok[i] && (k0 + tx + 16 * j < len);
         const float p = ok ? expf(s[i][j] * scale - row_lse[i]) : 0.f;
         dss[(ty * 4 + i) * PS + tx + 16 * j] =
-            p * (dp[i][j] - row_dsum[i]) * scale;
+            round_as(p * (dp[i][j] - row_dsum[i]) * scale, k);
       }
     __syncthreads();
 
@@ -308,6 +334,226 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------- bf16, tensor cores
+
+namespace tc {
+
+using namespace fgt_mma;
+
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kTile = BT * D;  // bf16 elements of one [64][128] tile
+constexpr float kLog2e = 1.4426950408889634f;
+// k, v + two stages of (q, dO, lse, dsum) + p^T and ds^T [64][64] tiles
+constexpr size_t kStageBytes =
+    sizeof(bf16) * 2 * kTile + sizeof(float) * 2 * BT;
+constexpr size_t kSmemBytes =
+    sizeof(bf16) * 2 * kTile + 2 * kStageBytes + sizeof(bf16) * 2 * BT * BT;
+
+// stage s of the ring: q tile, dO tile, lse[64], dsum[64]
+struct Stage {
+  bf16* q;
+  bf16* dout;
+  float* lse;
+  float* dsum;
+};
+
+__device__ __forceinline__ Stage stage(unsigned char* ring, int s) {
+  unsigned char* p = ring + s * kStageBytes;
+  bf16* qs = reinterpret_cast<bf16*>(p);
+  float* rows = reinterpret_cast<float*>(qs + 2 * kTile);
+  return {qs, qs + kTile, rows, rows + BT};
+}
+
+// query tile [q0, q0 + 64): q, dO rows and their lse, dsum (zero past L)
+__device__ __forceinline__ void load_query_tile(
+    const bf16* __restrict__ q, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum, int q0,
+    int len, const Stage& st) {
+  load_rows_async<BT, kThreads>(q, q0, len, st.q);
+  load_rows_async<BT, kThreads>(dout, q0, len, st.dout);
+  if (threadIdx.x < 2 * BT) {
+    const int i = threadIdx.x & (BT - 1);
+    const bool ok = q0 + i < len;
+    const float* src = threadIdx.x < BT ? lse : dsum;
+    float* dst = threadIdx.x < BT ? st.lse : st.dsum;
+    cp_async4(dst + i, ok ? src + q0 + i : src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, int len, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [BT][D] this block's keys
+  bf16* vs = ks + kTile;                         // [BT][D]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(vs + kTile);
+  // p^T and ds^T of the current query tile, [key][query]
+  bf16* p_t = reinterpret_cast<bf16*>(ring + 2 * kStageBytes);
+  bf16* ds_t = p_t + BT * BT;
+
+  const int n = blockIdx.y;
+  const int k0 = blockIdx.x * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int kr = 16 * (warp & 3);  // this warp's 16 key rows
+  const int half = warp >> 2;      // query half (step 1), head-dim half (3)
+  const size_t base = static_cast<size_t>(n) * len * D;
+  const size_t rbase = static_cast<size_t>(n) * len;
+  const int ntiles = (len + BT - 1) / BT;
+  q += base;
+  dout += base;
+  lse += rbase;
+  dsum += rbase;
+
+  load_rows_async<BT, kThreads>(k + base, k0, len, ks);
+  load_rows_async<BT, kThreads>(v + base, k0, len, vs);
+  load_query_tile(q, dout, lse, dsum, 0, len, stage(ring, 0));
+  cp_async_commit();
+
+  const bool key_edge = k0 + BT > len;
+  const float c = scale * kLog2e;
+  float acc_k[8][4], acc_v[8][4];  // key rows g, g+8 x 8 tiles of 8 cols
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc_k[j][e] = 0.f;
+      acc_v[j][e] = 0.f;
+    }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int q0 = t * BT;
+    if (t + 1 < ntiles)
+      load_query_tile(q, dout, lse, dsum, q0 + BT, len,
+                      stage(ring, (t + 1) & 1));
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and k, v) have landed
+    __syncthreads();
+    const Stage st = stage(ring, t & 1);
+
+    // 1. s^T = k.q^T, dp^T = v.dO^T: 16 key rows x 32 queries (4 tiles)
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, ks + swz<D>(kr + a_row(lane), 2 * kk + a_chunk(lane)));
+      ldmatrix_x4(va, vs + swz<D>(kr + a_row(lane), 2 * kk + a_chunk(lane)));
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        const int off = swz<D>(32 * half + 16 * jp + bn_row(lane),
+                               2 * kk + bn_chunk(lane));
+        uint32_t bq[4], bo[4];
+        ldmatrix_x4(bq, st.q + off);
+        ldmatrix_x4(bo, st.dout + off);
+        mma_bf16(s[2 * jp], ka, bq[0], bq[1]);
+        mma_bf16(s[2 * jp + 1], ka, bq[2], bq[3]);
+        mma_bf16(dp[2 * jp], va, bo[0], bo[1]);
+        mma_bf16(dp[2 * jp + 1], va, bo[2], bo[3]);
+      }
+    }
+
+    // 2. p^T and ds^T from the f32 accumulators, rounded to bf16 into
+    //    the swizzled [key][query] tiles
+    const bool edge = key_edge || q0 + BT > len;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * half + 8 * j + 2 * t4;  // query within the tile
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = col + (e & 1);
+        const int key = k0 + kr + g + 8 * (e >> 1);
+        float p = exp2f(fmaf(s[j][e], c, -st.lse[qi] * kLog2e));
+        if (edge && (key >= len || q0 + qi >= len)) p = 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - st.dsum[qi]) * scale;
+      }
+      const int chunk = (32 * half + 8 * j) >> 3;
+      const int lo = swz<BT>(kr + g, chunk) + 2 * t4;
+      const int hi = swz<BT>(kr + g + 8, chunk) + 2 * t4;
+      *reinterpret_cast<uint32_t*>(p_t + lo) = pack_bf16(s[j][0], s[j][1]);
+      *reinterpret_cast<uint32_t*>(p_t + hi) = pack_bf16(s[j][2], s[j][3]);
+      *reinterpret_cast<uint32_t*>(ds_t + lo) =
+          pack_bf16(dp[j][0], dp[j][1]);
+      *reinterpret_cast<uint32_t*>(ds_t + hi) =
+          pack_bf16(dp[j][2], dp[j][3]);
+    }
+    __syncthreads();
+
+    // 3. dv += p^T.dO, dk += ds^T.q: 16 key rows x 64 head-dim cols
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // query steps of 16
+      uint32_t pa[4], sa[4];
+      const int aoff = swz<BT>(kr + a_row(lane), 2 * kk + a_chunk(lane));
+      ldmatrix_x4(pa, p_t + aoff);
+      ldmatrix_x4(sa, ds_t + aoff);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        const int off = swz<D>(16 * kk + bt_row(lane),
+                               8 * half + 2 * jp + bt_chunk(lane));
+        uint32_t bo[4], bq[4];
+        ldmatrix_x4_trans(bo, st.dout + off);
+        ldmatrix_x4_trans(bq, st.q + off);
+        mma_bf16(acc_v[2 * jp], pa, bo[0], bo[1]);
+        mma_bf16(acc_v[2 * jp + 1], pa, bo[2], bo[3]);
+        mma_bf16(acc_k[2 * jp], sa, bq[0], bq[1]);
+        mma_bf16(acc_k[2 * jp + 1], sa, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // p^T, ds^T and this stage are rewritten next
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = k0 + kr + g + 8 * r;
+    if (row >= len) continue;
+    const size_t at = base + static_cast<size_t>(row) * D + 64 * half + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + at + 8 * j) =
+          pack_bf16(acc_k[j][2 * r], acc_k[j][2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(dv + at + 8 * j) =
+          pack_bf16(acc_v[j][2 * r], acc_v[j][2 * r + 1]);
+    }
+  }
+}
+
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* dsum,
+                       void* dk, void* dv, int n, int len, float scale,
+                       cudaStream_t stream) {
+  // 16-byte cp.async and 4-byte stores need aligned rows
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv)) &
+      15)
+    return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dkv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((len + BT - 1) / BT, n);
+  flash_dkv_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, dsum,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), len, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q, k, v, dout, dq: [n, len, 128] contiguous (dtype 0 = float32,
@@ -328,7 +574,8 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
   return static_cast<int>(err);
 }
 
-// as above, writing dk and dv: [n, len, 128] in the input dtype.
+// as above, writing dk and dv: [n, len, 128] in the input dtype (0: the
+// f32 body; 1: the tensor-core body, rows 16-byte aligned).
 extern "C" int flash_attention_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* dsum,
@@ -340,8 +587,8 @@ extern "C" int flash_attention_dkv(const void* q, const void* k,
   const float* l = static_cast<const float*>(lse);
   const float* ds = static_cast<const float*>(dsum);
   const cudaError_t err =
-      dtype == 1 ? launch_dkv<__nv_bfloat16>(q, k, v, dout, l, ds, dk, dv, n,
-                                             len, scale, s)
+      dtype == 1 ? tc::launch_dkv(q, k, v, dout, l, ds, dk, dv, n, len, scale,
+                                  s)
                  : launch_dkv<float>(q, k, v, dout, l, ds, dk, dv, n, len,
                                      scale, s);
   return static_cast<int>(err);

@@ -4,7 +4,8 @@ Each CUDA source under ``csrc/`` compiles with nvcc into its own shared
 library with a plain C interface (bound with ctypes by its wrapper); the
 host flowNN/Poisson kernels compile with g++. Outputs land in the
 git-ignored ``fgt_tpu_torch/build/`` directory, named by a hash of the
-source and flags, so an edited source rebuilds and concurrent processes
+source, the ``*.cuh`` headers beside it and the flags, so an edited
+source or header rebuilds and concurrent processes
 (test workers) never load a half-written file: each build writes a
 temporary file and renames it into place.
 """
@@ -50,8 +51,15 @@ def nvcc_path() -> str:
 
 
 def _target(stem: str, source: str, cmd_flags: list) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(cmd_flags).encode())
+    """The cache path of ``source`` built with ``cmd_flags``: a hash of
+    the source, of every ``*.cuh`` header beside it (which it may
+    include) and of the flags."""
+    digest = hashlib.sha1(" ".join(cmd_flags).encode())
+    src_dir = os.path.dirname(source)
+    headers = sorted(f for f in os.listdir(src_dir) if f.endswith(".cuh"))
+    for path in [source] + [os.path.join(src_dir, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
     return os.path.join(BUILD_DIR, f"lib{stem}_{digest.hexdigest()[:12]}.so")
 
 

@@ -10,35 +10,60 @@ backward recomputes the probabilities from. :class:`FlashAttention`
 ties the three together as one differentiable op; :func:`flash_attend`,
 which TMHSA calls, goes through it.
 
-Design for Hopper. Every kernel works on 64-row tiles of 128-wide rows
-staged in shared memory as f32, with 256 threads per block, each owning
-a 4×4 micro-tile of the 64×64 score tile, and handles the ragged end of
-L in the kernel (masked keys, masked query rows), so no padding to a
-block multiple reaches device memory. Head dim 128 only (the FGT path:
-512 hidden / 4 heads).
+Rounding. Scores, softmax statistics and every sum are f32. In bf16, as
+in the TPU kernels, p (and ds in the backward) is rounded to the input
+dtype before the second product of each pair: p·v (K2), ds·k (K4),
+pᵀ·dO and dsᵀ·q (K5); the row sum l and ds take the unrounded p. The
+plain versions round at the same places; in f32 nothing is rounded.
 
-* K2 (``csrc/flash_attention.cu``): one block per (n, 64-query tile);
-  online softmax with the running max and sum in f32 registers.
-* K4 (``csrc/flash_attention_bwd.cu``): one block per (n, 64-query
-  tile); loops over key tiles: s = q·kᵀ·scale, p = exp(s − lse),
-  dp = dO·vᵀ, ds = p∘(dp − dsum)·scale, dq += ds·k.
-* K5 (same file): one block per (n, 64-key tile); loops over query
-  tiles: dv += pᵀ·dO, dk += dsᵀ·q. The dk and dv accumulators (2×64×128
-  f32) live in registers, 64 per thread; the q, dO, k, v, p and ds tiles
-  take 165 KB of shared memory.
+Design for Hopper. Each kernel handles the ragged end of L itself
+(masked keys, masked query rows), so no padding to a block multiple
+reaches device memory, and each output row belongs to one block, so the
+backward uses no atomics and is deterministic. Head dim 128 only (the
+FGT path: 512 hidden / 4 heads). The C entry points dispatch on dtype:
 
-Each output row belongs to one block, so the backward uses no atomics
-and is deterministic. dsum = rowsum(dO∘O) is taken in plain torch, as
-the JAX package takes it outside Pallas.
+* bf16, tensor cores (``mma.sync`` m16n8k16, f32 accumulation; shared
+  helpers in ``csrc/mma_bf16.cuh``). Tiles stay bf16 in swizzled shared
+  memory (16-byte chunks XORed with the row, so ``ldmatrix`` is free of
+  bank conflicts) and stream through a two-stage ring of 16-byte
+  ``cp.async`` copies, the next tile in flight while this one's products
+  run.
+
+  - K2 (``csrc/flash_attention.cu``): one block of 4 warps per (n,
+    64-query tile), 16 query rows a warp with their q fragments held in
+    registers; 64-key k/v tiles; online softmax on the accumulators
+    (scale·log2e folded into ``exp2f``); p goes from the score
+    accumulators to bf16 A fragments in registers, v's B fragments come
+    from ``ldmatrix.trans``. 80 KB of shared memory, two blocks an SM.
+  - K5 (``csrc/flash_attention_bwd.cu``): one block of 8 warps per (n,
+    64-key tile) holding k and v for its life; per 64-query tile,
+    sᵀ = k·qᵀ and dpᵀ = v·dOᵀ (a warp: 16 keys × 32 queries), pᵀ and dsᵀ
+    rounded to bf16 through shared memory, then dv += pᵀ·dO and
+    dk += dsᵀ·q (a warp: 16 keys × 64 head-dim columns, 64 f32
+    accumulators a lane). 113 KB of shared memory.
+* f32, full f32 on the FMA units (TF32 would round the operands): 64-row
+  tiles staged in shared memory as f32, 256 threads per block, each
+  owning a 4×4 micro-tile of the 64×64 score tile.
+
+  - K2: one block per (n, 64-query tile); online softmax with the
+    running max and sum in f32 registers.
+  - K4: one block per (n, 64-query tile); loops over key tiles:
+    s = q·kᵀ·scale, p = exp(s − lse), dp = dO·vᵀ, ds = p∘(dp − dsum)·scale,
+    dq += ds·k. K4 runs this body in bf16 too (ds rounded before ds·k).
+  - K5: one block per (n, 64-key tile); loops over query tiles:
+    dv += pᵀ·dO, dk += dsᵀ·q, the accumulators in registers.
+
+dsum = rowsum(dO∘O) is taken in plain torch, as the JAX package takes it
+outside Pallas.
 
 Bounds on the card (H100 SXM). Forward at inference's N = 80,
 L = 2340: 4·N·L²·ch ≈ 224 GFLOP against ≈0.2 GB, operations-bound,
 ≈0.23 ms at the bf16 tensor-core peak (989 TFLOP/s). Backward at
 training's N = 32, L = 900: K4 does 6·N·L²·ch ≈ 19.9 GFLOP (≈0.020 ms
 bf16 bound), K5 8·N·L²·ch ≈ 26.5 GFLOP (≈0.027 ms), both
-operations-bound. These first kernels run the products on the f32 FMA
-units (67 TFLOP/s peak) and so cannot come near those bounds; moving
-them onto ``mma``/``wgmma`` is later work.
+operations-bound. ``mma.sync`` reaches only part of that peak
+(``wgmma`` is the further step); the f32 bodies are held to the f32
+FMA peak (67 TFLOP/s).
 """
 
 from __future__ import annotations
@@ -96,20 +121,39 @@ def _stream(t: torch.Tensor) -> int:
 
 # ---------------------------------------------------------------- plain
 
+def _as_input(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to ``like``'s dtype and back (a no-op in f32): the
+    TPU kernels' ``p.astype(v.dtype)`` / ``ds.astype(k.dtype)`` before the
+    second product of each pair."""
+    return x.to(like.dtype).float()
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: float):
     """Plain PyTorch version of K2: (out [N, L, ch] in q's dtype,
-    lse [N, L] f32), computed in f32."""
+    lse [N, L] f32). In bf16, what ``_flash_kernel`` computes when one
+    key block covers the row: p = exp(s − rowmax) in f32, l = the f32 sum
+    of the unrounded p, out = (p rounded to bf16)·v accumulated in f32,
+    divided by l. In f32 nothing is rounded, and out = exp(s − lse)·v
+    takes the very p that the backward recomputes from lse, so that the
+    sums of ds that vanish in exact arithmetic hold the least noise."""
     s = torch.einsum("nqc,nkc->nqk", q.float(), k.float()) * scale
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
-    out = torch.einsum("nqk,nkc->nqc", p, v.float())
+    if q.dtype == torch.float32:
+        out = torch.einsum("nqk,nkc->nqc", torch.exp(s - lse[..., None]),
+                           v.float())
+    else:
+        # the gradient through the max cancels exactly: leave it out
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True).detach())
+        out = torch.einsum("nqk,nkc->nqc", _as_input(p, v),
+                           v.float()) / p.sum(dim=-1, keepdim=True)
     return out.to(q.dtype), lse
 
 
 def _probs_and_ds(q, k, v, dout, lse, dsum, scale):
     """p = exp(q·kᵀ·scale − lse) and ds = p∘(dO·vᵀ − dsum)·scale in f32,
-    recomputed as the TPU backward kernels recompute them."""
+    recomputed as the TPU backward kernels recompute them (ds from the
+    unrounded p)."""
     s = torch.einsum("nqc,nkc->nqk", q.float(), k.float()) * scale
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("nqc,nkc->nqk", dout.float(), v.float())
@@ -117,17 +161,19 @@ def _probs_and_ds(q, k, v, dout, lse, dsum, scale):
 
 
 def flash_attention_dq_plain(q, k, v, dout, lse, dsum, scale: float):
-    """Plain PyTorch version of K4: dq = ds·k, in q's dtype."""
+    """Plain PyTorch version of K4: dq = ds·k, ds rounded to the input
+    dtype, in q's dtype."""
     _, ds = _probs_and_ds(q, k, v, dout, lse, dsum, scale)
-    return torch.einsum("nqk,nkc->nqc", ds, k.float()).to(q.dtype)
+    return torch.einsum("nqk,nkc->nqc", _as_input(ds, k),
+                        k.float()).to(q.dtype)
 
 
 def flash_attention_dkv_plain(q, k, v, dout, lse, dsum, scale: float):
-    """Plain PyTorch version of K5: (dk = dsᵀ·q, dv = pᵀ·dO), in the
-    input dtype."""
+    """Plain PyTorch version of K5: (dk = dsᵀ·q, dv = pᵀ·dO), p and ds
+    rounded to the input dtype, in the input dtype."""
     p, ds = _probs_and_ds(q, k, v, dout, lse, dsum, scale)
-    dk = torch.einsum("nqk,nqc->nkc", ds, q.float())
-    dv = torch.einsum("nqk,nqc->nkc", p, dout.float())
+    dk = torch.einsum("nqk,nqc->nkc", _as_input(ds, q), q.float())
+    dv = torch.einsum("nqk,nqc->nkc", _as_input(p, dout), dout.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 

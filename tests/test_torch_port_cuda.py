@@ -90,6 +90,53 @@ def test_k2_kernel_matches_plain(dev, dtype):
     assert (lse - want_lse).abs().max().item() <= 1e-4
 
 
+RAGGED = [(3, 1), (3, 63), (3, 64), (3, 65), (3, 127), (3, 300)]
+
+
+@pytest.mark.parametrize("n,l", RAGGED + [(1, 2340), (80, 2340)])
+def test_k2_bf16_tensor_cores_match_plain(dev, n, l):
+    """K2's bf16 tensor-core body at ragged L (64-row tile edges just
+    inside and past L) and the main-path N = 80, L = 2340: one bf16 ulp of
+    the largest output (the kernel rounds p against the running max, the
+    plain version against the row max) and 1e-4 on the f32 lse."""
+    g = torch.Generator(device=dev).manual_seed(l)
+    q, k, v = (torch.randn(n, l, 128, device=dev, generator=g)
+               .to(torch.bfloat16) for _ in range(3))
+    before = fa.flash_mhsa.launches
+    out, lse = fa.flash_mhsa(q, k, v, 128 ** -0.5)
+    assert fa.flash_mhsa.launches == before + 1
+    want, want_lse = fa.flash_attention_plain(q, k, v, 128 ** -0.5)
+    top = want.float().abs().max().item()
+    assert out.dtype == torch.bfloat16
+    assert (out.float() - want.float()).abs().max().item() <= top * 2 ** -7
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("n,l", RAGGED + [(1, 900), (32, 900)])
+def test_k5_bf16_tensor_cores_match_plain(dev, n, l):
+    """K5's bf16 tensor-core body (and K4 beside it) at ragged L and the
+    training shape N = 32, L = 900, on the plain K2's lse and dsum: one
+    bf16 ulp of the largest entry, plus 1e-5 for gradients that vanish
+    in exact arithmetic (at L = 1, dp = dsum) and hold f32 noise only."""
+    g = torch.Generator(device=dev).manual_seed(l + 7)
+    q, k, v, do = (torch.randn(n, l, 128, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 128 ** -0.5
+    out, lse = fa.flash_attention_plain(q, k, v, scale)
+    dsum = (do.float() * out.float()).sum(-1)
+    before = fa.flash_attention_dkv.launches
+    got = (fa.flash_attention_dq(q, k, v, do, lse, dsum, scale),
+           *fa.flash_attention_dkv(q, k, v, do, lse, dsum, scale))
+    assert fa.flash_attention_dkv.launches == before + 1
+    want = (fa.flash_attention_dq_plain(q, k, v, do, lse, dsum, scale),
+            *fa.flash_attention_dkv_plain(q, k, v, do, lse, dsum, scale))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        top = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= \
+            top * 2 ** -7 + 1e-5
+
+
 def test_k2_rejects_other_head_dims(dev):
     q = torch.randn(2, 50, 64, device=dev)
     with pytest.raises(ValueError):

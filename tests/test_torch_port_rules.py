@@ -10,12 +10,19 @@
   launch;
 * flash attention stays differentiable when its forward is a kernel
   whose output carries no autograd history;
+* the bf16 bodies of K2 and K5 run on tensor cores (``mma.sync``), dtype
+  0 still dispatches to the f32 bodies, and no module calls PyTorch's
+  fused attention;
+* the kernel build cache is named after the source and the headers
+  beside it;
 * frame I/O and the stage timer.
 """
 
 import ast
 import inspect
 import os
+import re
+import shutil
 import time
 
 import numpy as np
@@ -30,7 +37,7 @@ from fgt_tpu_torch.models import fgt as tfgt
 from fgt_tpu_torch.models import lafc as tlafc
 from fgt_tpu_torch.models import lafc_single as tls
 from fgt_tpu_torch.models import raft as traft
-from fgt_tpu_torch.ops import corr_fused, corr_lookup, flash_attention
+from fgt_tpu_torch.ops import _build, corr_fused, corr_lookup, flash_attention
 from fgt_tpu_torch.pipeline import batch, flow_extract, image_io
 from fgt_tpu_torch.pipeline import video_inpainting as tvi
 from fgt_tpu_torch.train.trainer import FGTTrainer
@@ -38,6 +45,7 @@ from fgt_tpu_torch.train.trainer import FGTTrainer
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "fgt_tpu_torch", "csrc")
 FORBIDDEN = {"jax", "jaxlib", "flax", "fgt_tpu", "cv2", "imageio", "yaml"}
 
 
@@ -205,6 +213,92 @@ def test_flash_attend_keeps_autograd_history(monkeypatch):
     out.square().sum().backward()
     for t in (q, k, v):
         assert t.grad is not None and t.grad.abs().sum() > 0
+
+
+def _read_csrc(name: str) -> str:
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
+def _body(src: str, name: str) -> str:
+    """The braces of the first definition of function ``name`` in ``src``
+    (the first ``name(`` in the text)."""
+    start = src.index("{", src.index(name + "("))
+    depth = 0
+    for i in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        if depth == 0:
+            return src[start:i + 1]
+    raise ValueError(f"unbalanced braces after {name}")
+
+
+@pytest.mark.parametrize("source,kernel", [
+    ("flash_attention.cu", "flash_fwd_bf16_kernel"),
+    ("flash_attention_bwd.cu", "flash_dkv_bf16_kernel")])
+def test_bf16_bodies_run_on_tensor_cores(source, kernel):
+    """K2's and K5's bf16 bodies multiply with mma.sync (bf16 operands,
+    f32 accumulation) on fragments filled by ldmatrix from tiles that
+    cp.async brings in."""
+    src = _read_csrc(source)
+    assert '#include "mma_bf16.cuh"' in src
+    body = _body(src, kernel)
+    for call in ("mma_bf16(", "ldmatrix_x4(", "ldmatrix_x4_trans(",
+                 "load_rows_async<"):
+        assert call in body, call
+    helper = _body(_read_csrc("mma_bf16.cuh"), "mma_bf16")
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in helper
+
+
+@pytest.mark.parametrize("source,entry,bf16_launch,f32_launch,f32_kernel", [
+    ("flash_attention.cu", "flash_attention_forward", "tc::launch",
+     "launch<float>", "flash_fwd_kernel"),
+    ("flash_attention_bwd.cu", "flash_attention_dkv", "tc::launch_dkv",
+     "launch_dkv<float>", "flash_dkv_kernel"),
+    ("flash_attention_bwd.cu", "flash_attention_dq",
+     "launch_dq<__nv_bfloat16>", "launch_dq<float>", "flash_dq_kernel")])
+def test_c_entries_dispatch_on_dtype(source, entry, bf16_launch, f32_launch,
+                                     f32_kernel):
+    """dtype 1 goes to the tensor-core body (K4 keeps its FMA body in
+    both dtypes), dtype 0 to the f32 body, which stays on the FMA units:
+    no mma, no TF32."""
+    src = _read_csrc(source)
+    found = re.search(r"dtype == 1\s*\?\s*([\w:<>]+)\(.*?:\s*([\w:<>]+)\(",
+                      _body(src, 'extern "C" int ' + entry), re.S)
+    assert found and found.groups() == (bf16_launch, f32_launch)
+    simt = _body(src, f32_kernel)
+    assert "fmaf(" in simt and "mma" not in simt and "tf32" not in simt
+
+
+def test_no_module_calls_pytorch_fused_attention():
+    """SDPA is only chip_smoke.py's yardstick (library_ms); the port
+    computes attention with its own kernels."""
+    for path in _port_sources():
+        with open(path) as f:
+            text = f.read()
+        if path.endswith("chip_smoke.py"):
+            assert "scaled_dot_product_attention" in text
+        else:
+            assert "scaled_dot_product_attention" not in text, path
+
+
+@pytest.mark.parametrize("edited,rebuilds", [
+    ("mma_bf16.cuh", True), ("flash_attention.cu", True),
+    ("flash_attention_bwd.cu", False)])
+def test_build_cache_name_follows_source_and_headers(tmp_path, edited,
+                                                     rebuilds):
+    """An edited header beside a source, like an edited source, renames
+    the cached library (so it rebuilds); another source does not."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC, csrc)
+    src = str(csrc / "flash_attention.cu")
+    flags = ["nvcc"] + _build.NVCC_FLAGS
+    before = _build._target("flash_attention", src, flags)
+    assert before == _build._target("flash_attention", src, flags)
+    with open(csrc / edited, "a") as f:
+        f.write("\n// edited\n")
+    after = _build._target("flash_attention", src, flags)
+    assert (after != before) == rebuilds
+    assert os.path.dirname(after) == _build.BUILD_DIR
 
 
 def test_png_roundtrip_and_reads_imageio_files(tmp_path):
