@@ -6,8 +6,13 @@
 Phases (any failure exits nonzero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels
      (one nvcc per source, all at once) and the host flowNN library;
+     print every kernel's registers, stack, static shared memory and
+     spills (cuobjdump);
   2. kernel K1 (RAFT corner-dot correlation) against its plain PyTorch
-     version at the main-path shape, in f32 and bf16;
+     version at the main-path shape, in f32 and bf16 (bf16 level 0, f32
+     coarser levels); in bf16 on noisy coords (the general route) and on
+     a smooth flow (the box route), each timed, with the (tile, level)
+     route counts, which must equal ``tile_routes``';
   3. kernel K2 (flash attention) against its plain version at
      N=80, L=2340, ch=128, in f32 and bf16; F.scaled_dot_product_attention
      is timed beside it as a yardstick only;
@@ -15,19 +20,23 @@ Phases (any failure exits nonzero; nothing is caught):
      N=32, L=900, ch=128, in f32 and bf16: against their plain versions
      and against autograd of the plain forward; SDPA's backward (forward
      + backward minus forward) is timed beside them as a yardstick only;
+     K4's tensor-core body's registers, shared memory and spills;
   5. kernel K3 (RAFT all-pairs pyramid lookup) against its plain version
      at the main-path shape (one GRU iteration, 46 pairs x 60x108 pixels,
      4 levels, r 4), f32 and bf16 storage, with coords on, past and far
      outside the level edges; F.grid_sample, one call per level, timed
      beside it as a yardstick only; then the all-pairs pyramid build of
      one refine (TF32 product of bf16 features against the f32 product);
+     then RAFT refine in bf16 on a 64x64 pair with K1 and with its plain
+     version in its place, whose flows must agree;
   6. the object-removal main path at full model width (random weights
      from seed 0, bf16): 24 synthetic panning frames at 432x240 with a
      moving 56x56 hole, run twice (cold, then warm) on each s1 path, K1
      (default) and the all-pairs pyramid (K3); per pass the synchronized
      per-stage seconds, frames/s, peak memory and the kernels' launch
      counts (reset before the pass, read after it: 20 per video of the
-     path's correlation kernel, none of the other's, K2 > 0); output
+     path's correlation kernel, none of the other's, K2 > 0; K1's route
+     counts on the K1 path); output
      checked to be [24, 240, 432, 3] u8 and byte-identical to the input
      outside the hole; the two warm s1 times side by side;
   7. through the CLI at full width: watermark removal from PNG
@@ -128,11 +137,11 @@ def bound(nbytes: float, flops: float, peak_flops: float):
             "operations")
 
 
-def resource_usage():
-    """Registers, stack and local (spill) bytes and static shared memory
-    of every kernel in the built flash-attention libraries, as cuobjdump
-    reports them (dynamic shared memory is set at launch, from the
-    sources' constants)."""
+def resource_usage() -> dict:
+    """Registers, stack, static shared memory and local (spill) bytes of
+    every kernel in the built libraries, as cuobjdump reports them
+    (dynamic shared memory is set at launch, from the sources'
+    constants). Returns {kernel label: usage}."""
     import re
     from fgt_tpu_torch.ops import _build
 
@@ -140,25 +149,74 @@ def resource_usage():
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(cuobjdump):
         log("resources: cuobjdump not found")
-        return
-    for name in ("flash_attention", "flash_attention_bwd"):
-        lib = _build._target(name, os.path.join(
-            _build.CSRC_DIR, _build.CUDA_SOURCES[name]),
-            [nvcc] + _build.NVCC_FLAGS)
+        return {}
+    names = {"f": "f32", "13__nv_bfloat16": "bf16"}
+    found = {}
+    for name, source in _build.CUDA_SOURCES.items():
+        lib = _build._target(name, os.path.join(_build.CSRC_DIR, source),
+                             [nvcc] + _build.NVCC_FLAGS)
         dump = subprocess.run([cuobjdump, "--dump-resource-usage", lib],
                               capture_output=True, text=True).stdout
         for fn, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:[^\n]*)",
                                     dump):
-            kernel = re.search(r"flash_(fwd|dq|dkv)(_bf16)?_kernel",
-                               fn).group(0)
-            if "bf16_kernel" not in kernel:
-                kernel += "<bf16>" if "nv_bfloat16" in fn else "<f32>"
-            log(f"resources {kernel}: " + " ".join(usage.split()[:4]))
+            kernel = re.search(r"(flash_(fwd|dq|dkv)|corr_fused|corr_lookup)"
+                               r"(_bf16)?_kernel", fn).group(0)
+            args = re.search(kernel + r"I((?:f|13__nv_bfloat16|Li\d+E)+)E",
+                             fn)
+            if args:  # template arguments: a type and/or ints
+                kernel += "<" + ",".join(
+                    names.get(t or n, n) for n, t in re.findall(
+                        r"Li(\d+)E|(f|13__nv_bfloat16)", args.group(1))) + ">"
+            found[kernel] = " ".join(usage.split()[:4])
+            log(f"resources {kernel}: {found[kernel]}")
+    return found
+
+
+def smooth_coords(b, h, w, gen, nodes=(4, 7), amp=8.0):
+    """The pixel grid plus a smooth random flow: a low-resolution field
+    of ``amp`` px, bilinearly upsampled. [b, h, w, 2] f32 (x, y) on the
+    generator's device."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = gen.device
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    grid = torch.stack([xs, ys], -1).float()[None].repeat(b, 1, 1, 1)
+    field = amp * torch.randn(b, 2, *nodes, device=dev, generator=gen)
+    flow = F.interpolate(field, size=(h, w), mode="bilinear",
+                         align_corners=True)
+    return grid + flow.permute(0, 2, 3, 1)
+
+
+def k1_bound(f1, pyr, coords, out, r: int, dtype):
+    """K1's bound on this run's inputs: each input byte read once at its
+    own element size (in bf16 level 0 is bf16, the coarser levels f32),
+    the taps written once; the in-bounds corner dots of every level."""
+    import torch
+
+    valid = 0
+    for lvl, lv in enumerate(pyr):
+        c0 = torch.floor(coords / 2 ** lvl).clamp(-1e6, 1e6)
+        d = torch.arange(-r, r + 2, device="cuda")
+        vx = ((c0[..., :1] + d >= 0) & (c0[..., :1] + d <= lv.shape[2] - 1))
+        vy = ((c0[..., 1:] + d >= 0) & (c0[..., 1:] + d <= lv.shape[1] - 1))
+        valid += (vx.sum(-1) * vy.sum(-1)).sum().item()
+    nbytes = (f1.numel() * f1.element_size()
+              + sum(lv.numel() * lv.element_size() for lv in pyr)
+              + coords.numel() * 4 + out.numel() * out.element_size())
+    flops = 2 * f1.shape[-1] * valid + 7 * out.numel()
+    return nbytes, flops, bound(nbytes, flops, H100_BF16_FLOPS if dtype ==
+                                torch.bfloat16 else H100_F32_FLOPS)
 
 
 def phase_k1(dtype, stats: dict):
     """K1 at the main-path shape: 46 pairs x 60x108 pixels, C=256, r=4,
-    4 levels (60x108, 30x54, 15x27, 7x13 — odd sizes floor-pooled)."""
+    4 levels (60x108, 30x54, 15x27, 7x13 — odd sizes floor-pooled). Coords
+    are the pixel grid plus 8 px of noise per pixel (in bf16, level 0's
+    tile boxes overflow: the general route) with far-out-of-range rows;
+    in bf16 also a smooth flow (a 4x7 field of 8 px, upsampled: the box
+    route), both timed, with the routes each took."""
     import torch
     from fgt_tpu_torch.ops import corr_fused as cf
 
@@ -173,40 +231,63 @@ def phase_k1(dtype, stats: dict):
     coords = coords + 8 * torch.randn(B, H, W, 2, device="cuda", generator=g)
     coords[:, :4] = 1e4                       # far out of range: zero taps
     coords[:, 4:8] = -3e3
-    got = cf.lookup_corr_fused(f1, pyr, coords, r)
-    want = cf.lookup_corr_plain(f1, pyr, coords, r)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    top = want.float().abs().max().item()
-    # f32: reassociation of 256-term dots only; bf16 output: the two f32
-    # sums may round to neighbouring bf16 values (1 ulp of the largest tap)
-    tol = 1e-4 * max(1.0, top) if dtype == torch.float32 else top * 2 ** -7
-    far = got[:, :8].float().abs().max().item()
-    log(f"K1 {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol:.3g}, "
-        f"max |tap| {top:.3g}); far-coord taps max {far}")
-    if not err <= tol or far != 0.0:
-        raise AssertionError("K1 disagrees with its plain version")
-    kernel_ms = cuda_ms(lambda: cf.lookup_corr_fused(f1, pyr, coords, r), 20)
-    plain_ms = cuda_ms(lambda: cf.lookup_corr_plain(f1, pyr, coords, r), 2)
-    # work this run's data needs: in-bounds corner dots of every level
-    valid = 0
-    for lvl, lv in enumerate(pyr):
-        c0 = torch.floor(coords / 2 ** lvl).clamp(-1e6, 1e6)
-        d = torch.arange(-r, r + 2, device="cuda")
-        vx = ((c0[..., :1] + d >= 0) & (c0[..., :1] + d <= lv.shape[2] - 1))
-        vy = ((c0[..., 1:] + d >= 0) & (c0[..., 1:] + d <= lv.shape[1] - 1))
-        valid += (vx.sum(-1) * vy.sum(-1)).sum().item()
-    item = f1.element_size()
-    nbytes = (f1.numel() * item + sum(lv.numel() for lv in pyr) * item
-              + coords.numel() * 4 + got.numel() * item)
-    flops = 2 * C * valid + 7 * got.numel()
-    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS if dtype ==
-                       torch.bfloat16 else H100_F32_FLOPS)
-    log(f"K1 {str(dtype)[6:]}: kernel_ms {kernel_ms:.4f} plain_ms "
-        f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e9:.3f} GB, "
-        f"{flops / 1e9:.2f} GFLOP)")
-    stats[str(dtype)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=err, library_ms=None)
+    inputs = [("noisy", coords, 8)]           # (label, coords, far rows)
+    if dtype == torch.bfloat16:
+        smooth = smooth_coords(B, H, W, g)
+        smooth[:, :2] = 1e4
+        inputs.append(("smooth", smooth, 2))
+    name = str(dtype)[6:]
+    if dtype == torch.bfloat16:
+        # the K1 path's memory: the pyramid of bf16 features (as RAFT's
+        # bf16 encoder hands them over) and one lookup, above the features
+        f2b = f2.to(dtype)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        pyr_b = cf.build_fmap_pyramid(f2b, L, dtype=dtype)
+        taps = cf.lookup_corr_fused(f1, pyr_b, coords, r)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        stored = [lv.numel() * lv.element_size() / 1e9 for lv in pyr_b]
+        log(f"K1 {name} pyramid: levels stored {sum(stored):.4f} GB (level 0 "
+            f"{stored[0]:.4f} GB bf16, levels 1-{L - 1} {sum(stored[1:]):.4f} "
+            f"GB f32); build + one lookup peak {peak:.4f} GiB above the "
+            f"features")
+        del f2b, pyr_b, taps
+    for label, cxy, far_rows in inputs:
+        cf.reset_route_tiles()
+        got = cf.lookup_corr_fused(f1, pyr, cxy, r)
+        routes = cf.route_tiles()
+        want = cf.lookup_corr_plain(f1, pyr, cxy, r)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        # f32: reassociation of 256-term dots only; bf16 output: the two
+        # f32 sums may round to neighbouring bf16 values (1 ulp of the
+        # largest tap)
+        tol = 1e-4 * max(1.0, top) if dtype == torch.float32 else \
+            top * 2 ** -7
+        far = got[:, :far_rows].float().abs().max().item()
+        log(f"K1 {name} ({label} coords): max_abs_err {err:.3g} (tol "
+            f"{tol:.3g}, max |tap| {top:.3g}); far-coord taps max {far}")
+        if not err <= tol or far != 0.0:
+            raise AssertionError("K1 disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            sizes = [lv.shape[1:3] for lv in pyr]
+            if routes != cf.tile_routes(cxy, sizes, r):
+                raise AssertionError(f"K1 route counts {routes} differ from "
+                                     "tile_routes'")
+            share = routes["box"] / max(1, sum(routes.values()))
+            log(f"K1 {name} ({label} coords): routes of the (tile, level) "
+                f"pairs {routes}, box share {share:.4f}")
+        kernel_ms = cuda_ms(lambda: cf.lookup_corr_fused(f1, pyr, cxy, r), 20)
+        plain_ms = cuda_ms(lambda: cf.lookup_corr_plain(f1, pyr, cxy, r), 2)
+        nbytes, flops, (b_ms, b_by) = k1_bound(f1, pyr, cxy, got, r, dtype)
+        log(f"K1 {name} ({label} coords): kernel_ms {kernel_ms:.4f} plain_ms "
+            f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e9:.3f} "
+            f"GB, {flops / 1e9:.2f} GFLOP)")
+        stats.setdefault(str(dtype), {})[label] = dict(
+            ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err, library_ms=None)
 
 
 def check_k2(q, k, v, scale: float, label: str) -> float:
@@ -294,13 +375,19 @@ def check_k45_ragged(q, k, v, do, scale: float):
                                  "disagrees")
 
 
-def phase_k45(dtype, stats: dict):
+def phase_k45(dtype, stats: dict, resources: dict):
     """K4 and K5 at the training shape: batch 2 x 4 groups x 4 heads = 32
     sequences of 5 frames x 10 x 18 = 900 tokens, head dim 128 (ragged:
-    the last 64-row tile holds 4 rows); in bf16 also at L = 65."""
+    the last 64-row tile holds 4 rows); in bf16 also at L = 65, and K4's
+    tensor-core body's registers, shared memory and spills."""
     import torch
     import torch.nn.functional as F
     from fgt_tpu_torch.ops import flash_attention as fa
+
+    if dtype == torch.bfloat16:
+        log("K4 bfloat16 body flash_dq_bf16_kernel: "
+            f"{resources.get('flash_dq_bf16_kernel', 'not measured')}; "
+            "dynamic shared memory 98304 B a block (q, dO, two k/v stages)")
 
     g = torch.Generator(device="cuda").manual_seed(4)
     n, l, ch = 32, 900, 128
@@ -503,6 +590,54 @@ def phase_pyramid_build():
     return times
 
 
+def phase_refine_bf16():
+    """RAFT refine in bf16 on a 64x64 pair (8x8 features; levels 8x8,
+    4x4, 2x2, 1x1) at full width (random weights from seed 0), 20
+    iterations, on the K1 path: with the kernel, then with its plain
+    version in its place. Tolerance: the bf16 GRU on random weights
+    carries a one-ulp tap difference through 20 iterations; on the CPU,
+    flipping 0.5% of the taps by one bf16 ulp every iteration moved the
+    upsampled flow by 0.45% of its largest value at most and 0.1% on the
+    mean, so max |diff| <= 2^-5 and mean |diff| <= 2^-8 of the largest
+    |flow|. Returns the kernel's (box, general) route counts."""
+    import torch
+    from fgt_tpu_torch.models import raft as raft_mod
+    from fgt_tpu_torch.ops import corr_fused as cf
+
+    frames, _ = synthetic_video(n=2, h=64, w=64, hole=8, y0=8, x0=8)
+    model = raft_mod.init_raft(raft_mod.RAFT(),
+                               torch.Generator().manual_seed(0))
+    model = model.to("cuda", torch.bfloat16).eval()
+    flows = []
+    with torch.no_grad():
+        fmap, net, inp = model.encode(torch.from_numpy(frames).cuda())
+        for lookup in (cf.lookup_corr_fused, cf.lookup_corr_plain):
+            raft_mod.lookup_corr_fused = lookup
+            try:
+                cf.reset_route_tiles()
+                reset([cf.lookup_corr_fused])
+                flows.append(model.refine(fmap[:1], fmap[1:], net[:1],
+                                          inp[:1], 20)[1].float())
+                torch.cuda.synchronize()
+                if lookup is cf.lookup_corr_fused:
+                    routes = cf.route_tiles()
+                    launches = cf.lookup_corr_fused.launches
+            finally:
+                raft_mod.lookup_corr_fused = cf.lookup_corr_fused
+    top = flows[1].abs().max().item()
+    diff = (flows[0] - flows[1]).abs()
+    log(f"RAFT refine bf16 64x64: K1 vs plain flow max |diff| "
+        f"{diff.max().item():.4g} (tol {top * 2 ** -5:.4g}), mean "
+        f"{diff.mean().item():.4g} (tol {top * 2 ** -8:.4g}); max |flow| "
+        f"{top:.4g} px; K1 launches {launches}, routes {routes}")
+    if launches != 20 or routes["box"] == 0:
+        raise AssertionError("the bf16 refine did not run K1's box route")
+    if not (diff.max().item() <= top * 2 ** -5
+            and diff.mean().item() <= top * 2 ** -8):
+        raise AssertionError("RAFT refine: K1 and its plain version disagree")
+    return routes
+
+
 def synthetic_video(n=24, h=240, w=432, hole=56, y0=90, x0=160, pan=2,
                     seed=0):
     """bench.py's data: a smoothed-noise background panning 2 px/frame and
@@ -546,6 +681,7 @@ def phase_main_path(counters, corr: str, want: dict):
     ``corr`` path of s1; two passes (cold, warm). Returns (launches of the
     warm pass, its stage seconds)."""
     import torch
+    from fgt_tpu_torch.ops import corr_fused as cf
     from fgt_tpu_torch.pipeline import video_inpainting as vi
 
     frames, masks = synthetic_video()
@@ -558,8 +694,10 @@ def phase_main_path(counters, corr: str, want: dict):
         torch.cuda.reset_peak_memory_stats()
         timer = vi.StageTimer("cuda")
         reset(counters)
+        cf.reset_route_tiles()
         out = vi.inpaint(frames, masks, models, timer=timer)
         launches = read(counters)
+        routes = cf.route_tiles()
         total = sum(timer.times.values())
         log(f"main path ({corr}) {label} stages (s): " + json.dumps(
             {k: round(v, 4) for k, v in timer.times.items()}))
@@ -567,6 +705,10 @@ def phase_main_path(counters, corr: str, want: dict):
             f"{total:.3f} s = {len(frames) / total:.3f} frames/s; peak device "
             f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
             f"launches {launches}")
+        if corr == "fused":
+            log(f"main path ({corr}) {label}: K1 routes of the (tile, level) "
+                f"pairs {routes}, box share "
+                f"{routes['box'] / max(1, sum(routes.values())):.4f}")
         if out.shape != (24, 240, 432, 3) or out.dtype != np.uint8:
             raise AssertionError(f"output {out.shape} {out.dtype}")
         keep = masks == 0
@@ -1047,7 +1189,7 @@ def main() -> int:
     native._load()
     log(f"build: CUDA kernels {secs:.2f} s, host flowNN library "
         f"{time.perf_counter() - t0:.2f} s")
-    resource_usage()
+    resources = resource_usage()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1055,9 +1197,10 @@ def main() -> int:
     for dt in (torch.float32, torch.bfloat16):
         phase_k1(dt, k1)
         phase_k2(dt, k2)
-        phase_k45(dt, k45)
+        phase_k45(dt, k45, resources)
         phase_k3(dt, k3)
     phase_pyramid_build()
+    phase_refine_bf16()
     counters = (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
                 flash_attention.flash_mhsa)
     launches, fused_s = phase_main_path(
@@ -1084,7 +1227,7 @@ def main() -> int:
         dict(name="corr_fused_lookup", route="cuda",
              source="fgt_tpu_torch/csrc/corr_fused.cu",
              replaces="fgt_tpu/ops/corr_fused_pallas.py:65",
-             launches=launches["lookup_corr_fused"], **k1[bf16]),
+             launches=launches["lookup_corr_fused"], **k1[bf16]["smooth"]),
         dict(name="flash_attention_forward", route="cuda",
              source="fgt_tpu_torch/csrc/flash_attention.cu",
              replaces="fgt_tpu/ops/flash_attention.py:33",

@@ -10,9 +10,24 @@
 //
 //   K4 (dq): one block per (n, 64-query tile); loops over key tiles:
 //            s = q.k^T*scale, p = exp(s - lse), dp = dO.v^T,
-//            ds = p*(dp - dsum)*scale, dq += ds.k; f32 FMA units in both
-//            dtypes, ds rounded to bf16 before ds.k in bf16 (the TPU
-//            kernel's ds.astype(k.dtype)).
+//            ds = p*(dp - dsum)*scale, dq += ds.k. Two bodies, chosen by
+//            dtype:
+//     bf16 (flash_dq_bf16_kernel, tensor cores): K2's loop shape, 4 warps,
+//            16 query rows a warp; q and dO stay in bf16 shared memory for
+//            the block's life (held in registers they would push the warp
+//            past 255 registers beside dq, s and dp), k and v tiles stream
+//            through a two-stage cp.async ring. Per key tile:
+//              1. s = q.k^T and dp = dO.v^T (mma.sync m16n8k16, f32
+//                 accumulation), A fragments of q and dO from shared
+//                 memory, B fragments of k and v as K2 takes k^T;
+//              2. p = exp(s*scale - lse) in f32 (not rounded);
+//              3. ds = p*(dp - dsum)*scale rounded to bf16 (the TPU
+//                 kernel's ds.astype(k.dtype)) straight into A fragments;
+//              4. dq += ds.k, k's B fragments from ldmatrix.trans; dq
+//                 (64 f32 a lane) stays in registers. 96 KB of shared
+//                 memory, two blocks an SM.
+//     f32 (flash_dq_kernel, f32 FMA units, full f32): q, dO, k, v and ds
+//            tiles as f32 in shared memory, 4x8 dq micro-tiles a thread.
 //   K5 (dk, dv): one block per (n, 64-key tile); loops over query tiles:
 //            dv += p^T.dO, dk += ds^T.q. Two bodies, chosen by dtype:
 //     bf16 (flash_dkv_bf16_kernel, tensor cores): 8 warps; k and v stay in
@@ -58,16 +73,10 @@ constexpr size_t kDqSmem = sizeof(float) * (4 * BT * QS + BT * PS);
 constexpr size_t kDkvSmem = sizeof(float) * (4 * BT * QS + 2 * BT * PS);
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-// x rounded to the dtype the pointer argument points to (the input dtype)
+// x rounded to the dtype the pointer argument points to (the input dtype;
+// the f32 bodies leave it as it is)
 __device__ __forceinline__ float round_as(float x, const float*) { return x; }
-__device__ __forceinline__ float round_as(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // rows [r0, r0 + 64) of a [L, D] matrix into a [64][QS] f32 tile; rows
 // past L become zero. Consecutive threads take consecutive columns.
@@ -530,6 +539,161 @@ flash_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// K4: q, dO tiles + two stages of (k, v) tiles
+constexpr int kDqThreads = 128;  // 4 warps, 16 query rows each
+constexpr size_t kDqSmemBytes = sizeof(bf16) * 6 * kTile;
+
+__global__ void __launch_bounds__(kDqThreads, 2)
+flash_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ dsum, bf16* __restrict__ dq,
+                     int len, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BT][D] this block's q
+  bf16* dos = qs + kTile;                         // [BT][D] its dO
+  bf16* ring = dos + kTile;  // stage s: k at ring + 2*s*kTile, v after it
+
+  const int n = blockIdx.y;
+  const int q0 = blockIdx.x * BT;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // accumulator rows g and g + 8
+  const int t4 = lane & 3;  // accumulator cols 2*t4, 2*t4 + 1 of each tile
+  const size_t base = static_cast<size_t>(n) * len * D;
+  const size_t rbase = static_cast<size_t>(n) * len;
+  const int ntiles = (len + BT - 1) / BT;
+
+  load_rows_async<BT, kDqThreads>(q + base, q0, len, qs);
+  load_rows_async<BT, kDqThreads>(dout + base, q0, len, dos);
+  load_rows_async<BT, kDqThreads>(k + base, 0, len, ring);
+  load_rows_async<BT, kDqThreads>(v + base, 0, len, ring + kTile);
+  cp_async_commit();
+
+  // rows g, g + 8 of this warp: -lse*log2e and dsum (rows >= L: ds = 0)
+  bool row_ok[2];
+  float nl[2], ds_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + g + 8 * r;
+    row_ok[r] = row < len;
+    nl[r] = row_ok[r] ? -lse[rbase + row] * kLog2e : 0.f;
+    ds_row[r] = row_ok[r] ? dsum[rbase + row] : 0.f;
+  }
+  const bool row_edge = q0 + BT > len;
+  const float c = scale * kLog2e;
+  float acc[16][4];  // dq rows g, g+8 x 16 tiles of 8 head-dim cols
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      bf16* nxt = ring + ((t + 1) & 1) * 2 * kTile;
+      load_rows_async<BT, kDqThreads>(k + base, (t + 1) * BT, len, nxt);
+      load_rows_async<BT, kDqThreads>(v + base, (t + 1) * BT, len,
+                                      nxt + kTile);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and q, dO) have landed
+    __syncthreads();
+    const bf16* ks = ring + (t & 1) * 2 * kTile;
+    const bf16* vs = ks + kTile;
+
+    // 1. s = q.k^T, dp = dO.v^T: 16 rows x 64 keys (8 tiles of 8 keys)
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int aoff = swz<D>(16 * warp + a_row(lane), 2 * kk + a_chunk(lane));
+      uint32_t qa[4], oa[4];
+      ldmatrix_x4(qa, qs + aoff);
+      ldmatrix_x4(oa, dos + aoff);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        const int off = swz<D>(16 * jp + bn_row(lane), 2 * kk + bn_chunk(lane));
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, ks + off);
+        ldmatrix_x4(bv, vs + off);
+        mma_bf16(s[2 * jp], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qa, bk[2], bk[3]);
+        mma_bf16(dp[2 * jp], oa, bv[0], bv[1]);
+        mma_bf16(dp[2 * jp + 1], oa, bv[2], bv[3]);
+      }
+    }
+
+    // 2-3. p in f32, then ds (in s's registers) from the unrounded p
+    const bool edge = row_edge || (t + 1) * BT > len;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(fmaf(s[j][e], c, nl[r]));
+        if (edge && (t * BT + 8 * j + 2 * t4 + (e & 1) >= len || !row_ok[r]))
+          p = 0.f;
+        s[j][e] = p * (dp[j][e] - ds_row[r]) * scale;
+      }
+
+    // 4. dq += bf16(ds).k: 4 key steps of 16 x 16 tiles of 8 head-dim cols
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t a[4];
+      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int jp = 0; jp < 8; ++jp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, ks + swz<D>(16 * kk + bt_row(lane),
+                                         2 * jp + bt_chunk(lane)));
+        mma_bf16(acc[2 * jp], a, b[0], b[1]);
+        mma_bf16(acc[2 * jp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled by the next iteration
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!row_ok[r]) continue;
+    bf16* out = dq + base +
+                static_cast<size_t>(q0 + 16 * warp + g + 8 * r) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
+  }
+}
+
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* dsum,
+                      void* dq, int n, int len, float scale,
+                      cudaStream_t stream) {
+  // 16-byte cp.async and 4-byte stores need aligned rows
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+       reinterpret_cast<uintptr_t>(dq)) &
+      15)
+    return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kDqSmemBytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((len + BT - 1) / BT, n);
+  flash_dq_bf16_kernel<<<grid, kDqThreads, kDqSmemBytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, dsum,
+      static_cast<bf16*>(dq), len, scale);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* dsum,
                        void* dk, void* dv, int n, int len, float scale,
@@ -556,8 +720,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, dout, dq: [n, len, 128] contiguous (dtype 0 = float32,
-// 1 = bfloat16); lse, dsum: [n, len] float32. Returns cudaGetLastError().
+// q, k, v, dout, dq: [n, len, 128] contiguous (dtype 0 = float32: the f32
+// body, 1 = bfloat16: the tensor-core body, rows 16-byte aligned); lse,
+// dsum: [n, len] float32. Returns cudaGetLastError().
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* dsum, void* dq, int n, int len,
@@ -568,9 +733,9 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* ds = static_cast<const float*>(dsum);
   const cudaError_t err =
-      dtype == 1
-          ? launch_dq<__nv_bfloat16>(q, k, v, dout, l, ds, dq, n, len, scale, s)
-          : launch_dq<float>(q, k, v, dout, l, ds, dq, n, len, scale, s);
+      dtype == 1 ? tc::launch_dq(q, k, v, dout, l, ds, dq, n, len, scale, s)
+                 : launch_dq<float>(q, k, v, dout, l, ds, dq, n, len, scale,
+                                    s);
   return static_cast<int>(err);
 }
 

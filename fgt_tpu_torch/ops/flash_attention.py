@@ -41,6 +41,13 @@ FGT path: 512 hidden / 4 heads). The C entry points dispatch on dtype:
     rounded to bf16 through shared memory, then dv += pᵀ·dO and
     dk += dsᵀ·q (a warp: 16 keys × 64 head-dim columns, 64 f32
     accumulators a lane). 113 KB of shared memory.
+  - K4 (``csrc/flash_attention_bwd.cu``): K2's loop shape, one block of
+    4 warps per (n, 64-query tile), 16 query rows a warp; q and dO stay
+    in shared memory (held in registers beside dq, s and dp they would
+    pass 255 registers a lane); per 64-key tile, s = q·kᵀ and dp = dO·vᵀ,
+    p in f32, ds rounded to bf16 into A fragments in registers, then
+    dq += ds·k with k's B fragments from ``ldmatrix.trans``. 96 KB of
+    shared memory, two blocks an SM.
 * f32, full f32 on the FMA units (TF32 would round the operands): 64-row
   tiles staged in shared memory as f32, 256 threads per block, each
   owning a 4×4 micro-tile of the 64×64 score tile.
@@ -49,7 +56,7 @@ FGT path: 512 hidden / 4 heads). The C entry points dispatch on dtype:
     running max and sum in f32 registers.
   - K4: one block per (n, 64-query tile); loops over key tiles:
     s = q·kᵀ·scale, p = exp(s − lse), dp = dO·vᵀ, ds = p∘(dp − dsum)·scale,
-    dq += ds·k. K4 runs this body in bf16 too (ds rounded before ds·k).
+    dq += ds·k.
   - K5: one block per (n, 64-key tile); loops over query tiles:
     dv += pᵀ·dO, dk += dsᵀ·q, the accumulators in registers.
 

@@ -44,6 +44,73 @@ def test_k1_kernel_matches_plain(dev, dtype, c, radius, levels):
     assert got[0, 0].abs().max().item() == 0.0
 
 
+def smooth_coords(b, h, w, gen, nodes=(3, 4), amp=8.0):
+    """The pixel grid plus a smooth random flow: a low-resolution field
+    of ``amp`` px, bilinearly upsampled. [b, h, w, 2] f32 (x, y)."""
+    ys, xs = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    grid = torch.stack([xs, ys], -1).float()[None].repeat(b, 1, 1, 1)
+    field = amp * torch.randn(b, 2, *nodes, generator=gen)
+    flow = torch.nn.functional.interpolate(field, size=(h, w),
+                                           mode="bilinear",
+                                           align_corners=True)
+    return grid + flow.permute(0, 2, 3, 1)
+
+
+@pytest.mark.parametrize("kind,c", [("smooth", 256), ("noisy", 256),
+                                    ("smooth", 64), ("noisy", 128)])
+def test_k1_bf16_tile_routes_match_plain(dev, kind, c):
+    """K1's bf16 body (bf16 level 0, f32 coarser levels) against its plain
+    version at odd level sizes (45x75 -> 22x37 -> 11x18 -> 5x9, the
+    image's right and bottom tiles partial), with far coords in some
+    tiles. Tolerance one bf16 ulp of the largest tap: the kernel's f32
+    sums (tensor-core products, hi + lo for the f32 levels) and the plain
+    version's run in other orders, so a tap may round to the neighbouring
+    bf16 value. Far coords give exact zeros. The kernel's route counts
+    equal tile_routes': smooth flow keeps every tile on the box route,
+    per-pixel noise sends most of level 0's tiles to the general
+    route."""
+    gen = torch.Generator().manual_seed(c + len(kind))
+    b, h, w, r, levels = 2, 45, 75, 4, 4
+    f1 = torch.randn(b, h, w, c, generator=gen).to(torch.bfloat16)
+    f2 = torch.randn(b, h, w, c, generator=gen)
+    if kind == "smooth":
+        coords = smooth_coords(b, h, w, gen)
+    else:
+        coords = smooth_coords(b, h, w, gen, amp=0.0) + \
+            8 * torch.randn(b, h, w, 2, generator=gen)
+    coords[0, :3] = 1e4                          # far out of range
+    coords[1, 40:, 64:] = -3e3                   # a corner tile far off
+    f1, f2, coords = f1.to(dev), f2.to(dev), coords.to(dev)
+    pyr = cf.build_fmap_pyramid(f2, levels, dtype=torch.bfloat16)
+    cf.reset_route_tiles()
+    before = cf.lookup_corr_fused.launches
+    got = cf.lookup_corr_fused(f1, pyr, coords, r)
+    assert cf.lookup_corr_fused.launches == before + 1
+    routes = cf.route_tiles()
+    want = cf.lookup_corr_plain(f1, pyr, coords, r)
+    assert got.dtype == torch.bfloat16
+    top = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= top * 2 ** -7
+    assert got[0, :3].abs().max().item() == 0.0
+    assert got[1, 40:, 64:].abs().max().item() == 0.0
+    assert routes == cf.tile_routes(coords, [lv.shape[1:3] for lv in pyr], r)
+    if kind == "smooth":
+        assert routes["general"] == 0 and routes["box"] > 0
+    else:
+        assert routes["general"] > 0 and routes["box"] > 0
+
+
+def test_k1_rejects_bf16_coarse_levels(dev):
+    """In bf16 the kernel takes f32 levels >= 1 only (the repaired
+    pyramid); a pyramid rounded to bf16 throughout is refused."""
+    f = torch.randn(1, 8, 8, 64, device=dev)
+    pyr = cf.build_fmap_pyramid(f, 2, dtype=torch.bfloat16)
+    coords = torch.zeros(1, 8, 8, 2, device=dev)
+    with pytest.raises(ValueError):
+        cf.lookup_corr_fused(f.to(torch.bfloat16),
+                             [lv.to(torch.bfloat16) for lv in pyr], coords, 1)
+
+
 @pytest.mark.parametrize("dtype,radius,levels,h,w", [
     (torch.float32, 4, 4, 15, 21), (torch.bfloat16, 4, 4, 15, 21),
     (torch.float32, 3, 4, 9, 13), (torch.bfloat16, 3, 3, 12, 20),
@@ -135,6 +202,31 @@ def test_k5_bf16_tensor_cores_match_plain(dev, n, l):
         top = b.float().abs().max().item()
         assert (a.float() - b.float()).abs().max().item() <= \
             top * 2 ** -7 + 1e-5
+
+
+@pytest.mark.parametrize("n,l", RAGGED + [(1, 900), (32, 900)])
+def test_k4_bf16_tensor_cores_match_plain(dev, n, l):
+    """K4's bf16 tensor-core body at ragged L and the training shape
+    N = 32, L = 900, on the plain K2's lse and dsum. Tolerance, K5's: one
+    bf16 ulp of the largest entry (the f32 sums of s, dp and dq run in
+    other orders than the plain version's, and ds is rounded to bf16 from
+    values that differ by that reassociation), plus 1e-5 for gradients
+    that vanish in exact arithmetic (at L = 1, dp = dsum) and hold f32
+    noise only."""
+    g = torch.Generator(device=dev).manual_seed(l + 11)
+    q, k, v, do = (torch.randn(n, l, 128, device=dev, generator=g)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 128 ** -0.5
+    out, lse = fa.flash_attention_plain(q, k, v, scale)
+    dsum = (do.float() * out.float()).sum(-1)
+    before = fa.flash_attention_dq.launches
+    got = fa.flash_attention_dq(q, k, v, do, lse, dsum, scale)
+    assert fa.flash_attention_dq.launches == before + 1
+    want = fa.flash_attention_dq_plain(q, k, v, do, lse, dsum, scale)
+    assert got.dtype == torch.bfloat16
+    top = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= \
+        top * 2 ** -7 + 1e-5
 
 
 def test_k2_rejects_other_head_dims(dev):

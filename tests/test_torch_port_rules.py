@@ -10,9 +10,9 @@
   launch;
 * flash attention stays differentiable when its forward is a kernel
   whose output carries no autograd history;
-* the bf16 bodies of K2 and K5 run on tensor cores (``mma.sync``), dtype
-  0 still dispatches to the f32 bodies, and no module calls PyTorch's
-  fused attention;
+* the bf16 bodies of K1, K2, K4 and K5 run on tensor cores
+  (``mma.sync``), dtype 0 still dispatches to the f32 bodies, and no
+  module calls PyTorch's fused attention;
 * the kernel build cache is named after the source and the headers
   beside it;
 * frame I/O and the stage timer.
@@ -234,11 +234,12 @@ def _body(src: str, name: str) -> str:
 
 @pytest.mark.parametrize("source,kernel", [
     ("flash_attention.cu", "flash_fwd_bf16_kernel"),
-    ("flash_attention_bwd.cu", "flash_dkv_bf16_kernel")])
+    ("flash_attention_bwd.cu", "flash_dkv_bf16_kernel"),
+    ("flash_attention_bwd.cu", "flash_dq_bf16_kernel")])
 def test_bf16_bodies_run_on_tensor_cores(source, kernel):
-    """K2's and K5's bf16 bodies multiply with mma.sync (bf16 operands,
-    f32 accumulation) on fragments filled by ldmatrix from tiles that
-    cp.async brings in."""
+    """K2's, K4's and K5's bf16 bodies multiply with mma.sync (bf16
+    operands, f32 accumulation) on fragments filled by ldmatrix from tiles
+    that cp.async brings in."""
     src = _read_csrc(source)
     assert '#include "mma_bf16.cuh"' in src
     body = _body(src, kernel)
@@ -249,18 +250,36 @@ def test_bf16_bodies_run_on_tensor_cores(source, kernel):
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in helper
 
 
+def test_k1_bf16_body_runs_on_tensor_cores():
+    """K1's bf16 body serves each (tile, level) by the box route, whose
+    window dots come from mma.sync on ldmatrix fragments of f1's tile and
+    the box's rows, or by the general route, and counts both; the Python
+    constants match the kernel's."""
+    src = _read_csrc("corr_fused.cu")
+    assert '#include "mma_bf16.cuh"' in src
+    body = _body(src, "corr_fused_bf16_kernel")
+    for call in ("box_dots<", "general_dots<", "cp_async16(",
+                 "atomicAdd(routes"):
+        assert call in body, call
+    products = _body(src, "stage_dots")
+    assert "mma_bf16(" in products and "ldmatrix_x4(" in products
+    assert f"kBoxCap = {corr_fused.BOX_CAP};" in src
+    assert f"kTile = {corr_fused.TILE};" in src
+
+
 @pytest.mark.parametrize("source,entry,bf16_launch,f32_launch,f32_kernel", [
     ("flash_attention.cu", "flash_attention_forward", "tc::launch",
      "launch<float>", "flash_fwd_kernel"),
     ("flash_attention_bwd.cu", "flash_attention_dkv", "tc::launch_dkv",
      "launch_dkv<float>", "flash_dkv_kernel"),
-    ("flash_attention_bwd.cu", "flash_attention_dq",
-     "launch_dq<__nv_bfloat16>", "launch_dq<float>", "flash_dq_kernel")])
+    ("flash_attention_bwd.cu", "flash_attention_dq", "tc::launch_dq",
+     "launch_dq<float>", "flash_dq_kernel"),
+    ("corr_fused.cu", "corr_fused_lookup", "tc::launch", "launch<float>",
+     "corr_fused_kernel")])
 def test_c_entries_dispatch_on_dtype(source, entry, bf16_launch, f32_launch,
                                      f32_kernel):
-    """dtype 1 goes to the tensor-core body (K4 keeps its FMA body in
-    both dtypes), dtype 0 to the f32 body, which stays on the FMA units:
-    no mma, no TF32."""
+    """dtype 1 goes to the tensor-core body, dtype 0 to the f32 body,
+    which stays on the FMA units: no mma, no TF32."""
     src = _read_csrc(source)
     found = re.search(r"dtype == 1\s*\?\s*([\w:<>]+)\(.*?:\s*([\w:<>]+)\(",
                       _body(src, 'extern "C" int ' + entry), re.S)
