@@ -23,9 +23,14 @@ Phases (any failure exits nonzero; nothing is caught):
      K4's tensor-core body's registers, shared memory and spills;
   5. kernel K3 (RAFT all-pairs pyramid lookup) against its plain version
      at the main-path shape (one GRU iteration, 46 pairs x 60x108 pixels,
-     4 levels, r 4), f32 and bf16 storage, with coords on, past and far
-     outside the level edges; F.grid_sample, one call per level, timed
-     beside it as a yardstick only; then the all-pairs pyramid build of
+     4 levels), f32 and bf16 storage, f32 and bf16 taps, radius 4 and 3,
+     with coords on, past and far outside the level edges (equal, bf16
+     taps being the f32 taps rounded once); timed at radius 4 in both
+     tap dtypes beside the warp-per-pixel body it replaced (kept in
+     the source as the yardstick), its bound and its sector floor (the
+     32-byte sectors of this run's window rows); F.grid_sample, one call
+     per level, timed beside it as a yardstick only; then the all-pairs
+     pyramid build of
      one refine (TF32 product of bf16 features against the f32 product);
      then RAFT refine in bf16 on a 64x64 pair with K1 and with its plain
      version in its place, whose flows must agree;
@@ -47,7 +52,8 @@ Phases (any failure exits nonzero; nothing is caught):
      K3 160 launches); the batch driver over 2 videos (every row ok);
   8. FGT stage-2 GAN training at the full width of
      configs/fgt_train.yaml (240x432, 5 frames, batch 2, 512 hidden,
-     8 blocks, bf16 autocast) through ``FGTTrainer``, with the frozen
+     8 blocks, mixed precision: bf16 parameter copies, as the JAX step)
+     through ``FGTTrainer``, with the frozen
      LAFC-single oracle (random weights from seed 0) loaded from a
      checkpoint: 2 cold steps, then 10 timed steps (steps/s, peak memory,
      K2/K4/K5 launches per step, which must be 4 each); losses finite,
@@ -160,13 +166,14 @@ def resource_usage() -> dict:
         for fn, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:[^\n]*)",
                                     dump):
             kernel = re.search(r"(flash_(fwd|dq|dkv)|corr_fused|corr_lookup)"
-                               r"(_bf16)?_kernel", fn).group(0)
-            args = re.search(kernel + r"I((?:f|13__nv_bfloat16|Li\d+E)+)E",
-                             fn)
-            if args:  # template arguments: a type and/or ints
+                               r"(_bf16|_warp)?_kernel", fn).group(0)
+            args = re.search(
+                kernel + r"I((?:f|13__nv_bfloat16|S1_|Li\d+E)+)E", fn)
+            if args:  # template arguments: types (S1_ repeats one) and ints
                 kernel += "<" + ",".join(
                     names.get(t or n, n) for n, t in re.findall(
-                        r"Li(\d+)E|(f|13__nv_bfloat16)", args.group(1))) + ">"
+                        r"Li(\d+)E|(f|13__nv_bfloat16)",
+                        args.group(1).replace("S1_", "13__nv_bfloat16"))) + ">"
             found[kernel] = " ".join(usage.split()[:4])
             log(f"resources {kernel}: {found[kernel]}")
     return found
@@ -460,23 +467,44 @@ def phase_k45(dtype, stats: dict, resources: dict):
             max_abs_err=err, library_ms=lib_ms)
 
 
-def phase_k3(dtype, stats: dict):
-    """K3 at the main-path shape: one GRU iteration over 46 pairs x
-    60x108 pixels, 4 levels of all-pairs maps (60x108, 30x54, 15x27,
-    7x13 — odd sizes floor-pooled), radius 4, f32 coords that include
-    far-out-of-range pixels and pixels on and past the level edges.
-    F.grid_sample (align_corners=True, zero padding), one call per level
-    on [N, 1, H_l, W_l] with a [N, k, k, 2] grid — the reference
-    bilinear_sampler — is timed beside it as a yardstick only."""
+def k3_window_counts(pyr, coords, r: int):
+    """This run's in-level window cells of K3 (each read once) and the
+    32-byte sectors their rows touch (the layout's own floor: a row of
+    k+1 cells starts at any element), summed over pixels and levels."""
     import torch
-    import torch.nn.functional as F
+
+    n = coords.shape[0] * coords.shape[1] * coords.shape[2]
+    flat = coords.reshape(n, 2)
+    item = pyr[0].element_size()
+    dd = torch.arange(-r, r + 2, device=coords.device)
+    pix = torch.arange(n, device=coords.device)[:, None]
+    cells = sectors = 0
+    for lvl, vol in enumerate(pyr):
+        hl, wl = vol.shape[1:]
+        c0 = torch.floor(flat / 2 ** lvl).clamp(-1e6, 1e6).long()
+        xlo = (c0[:, :1] - r).clamp(min=0)
+        ncol = ((c0[:, :1] + r + 2).clamp(max=wl) - xlo).clamp(min=0)
+        ys = c0[:, 1:] + dd                                   # [n, k+1]
+        rows = (ys >= 0) & (ys < hl) & (ncol > 0)
+        cells += (rows * ncol).sum().item()
+        start = ((pix * hl + ys.clamp(0, hl - 1)) * wl + xlo) * item
+        end = start + ncol * item
+        sectors += torch.where(rows, (end - 1) // 32 - start // 32 + 1,
+                               0).sum().item()
+    return cells, sectors
+
+
+def k3_inputs(dtype, levels: int, B=46, H=60, W=108):
+    """K3's main-path inputs: ``levels`` random all-pairs maps of 46 pairs
+    x 60x108 pixels in ``dtype`` and f32 coords (a 8 px random flow) with
+    far-out-of-range pixels and pixels on and past the level edges."""
+    import torch
     from fgt_tpu_torch.ops import corr_lookup as cl
 
     g = torch.Generator(device="cuda").manual_seed(3)
-    B, H, W, r, L = 46, 60, 108, 4, 4
-    n, k = B * H * W, 2 * r + 1
+    n = B * H * W
     pyr = [torch.randn(n, h, w, device="cuda", generator=g).to(dtype)
-           for h, w in cl.pyramid_sizes(H, W, L)]
+           for h, w in cl.pyramid_sizes(H, W, levels)]
     ys, xs = torch.meshgrid(torch.arange(H, device="cuda"),
                             torch.arange(W, device="cuda"), indexing="ij")
     coords = torch.stack([xs, ys], -1).float()[None].repeat(B, 1, 1, 1)
@@ -486,24 +514,75 @@ def phase_k3(dtype, stats: dict):
     coords[:, 8, :, 0] = W - 1                # on the right edge
     coords[:, 9, :, 0] = -0.5                 # straddling the left edge
     coords[:, 10, :, 1] = H - 0.75            # straddling the bottom edge
-    got = cl.lookup_corr_pyramid(pyr, coords, r)
-    want = cl.lookup_corr_pyramid_plain(pyr, coords, r)
-    torch.cuda.synchronize()
-    diff = (got - want).abs()
-    err = diff.max().item()
-    top = want.abs().max().item()
-    # same arithmetic in the same order, each product and sum rounded on
-    # its own: equal; one f32 ulp of the largest tap is the bound
-    tol = top * 2 ** -23
-    far = got[:, :8].abs().max().item()
-    log(f"K3 {str(dtype)[6:]}: max_abs_err {err:.3g} (tol {tol:.3g}; "
-        f"{int((diff > 0).sum())} of {got.numel()} taps differ; max |tap| "
-        f"{top:.3g}); far-coord taps max {far}")
-    if not err <= tol or far != 0.0:
-        raise AssertionError("K3 disagrees with its plain version")
-    kernel_ms = cuda_ms(lambda: cl.lookup_corr_pyramid(pyr, coords, r), 20)
-    plain_ms = cuda_ms(lambda: cl.lookup_corr_pyramid_plain(pyr, coords, r),
-                       2)
+    return pyr, coords
+
+
+def phase_k3(dtype, stats: dict):
+    """K3 at the main-path shape: one GRU iteration over 46 pairs x
+    60x108 pixels, 4 levels of all-pairs maps (60x108, 30x54, 15x27,
+    7x13 — odd sizes floor-pooled) in ``dtype``, f32 coords that include
+    far-out-of-range pixels and pixels on and past the level edges.
+    Radius 4 and 3, f32 and bf16 taps: equal to the plain version (bf16:
+    the plain f32 taps rounded once). Timed at radius 4 in both output
+    dtypes, with the warp-per-pixel body it replaced beside it (and that
+    body plus the cast
+    the bf16 refine used to run after it), the plain version, the bound
+    and the sector floor. F.grid_sample (align_corners=True, zero
+    padding), one call per level on [N, 1, H_l, W_l] with a [N, k, k, 2]
+    grid — the reference bilinear_sampler — is timed beside it as a
+    yardstick only."""
+    import torch
+    import torch.nn.functional as F
+    from fgt_tpu_torch.ops import corr_lookup as cl
+
+    r, L = 4, 4
+    pyr, coords = k3_inputs(dtype, L)
+    n, k = coords.numel() // 2, 2 * r + 1
+    name = str(dtype)[6:]
+    bf16 = torch.bfloat16
+    for radius in (4, 3):
+        want = cl.lookup_corr_pyramid_plain(pyr, coords, radius)
+        top = want.abs().max().item()
+        # same arithmetic in the same order, each product and sum rounded
+        # on its own: equal; one f32 ulp of the largest tap is the bound
+        tol = top * 2 ** -23
+        outs = {"f32": cl.lookup_corr_pyramid(pyr, coords, radius),
+                "bf16": cl.lookup_corr_pyramid(pyr, coords, radius,
+                                               out_dtype=bf16)}
+        if radius == r:
+            outs["warp-per-pixel"] = cl.lookup_corr_pyramid_warp(pyr, coords,
+                                                                r)
+        torch.cuda.synchronize()
+        for label, got in outs.items():
+            ref = want.to(bf16) if got.dtype == bf16 else want
+            diff = (got.float() - ref.float()).abs()
+            err = diff.max().item()
+            far = got[:, :8].abs().max().item()
+            log(f"K3 {name} r {radius}, {label} taps: max_abs_err {err:.3g} "
+                f"(tol {tol:.3g}{'; bf16: equal' if got.dtype == bf16 else ''}"
+                f"; {int((diff > 0).sum())} of {got.numel()} taps differ; max "
+                f"|tap| {top:.3g}); far-coord taps max {far}")
+            if (got.dtype != (bf16 if label == "bf16" else torch.float32)
+                    or not err <= (0.0 if got.dtype == bf16 else tol)
+                    or far != 0.0):
+                raise AssertionError(f"K3 ({label} taps, r {radius}) "
+                                     f"disagrees with its plain version")
+        if radius == r:
+            errs = {"f32": (outs["f32"] - want).abs().max().item(),
+                    "bf16": (outs["bf16"].float()
+                             - want.to(bf16).float()).abs().max().item()}
+        del outs, want
+    times = {
+        "f32": cuda_ms(lambda: cl.lookup_corr_pyramid(pyr, coords, r), 20),
+        "bf16": cuda_ms(lambda: cl.lookup_corr_pyramid(
+            pyr, coords, r, out_dtype=bf16), 20),
+        "warp": cuda_ms(lambda: cl.lookup_corr_pyramid_warp(pyr, coords, r),
+                        20),
+        "warp_cast": cuda_ms(lambda: cl.lookup_corr_pyramid_warp(
+            pyr, coords, r).to(bf16), 20)}
+    plain = {o: cuda_ms(lambda: cl.lookup_corr_pyramid_plain(
+        pyr, coords, r, out_dtype=odt), 2)
+        for o, odt in (("f32", torch.float32), ("bf16", bf16))}
     # the reference bilinear_sampler: dx on the slow axis of the [k, k]
     # grid (corr.py:37-43), coordinates normalized to [-1, 1]
     d = torch.arange(-r, r + 1, device="cuda", dtype=torch.float32)
@@ -524,30 +603,41 @@ def phase_k3(dtype, stats: dict):
                                   padding_mode="zeros", align_corners=True)
                     for v, gr in zip(vols, grids)]
 
+    want = cl.lookup_corr_pyramid_plain(pyr, coords, r)
     lib = torch.cat([o.reshape(n, k * k) for o in library()], -1)
     lib_err = (lib.float() - want.reshape(n, -1)).abs().max().item()
     library_ms = cuda_ms(library, 10)
-    del grids, vols, lib
-    # bytes this run's data needs: each pixel's in-level window per level
+    del grids, vols, lib, want
+    # bytes this run's data needs: each in-level window cell read once,
+    # the coords, the taps written once; the sector floor counts the
+    # 32-byte sectors of the window rows in place of their cells
+    cells, sectors = k3_window_counts(pyr, coords, r)
     item = pyr[0].element_size()
-    window = 0
-    for lvl, vol in enumerate(pyr):
-        hl, wl = vol.shape[1:]
-        c0 = torch.floor(coords / 2 ** lvl).clamp(-1e6, 1e6)
-        dd = torch.arange(-r, r + 2, device="cuda")
-        vx = ((c0[..., :1] + dd >= 0) & (c0[..., :1] + dd <= wl - 1)).sum(-1)
-        vy = ((c0[..., 1:] + dd >= 0) & (c0[..., 1:] + dd <= hl - 1)).sum(-1)
-        window += (vx * vy).sum().item()
-    nbytes = window * item + coords.numel() * 4 + got.numel() * 4
-    flops = 9 * got.numel()                  # 6 multiplies, 3 adds per tap
-    b_ms, b_by = bound(nbytes, flops, H100_F32_FLOPS)
-    log(f"K3 {str(dtype)[6:]}: kernel_ms {kernel_ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms {library_ms:.4f} (grid_sample, 4 calls; "
-        f"max |diff| to the plain taps {lib_err:.3g}) bound_ms {b_ms:.4f} "
-        f"({b_by}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
-    stats[str(dtype)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=err,
-                             library_ms=library_ms)
+    taps = n * L * k * k
+    flops = 9 * taps                          # 6 multiplies, 3 adds per tap
+    out = {}
+    for o, tap_bytes in (("f32", 4), ("bf16", 2)):
+        rest = coords.numel() * 4 + taps * tap_bytes
+        b_ms, b_by = bound(cells * item + rest, flops, H100_F32_FLOPS)
+        floor_ms = (sectors * 32 + rest) / H100_BYTES_PER_S * 1e3
+        log(f"K3 {name}, {o} taps: kernel_ms {times[o]:.4f} plain_ms "
+            f"{plain[o]:.4f} library_ms {library_ms:.4f} (grid_sample, 4 "
+            f"calls; max |diff| to the plain taps {lib_err:.3g}) bound_ms "
+            f"{b_ms:.4f} ({b_by}; {(cells * item + rest) / 1e9:.3f} GB, "
+            f"{flops / 1e9:.2f} GFLOP; {b_ms / times[o]:.3f} of the bound) "
+            f"sector floor {floor_ms:.4f} ms ({(sectors * 32 + rest) / 1e9:.3f}"
+            f" GB)")
+        out[o] = dict(ms=times[o], plain_ms=plain[o], bound_ms=b_ms,
+                      bound_by=b_by, max_abs_err=errs[o],
+                      library_ms=library_ms)
+    log(f"K3 {name}: warp-per-pixel body {times['warp']:.4f} ms (f32 taps), "
+        f"{times['warp_cast']:.4f} ms with the cast to bf16 after it; the "
+        f"redesign {times['warp'] / times['f32']:.2f}x (f32 taps), "
+        f"{times['warp_cast'] / times['bf16']:.2f}x (bf16 taps against body "
+        f"+ cast); windows {cells * item / 1e9:.4f} GB in cells, "
+        f"{sectors * 32 / 1e9:.4f} GB in sectors "
+        f"({sectors * 32 / n / 1e3:.3f} KB a pixel)")
+    stats[str(dtype)] = out
 
 
 def phase_pyramid_build():
@@ -811,7 +901,7 @@ def phase_modes(counters, root: str):
     np.save(f"{root}/masks12.npy", masks[:12])
     # s1: 22 pairs in one refine (20 K3); s3b: 36 pairs per direction
     out, _, _ = run_cli("--Nonlocal", counters, [
-        "--Nonlocal", "--fused_corr", "off", "--path",
+        "--Nonlocal", "1", "--fused_corr", "off", "--path",
         f"{root}/frames12.npy", "--path_mask", f"{root}/masks12.npy",
         "--outroot", f"{root}/nl/out"],
         {"lookup_corr_fused": 0, "lookup_corr_pyramid": 60,
@@ -906,8 +996,9 @@ def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False):
     hole = masks > 0
     d = np.abs(gpu - cpu)[hole]
     log(f"small reference ({corr}{', --Nonlocal' if use_nonlocal else ''}): "
-        f"card vs CPU inside the hole: mean |diff| {d.mean():.4f}, max "
-        f"{d.max()}, share > 8 levels {(d > 8).mean():.4f}")
+        f"card vs CPU byte-equal: {np.array_equal(gpu, cpu)}; inside the "
+        f"hole: mean |diff| {d.mean():.4f}, max {d.max()}, share > 8 levels "
+        f"{(d > 8).mean():.4f}")
     if not np.array_equal(gpu[~hole], cpu[~hole]) or d.mean() > 1.0:
         raise AssertionError("card and CPU runs of the port disagree")
     del models
@@ -1235,7 +1326,8 @@ def main() -> int:
         dict(name="corr_lookup_pyramid", route="cuda",
              source="fgt_tpu_torch/csrc/corr_lookup.cu",
              replaces="fgt_tpu/ops/corr_lookup_pallas.py:43",
-             launches=pyr_launches["lookup_corr_pyramid"], **k3[bf16]),
+             launches=pyr_launches["lookup_corr_pyramid"],
+             **k3[bf16]["bf16"]),
         dict(name="flash_attention_dq", route="cuda",
              source="fgt_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="fgt_tpu/ops/flash_attention.py:73",

@@ -233,13 +233,15 @@ class RAFT(nn.Module):
             fmap1 = fmap1.to(dt).contiguous()
 
             def lookup(coords):
-                return lookup_corr_fused(fmap1, pyramid, coords, CORR_RADIUS)
+                return lookup_corr_fused(fmap1, pyramid, coords,
+                                         CORR_RADIUS).to(dt)
         elif corr == "pyramid":
             pyramid = build_corr_pyramid(fmap1, fmap2, CORR_LEVELS,
                                          dtype=corr_dtype or dt)
 
-            def lookup(coords):
-                return lookup_corr_pyramid(pyramid, coords, CORR_RADIUS)
+            def lookup(coords):   # K3 rounds its f32 taps to dt itself
+                return lookup_corr_pyramid(pyramid, coords, CORR_RADIUS,
+                                           out_dtype=dt)
         else:
             raise ValueError(f"unknown correlation path {corr!r}")
         b, h8, w8, _ = fmap1.shape
@@ -249,7 +251,7 @@ class RAFT(nn.Module):
         inp = inp.permute(0, 3, 1, 2).to(dt)
         mask = None
         for i in range(iters):
-            taps = lookup(coords1).permute(0, 3, 1, 2).to(dt)
+            taps = lookup(coords1).permute(0, 3, 1, 2)
             flow = (coords1 - coords0).permute(0, 3, 1, 2).to(dt)
             net, mask, delta = self.update_block(
                 net, inp, taps, flow, with_mask=i == iters - 1)

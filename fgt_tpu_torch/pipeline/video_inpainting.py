@@ -69,6 +69,7 @@ from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
                                                 get_flownn_gradient_frames,
                                                 key_frames)
 from fgt_tpu_torch.utils.checkpoint import load_state_dict
+from fgt_tpu_torch.utils.config import read_flat_yaml
 
 logger = logging.getLogger("fgt_tpu_torch")
 
@@ -590,17 +591,28 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
 
 # ---------------- CLI ----------------
 
+WEIGHT_SUFFIXES = (".pth", ".pth.tar", ".tar")
+
+
 def _load_ckpt_dir(path: Optional[str], default_cfg: dict):
-    """(config, state) from a directory holding ``config.json`` and one
-    ``*.pth`` state dict with the reference key names; defaults when the
-    directory is absent."""
+    """(config, state) from a checkpoint directory, defaults when it is
+    absent. The directory is laid out as the reference ships one (one
+    weights file such as ``fgt.pth.tar`` and the ``.yaml`` training
+    config it came from) or as the port writes one (``model.pth`` and
+    ``config.json``): weights are the ``*.pth``, ``*.pth.tar`` or
+    ``*.tar`` state dict (reference key names); the config is the
+    directory's ``*.yaml``, read as the JAX CLI reads it (it wins over a
+    ``config.json`` beside it), else ``config.json``."""
     config, state = dict(default_cfg), None
     if path and os.path.isdir(path):
-        cfg_path = os.path.join(path, "config.json")
-        if os.path.exists(cfg_path):
-            with open(cfg_path) as f:
+        names = sorted(os.listdir(path))
+        yamls = [f for f in names if f.endswith(".yaml")]
+        if yamls:
+            config.update(read_flat_yaml(os.path.join(path, yamls[0])))
+        elif "config.json" in names:
+            with open(os.path.join(path, "config.json")) as f:
                 config.update(json.load(f))
-        weights = sorted(p for p in os.listdir(path) if p.endswith(".pth"))
+        weights = [f for f in names if f.endswith(WEIGHT_SUFFIXES)]
         if weights:
             state = load_state_dict(os.path.join(path, weights[-1]))
     return config, state
@@ -618,16 +630,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--outroot", default="out")
     p.add_argument("--consistencyThres", type=float, default=5)
     p.add_argument("--alpha", type=float, default=0.1)
-    p.add_argument("--Nonlocal", nargs="?", const=True, default=False,
-                   type=lambda v: v.lower() not in ("0", "false", "no"),
+    p.add_argument("--Nonlocal", type=bool, default=False,
                    help="add flowNN candidates from the key frames "
-                        "[0, N//2, N-1] (flows on the all-pairs pyramid)")
+                        "[0, N//2, N-1] (flows on the all-pairs pyramid); "
+                        "parsed as the JAX and reference CLIs parse it "
+                        "(type=bool): any nonempty value, 'False' too, "
+                        "turns it on")
     p.add_argument("--raft_model", default="checkpoints/raft/raft.pth",
                    help="reference RAFT state dict (random init if absent)")
     p.add_argument("--lafc_ckpts", default="checkpoints/lafc",
-                   help="directory with config.json and a .pth state dict")
+                   help="directory with a .pth/.pth.tar state dict and a "
+                        ".yaml or config.json config")
     p.add_argument("--fgt_ckpts", default="checkpoints/fgt",
-                   help="directory with config.json and a .pth state dict")
+                   help="directory with a .pth/.pth.tar state dict and a "
+                        ".yaml or config.json config")
     p.add_argument("--H_scale", type=float, default=2,
                    help="video extrapolation: canvas height / frame height")
     p.add_argument("--W_scale", type=float, default=2,

@@ -22,13 +22,15 @@ NotImplementedError (network.py:106-107): ``fuse`` completes both and
 averages them as (fwd − bwd) / 2, ``alternate`` takes forward flows on
 even steps and backward flows on odd ones.
 
-Mixed precision: the generator and oracle forwards run under
-``torch.autocast(device, torch.bfloat16)``; parameters, optimizer
-state, D and the losses stay f32. The JAX package instead casts the
-generator's parameters themselves to bf16 (``fgt_step.py:98-104``), so
-there LayerNorm and softmax also compute in bf16, while autocast keeps
-them in f32: the two bf16 runs differ by more than rounding. Parity
-with the JAX package is pinned in f32.
+Mixed precision, as the JAX step runs it (``fgt_tpu/train/fgt_step.py``
+``compute_dtype``): the generator and oracle forwards run on bf16 copies
+of their parameters and inputs, so every layer computes in bf16,
+LayerNorm and softmax included, and their outputs come back as f32;
+parameters, optimizer state, D and the losses stay f32, and the
+gradients reach the f32 parameters through the casts.
+``tests/test_torch_port_train.py`` bounds one bf16 SGD step by the JAX
+package's own bf16 deviation; under ``torch.autocast``, which keeps
+LayerNorm in f32, a LayerNorm's update left that bound.
 """
 
 from __future__ import annotations
@@ -92,19 +94,30 @@ class FGTTrainStep:
         self.g_params = [p for p in gen.parameters() if p.requires_grad]
         self.step = 0
 
-    def _autocast(self, device: torch.device):
-        return torch.autocast(device.type, torch.bfloat16,
-                              enabled=self.mixed_precision)
+    def _forward(self, module: nn.Module, *inputs, **kwargs):
+        """``module(*inputs, **kwargs)``; under mixed precision on bf16
+        copies of its floating parameters, buffers and inputs."""
+        if not self.mixed_precision:
+            return module(*inputs, **kwargs)
+
+        def bf16(t):
+            return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+        state = {k: bf16(v) for k, v in (*module.named_parameters(),
+                                          *module.named_buffers())}
+        return torch.func.functional_call(
+            module, state, tuple(bf16(a) for a in inputs), kwargs)
 
     def complete_flows(self, flows: torch.Tensor,
                        masks: torch.Tensor) -> torch.Tensor:
         if self.flow_model is None:
             return flows
         b, t, h, w, c = flows.shape
-        with torch.no_grad(), self._autocast(flows.device):
-            out, _ = self.flow_model(flows.reshape(b * t, h, w, c),
-                                     masks.reshape(b * t, h, w, 1),
-                                     with_edge=False)
+        with torch.no_grad():
+            out, _ = self._forward(self.flow_model,
+                                   flows.reshape(b * t, h, w, c),
+                                   masks.reshape(b * t, h, w, 1),
+                                   with_edge=False)
         return out.float().reshape(b, t, h, w, c)
 
     def _flows(self, batch: dict, masks: torch.Tensor) -> torch.Tensor:
@@ -131,9 +144,8 @@ class FGTTrainStep:
         flows = norm_flows_nhwc(self._flows(batch, masks))
         lr = self.schedule(self.step) if self.schedule else None
 
-        with self._autocast(frames.device):
-            filled = self.gen(frames * (1 - masks), flows, masks)
-        filled = filled.float()
+        filled = self._forward(self.gen, frames * (1 - masks), flows,
+                               masks).float()
         comp_detached = (filled * masks + frames * (1 - masks)).detach()
 
         self.d_opt.zero_grad(set_to_none=True)

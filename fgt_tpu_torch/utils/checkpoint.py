@@ -2,11 +2,11 @@
 
 Weights are ``state_dict``s keyed by the reference module names, written
 with ``torch.save`` and read with ``torch.load(weights_only=True)``, so a
-reference ``.pth`` loads the same way. A model directory holds one
-``model.pth`` and a ``config.json`` (the port's inference CLI reads that
-pair; the JAX package writes msgpack + YAML, and the GPU machine has no
-PyYAML). Training keeps the reference's gen / dis / opt trio
-(FGT/networks/network.py:225-256).
+reference ``.pth`` / ``.pth.tar`` loads the same way. The port writes a
+model directory as one ``model.pth`` and a ``config.json``; its inference
+CLI also reads the reference's layout, a weights file beside the run's
+``.yaml`` (``pipeline/video_inpainting._load_ckpt_dir``). Training keeps
+the reference's gen / dis / opt trio (FGT/networks/network.py:225-256).
 """
 
 from __future__ import annotations

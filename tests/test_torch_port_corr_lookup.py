@@ -5,6 +5,8 @@ all-pairs pyramid path against the JAX package, on the CPU, in f32:
   interpret mode and the XLA ``lookup_corr_pyramid``, mirroring
   tests/test_corr_lookup_pallas.py (radius 2/3/4, odd level sizes, N
   not a multiple of any block, coords outside the levels);
+* the lookup's bf16 taps (what the bf16 update block reads): the f32
+  taps rounded once, on the CPU path of the wrapper too;
 * ``build_corr_pyramid`` against the JAX one, f32 and bf16 storage;
 * ``RAFT.refine(corr="pyramid")`` and ``RAFT.forward`` against
   ``RAFT.apply`` with JAX weights moved through ``jax_to_torch_state``
@@ -101,6 +103,24 @@ def test_k3_plain_far_out_of_range_coords_zero(value):
     pyr, _ = _volumes(1, 12, 20, 4, 5)
     coords = np.full((1, 12, 20, 2), value, np.float32)
     assert np.abs(_port(pyr, coords, 4)).max() == 0.0
+
+
+@pytest.mark.parametrize("storage", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("radius", [3, 4])
+def test_k3_plain_bf16_taps_are_f32_taps_rounded_once(storage, radius):
+    """``out_dtype=bf16`` rounds each f32 tap once to nearest-even, as
+    the JAX update block's bf16 conv rounds its f32 input: equal to
+    ``.to(torch.bfloat16)`` of the f32 taps, bit for bit, through the
+    wrapper's CPU path as through the plain version."""
+    pyr, coords = _volumes(2, 12, 20, 4, 7)
+    vols = [torch.from_numpy(p).to(storage) for p in pyr]
+    c = torch.from_numpy(coords)
+    f32 = tcl.lookup_corr_pyramid_plain(vols, c, radius)
+    for fn in (tcl.lookup_corr_pyramid_plain, tcl.lookup_corr_pyramid):
+        got = fn(vols, c, radius, out_dtype=torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got, f32.to(torch.bfloat16))
+    assert not torch.equal(f32, f32.to(torch.bfloat16).float())
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])

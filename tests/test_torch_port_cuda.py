@@ -111,37 +111,52 @@ def test_k1_rejects_bf16_coarse_levels(dev):
                              [lv.to(torch.bfloat16) for lv in pyr], coords, 1)
 
 
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype,radius,levels,h,w", [
     (torch.float32, 4, 4, 15, 21), (torch.bfloat16, 4, 4, 15, 21),
     (torch.float32, 3, 4, 9, 13), (torch.bfloat16, 3, 3, 12, 20),
-    (torch.float32, 2, 2, 5, 7)])
-def test_k3_kernel_matches_plain(dev, dtype, radius, levels, h, w):
+    (torch.float32, 3, 2, 5, 7), (torch.bfloat16, 4, 4, 60, 108),
+    (torch.float32, 3, 4, 60, 108)])
+def test_k3_kernel_matches_plain(dev, dtype, radius, levels, h, w,
+                                 out_dtype):
     """K3 against its plain version: the same products and sums, each
-    rounded on its own, so the taps are equal (f32 and bf16 storage);
-    pixels far outside every level give exact zeros."""
+    rounded on its own, so the taps are equal (f32 and bf16 storage; bf16
+    taps are the f32 taps rounded once); pixels far outside every level
+    give exact zeros. At 60x108 each persistent warp walks several pixels
+    through its two-slot ring."""
     g = torch.Generator(device=dev).manual_seed(4)
     n = 2 * h * w
     pyr = [torch.randn(n, hl, wl, device=dev, generator=g).to(dtype)
            for hl, wl in cl.pyramid_sizes(h, w, levels)]
     coords = torch.rand(2, h, w, 2, device=dev, generator=g) * (w + 6) - 3
     coords[0, 0] = 1e4
+    coords[0, 1] = -3e3
     coords[1, 1, :, 0] = w - 1
+    coords[1, 2, :, 0] = -0.5
     before = cl.lookup_corr_pyramid.launches
-    got = cl.lookup_corr_pyramid(pyr, coords, radius)
+    got = cl.lookup_corr_pyramid(pyr, coords, radius, out_dtype=out_dtype)
     assert cl.lookup_corr_pyramid.launches == before + 1
-    want = cl.lookup_corr_pyramid_plain(pyr, coords, radius)
-    assert got.dtype == torch.float32
+    want = cl.lookup_corr_pyramid_plain(pyr, coords, radius, out_dtype)
+    assert got.dtype == out_dtype
     assert torch.equal(got, want)
-    assert got[0, 0].abs().max().item() == 0.0
+    assert got[0, :2].abs().max().item() == 0.0
+    if radius == 4 and out_dtype == torch.float32:   # the former body
+        assert torch.equal(cl.lookup_corr_pyramid_warp(pyr, coords, 4), want)
 
 
 def test_k3_rejects_mismatched_levels(dev):
     pyr = [torch.randn(6, 2, 3, device=dev)]
     with pytest.raises(ValueError):
-        cl.lookup_corr_pyramid(pyr, torch.zeros(1, 2, 2, 2, device=dev), 1)
+        cl.lookup_corr_pyramid(pyr, torch.zeros(1, 2, 2, 2, device=dev), 3)
     with pytest.raises(ValueError):
         cl.lookup_corr_pyramid([pyr[0].transpose(1, 2)],
-                               torch.zeros(1, 2, 3, 2, device=dev), 1)
+                               torch.zeros(1, 2, 3, 2, device=dev), 3)
+    coords = torch.zeros(1, 2, 3, 2, device=dev)
+    with pytest.raises(ValueError):   # instantiated for RAFT's radii only
+        cl.lookup_corr_pyramid(pyr, coords, 2)
+    shifted = torch.randn(6 * 2 * 3 + 1, device=dev)[1:].reshape(6, 2, 3)
+    with pytest.raises(ValueError):   # levels start 16-byte aligned
+        cl.lookup_corr_pyramid([shifted], coords, 3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -81,7 +81,8 @@ def test_nonlocal_pipeline_matches_jax(tmp_path):
         str(tmp_path / "masks"), "--outroot", str(tmp_path / "port"),
         "--imgH", "64", "--imgW", "64", "--raft_iters", "2",
         "--flow_mask_dilates", "2", "--neighbor_stride", "3", "--step", "4",
-        "--f32", "--device", "cpu", "--Nonlocal", "--fused_corr", "off"])
+        "--f32", "--device", "cpu", "--Nonlocal", "1", "--fused_corr",
+        "off"])
     assert args.Nonlocal is True
     got = np.load(tvi.video_inpainting(args, models=models))
     hole = masks > 0

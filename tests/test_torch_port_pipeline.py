@@ -137,8 +137,10 @@ TINY_FGT = {
 }
 
 
-def run_jax_pipeline(tmp_path, frames, masks, extra=(), size=None):
-    """JAX ``video_inpainting --f32`` on PNG inputs (written under
+def run_jax_pipeline(tmp_path, frames, masks, extra=(), size=None,
+                     f32=True):
+    """JAX ``video_inpainting --f32`` (or, with ``f32=False``, in its
+    default bf16 with ``--wire_f32``) on PNG inputs (written under
     ``tmp_path``/frames and /masks), at ``size`` (default the frames'),
     with ``extra`` flags; returns (output frames from the --vis_frame
     PNGs, the JAX Models)."""
@@ -162,7 +164,7 @@ def run_jax_pipeline(tmp_path, frames, masks, extra=(), size=None):
         str(tmp_path / "fgt"), "--raft_model", "/nonexistent",
         "--imgH", str(h), "--imgW", str(w), "--raft_iters", "2",
         "--flow_mask_dilates", "2", "--neighbor_stride", "3", "--step", "4",
-        "--f32", "--vis_frame", *extra])
+        "--f32" if f32 else "--wire_f32", "--vis_frame", *extra])
     models = jvi.Models(args)
     jvi.video_inpainting(args, models=models)
     out = np.stack([imageio.imread(tmp_path / "out" / "frames" /
@@ -170,15 +172,24 @@ def run_jax_pipeline(tmp_path, frames, masks, extra=(), size=None):
     return out, models
 
 
-def test_whole_slice_matches_jax_pipeline(tmp_path):
+@pytest.fixture(scope="module")
+def jax_slice(tmp_path_factory):
+    """The whole-slice clip (6 frames at 64x64) through the JAX CLI in
+    f32: (frames, masks, output, the JAX Models)."""
+    frames, masks = _video(6, 64, 64, seed=3)
+    want, jm = run_jax_pipeline(tmp_path_factory.mktemp("jax_f32"), frames,
+                                masks)
+    return frames, masks, want, jm
+
+
+def test_whole_slice_matches_jax_pipeline(jax_slice):
     """Outside the hole the output bytes equal the input in both. Inside,
     the two agree byte for byte on this input; the bound leaves room for
     f32 reassociation (K1's corner dots, conv order) to move a value
     across an integer before a trunc-cast, or to flip one of flowNN's
     thresholded decisions for a few pixels: at most 1% of hole pixels
     off by more than 1 level, mean |diff| <= 0.25."""
-    frames, masks = _video(6, 64, 64, seed=3)
-    want, jm = run_jax_pipeline(tmp_path, frames, masks)
+    frames, masks, want, jm = jax_slice
     np_vars = lambda v: jax.tree_util.tree_map(np.asarray, v)  # noqa: E731
     models = tvi.Models(
         "cpu", bf16=False, raft_iters=2, lafc_config=TINY_LAFC,
@@ -196,6 +207,36 @@ def test_whole_slice_matches_jax_pipeline(tmp_path):
     np.testing.assert_array_equal(want[~hole], frames[~hole])
     d = np.abs(got.astype(int) - want.astype(int))[hole]
     assert d.mean() <= 0.25 and (d > 1).mean() <= 0.01, (d.mean(), d.max())
+
+
+def test_whole_slice_bf16_within_jax_spread(tmp_path, jax_slice):
+    """bf16, both pipelines' default, on the f32 test's clip: the port
+    against the JAX CLI with ``--wire_f32`` (the port has no f16 wire).
+    Outside the hole both return the input bytes; over the frames,
+    max |port_bf16 - jax_bf16| <= 2 max |jax_bf16 - jax_f32| (relative
+    to the largest f32 output, as in ``test_torch_port_bf16.py``). The
+    port holds the f32 JAX run's weights, from which the JAX bf16 run
+    casts its own."""
+    from test_torch_port_bf16 import assert_within_jax_bf16_spread
+
+    frames, masks, want32, jm = jax_slice
+    want16, _ = run_jax_pipeline(tmp_path, frames, masks, f32=False)
+    np_vars = lambda v: jax.tree_util.tree_map(np.asarray, v)  # noqa: E731
+    models = tvi.Models(
+        "cpu", bf16=True, raft_iters=2, lafc_config=TINY_LAFC,
+        fgt_config=TINY_FGT,
+        raft_state=weights.jax_to_torch_state(np_vars(jm.raft_vars),
+                                              weights.raft_mapping()),
+        lafc_state=weights.jax_to_torch_state(np_vars(jm.lafc_vars),
+                                              weights.lafc_mapping(1)),
+        fgt_state=weights.jax_to_torch_state(np_vars(jm.fgt_vars),
+                                             weights.fgt_mapping(2)))
+    got = tvi.inpaint(frames, masks, models, flow_mask_dilates=2,
+                      neighbor_stride=3, step=4)
+    hole = masks > 0
+    for out in (got, want16, want32):
+        np.testing.assert_array_equal(out[~hole], frames[~hole])
+    assert_within_jax_bf16_spread(got, want16, want32)
 
 
 def test_cli_reads_pngs_and_writes_npy_and_pngs(tmp_path):

@@ -13,9 +13,12 @@
 * the bf16 bodies of K1, K2, K4 and K5 run on tensor cores
   (``mma.sync``), dtype 0 still dispatches to the f32 bodies, and no
   module calls PyTorch's fused attention;
+* K3 streams its windows with cp.async in a two-slot ring, and the
+  radii its wrapper accepts are the kernel's instantiations;
 * the kernel build cache is named after the source and the headers
   beside it;
-* frame I/O and the stage timer.
+* frame I/O and the stage timer;
+* ``--Nonlocal`` parses as the JAX CLI parses it.
 """
 
 import ast
@@ -288,6 +291,24 @@ def test_c_entries_dispatch_on_dtype(source, entry, bf16_launch, f32_launch,
     assert "fmaf(" in simt and "mma" not in simt and "tf32" not in simt
 
 
+def test_k3_body_rings_its_windows_and_instantiates_its_radii():
+    """K3's body copies each pixel's windows with 16-byte cp.async one
+    pixel ahead (wait for all but the newest group), and the C entry
+    instantiates exactly the radii ``corr_lookup.KERNEL_RADII`` lets
+    through."""
+    src = _read_csrc("corr_lookup.cu")
+    assert '#include "mma_bf16.cuh"' in src
+    body = _body(src, "corr_lookup_kernel")
+    for call in ("issue<T, R>(", "taps<T, O, R>(", "cp_async_commit()",
+                 "cp_async_wait<1>()"):
+        assert call in body, call
+    assert "cp_async16(" in _body(src, "issue")
+    radii = re.findall(r"case (\d+): return launch<T, O, (\d+)>",
+                       _body(src, "launch_radius"))
+    assert [int(a) for a, b in radii if a == b] == list(
+        corr_lookup.KERNEL_RADII)
+
+
 def test_no_module_calls_pytorch_fused_attention():
     """SDPA is only chip_smoke.py's yardstick (library_ms); the port
     computes attention with its own kernels."""
@@ -372,3 +393,22 @@ def test_chunk_backoff_halves_on_device_oom_and_records_it():
     assert record == [("s1_raft", 8, 4), ("s1_raft", 4, 2)]
     with pytest.raises(torch.cuda.OutOfMemoryError):
         tvi.chunk_backoff(lambda c: dispatch(9), 1, "s6_fgt")
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], False), (["--Nonlocal", "1"], True), (["--Nonlocal", "True"], True),
+    (["--Nonlocal", "False"], True), (["--Nonlocal", "0"], True),
+    (["--Nonlocal", ""], False), (["--Nonlocal"], SystemExit)])
+def test_nonlocal_parses_as_the_jax_cli(argv, want):
+    """``type=bool``, as the JAX CLI and the reference have it: any
+    nonempty value turns --Nonlocal on ("False" too), only an empty
+    string leaves it off, and a bare flag is an error. Both parsers read
+    the same argv the same way."""
+    from fgt_tpu.pipeline import video_inpainting as jvi
+
+    for parser in (jvi.build_parser(), tvi.build_parser()):
+        if want is SystemExit:
+            with pytest.raises(SystemExit):
+                parser.parse_args(argv)
+        else:
+            assert parser.parse_args(argv).Nonlocal is want

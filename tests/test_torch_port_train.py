@@ -315,7 +315,7 @@ def gan_models():
     return gen, disc, oracle, g_vars, d_vars, o_vars
 
 
-def _jax_step(gan_models, g_tx, d_tx, bi_mode=None):
+def _jax_step(gan_models, g_tx, d_tx, bi_mode=None, compute_dtype=None):
     gen, disc, oracle, g_vars, d_vars, o_vars = gan_models
 
     def d_apply(variables, video, sn_update):
@@ -328,7 +328,7 @@ def _jax_step(gan_models, g_tx, d_tx, bi_mode=None):
     step = jfs.make_fgt_train_step(
         lambda p, f, fl, m: gen.apply(p, f, fl, m), d_apply,
         lambda p, f, m: oracle.apply(p, f, m), g_tx, d_tx, bi_mode=bi_mode,
-        donate=False)
+        compute_dtype=compute_dtype, donate=False)
     state = jfs.GANTrainState(
         g_params=g_vars, d_params=d_vars["params"],
         d_spectral=d_vars["spectral"], g_opt=g_tx.init(g_vars),
@@ -336,7 +336,8 @@ def _jax_step(gan_models, g_tx, d_tx, bi_mode=None):
     return step, state
 
 
-def _port_step(gan_models, make_opt, schedule=None, bi_mode=None):
+def _port_step(gan_models, make_opt, schedule=None, bi_mode=None,
+               mixed_precision=False):
     _, _, _, g_vars, d_vars, o_vars = gan_models
     gen = tfgt.Model(FGT_SMALL)
     weights.load_state(gen, weights.jax_to_torch_state(
@@ -348,7 +349,7 @@ def _port_step(gan_models, make_opt, schedule=None, bi_mode=None):
         o_vars, weights.lafc_single_mapping(1)))
     return tfs.FGTTrainStep(gen, disc, oracle, make_opt(gen.parameters()),
                             make_opt(disc.parameters()), schedule,
-                            bi_mode=bi_mode)
+                            bi_mode=bi_mode, mixed_precision=mixed_precision)
 
 
 def _assert_metrics(got, want, rtol):
@@ -404,6 +405,78 @@ def test_gan_step_sgd_matches_jax(gan_models, bi_mode):
         for vec in ("u", "v"):
             np.testing.assert_allclose(leaves[("spectral", f"conv{i}", vec)],
                                        spec[f"conv{i}"][vec], atol=1e-5)
+
+
+def _sgd_deltas(port, step, state, batch, gan_models):
+    """One SGD step on both sides from the same weights: (port metrics,
+    JAX metrics, {name: (port delta, JAX delta)} over the generator's
+    and the discriminator's parameters, in the JAX layout)."""
+    g0 = {k: p.detach().clone() for k, p in port.gen.named_parameters()}
+    d0 = {k: p.detach().clone() for k, p in port.disc.named_parameters()}
+    got = port({k: _t(v) for k, v in batch.items()})
+    state1, want = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
+                        gan_models[5])
+    g_map = weights.fgt_mapping(FGT_SMALL["numBlocks"])
+    g_delta = weights.torch_to_jax_leaves(
+        {k: p.detach() - g0[k] for k, p in port.gen.named_parameters()},
+        g_map)
+    d_delta = dict(port.disc.state_dict())
+    d_delta.update({k: p.detach() - d0[k]
+                    for k, p in port.disc.named_parameters()})
+    d_delta = weights.torch_to_jax_leaves(d_delta,
+                                          weights.discriminator_mapping())
+    jg = {"params": jax.tree_util.tree_map(
+        lambda a, b: np.asarray(a) - np.asarray(b), state1.g_params["params"],
+        gan_models[3]["params"])}
+    jd = {"params": jax.tree_util.tree_map(
+        lambda a, b: np.asarray(a) - np.asarray(b), state1.d_params,
+        gan_models[4]["params"])}
+    deltas = {"/".join(p): (np.asarray(g_delta[p]), _get(jg, p))
+              for p in g_map}
+    deltas.update({"/".join(p): (np.asarray(d_delta[p]), _get(jd, p))
+                   for p in weights.discriminator_mapping()
+                   if p[0] == "params"})
+    return got, want, deltas
+
+
+def test_gan_step_sgd_bf16_within_jax_spread(gan_models):
+    """One GAN step in mixed precision, SGD lr 0.5 as in the f32 test:
+    both steps run the generator and the oracle on bf16 copies of their
+    parameters and inputs (the JAX step's ``compute_dtype``). Against the
+    JAX package's own bf16 deviation, for each metric and each parameter
+    delta (max over the tensor): |port - jax_bf16| <= 2 |jax_bf16 -
+    jax_f32| + the f32 test's tolerance (metrics 1e-4 relative, deltas
+    1e-3 of the tensor's largest f32 delta). A tensor whose f32 delta
+    vanishes (<= 1e-6 of the largest delta: the spatial attention's
+    k_norm bias, whose gradient is zero in exact arithmetic because
+    softmax ignores a shift shared by all keys) holds rounding noise on
+    every side; its port delta must stay as negligible."""
+    lr, batch = 0.5, _batch()
+    step32, state32 = _jax_step(gan_models, optax.sgd(lr), optax.sgd(lr))
+    _, want32 = step32(state32, {k: jnp.asarray(v) for k, v in batch.items()},
+                       gan_models[5])
+    jf32 = _sgd_deltas(_port_step(gan_models, lambda ps: torch.optim.SGD(
+        ps, lr=lr)), step32, state32, batch, gan_models)[2]
+    step16, state16 = _jax_step(gan_models, optax.sgd(lr), optax.sgd(lr),
+                                compute_dtype=jnp.bfloat16)
+    port = _port_step(gan_models, lambda ps: torch.optim.SGD(ps, lr=lr),
+                      mixed_precision=True)
+    got, want16, deltas = _sgd_deltas(port, step16, state16, batch,
+                                      gan_models)
+    for k in want16:
+        jb, jf, p = (float(d[k]) for d in (want16, want32, got))
+        assert abs(p - jb) <= 2 * abs(jb - jf) + 1e-4 * abs(jf) + 1e-6, k
+    negligible = 1e-6 * max(np.abs(jf).max() for _, jf in jf32.values())
+    spread = 0
+    for name, (p, jb) in deltas.items():
+        jf = jf32[name][1]
+        if np.abs(jf).max() <= negligible:
+            assert np.abs(p).max() <= negligible, name
+            continue
+        bound = 2 * np.abs(jb - jf).max() + 1e-3 * np.abs(jf).max()
+        assert np.abs(p - jb).max() <= bound, name
+        spread += np.abs(jb - jf).max() > 0
+    assert spread > 0          # the bf16 step really rounded
 
 
 def _get(tree, path):
