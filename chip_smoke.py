@@ -12,7 +12,9 @@ Phases (any failure exits nonzero; nothing is caught):
      version at the main-path shape, in f32 and bf16 (bf16 level 0, f32
      coarser levels); in bf16 on noisy coords (the general route) and on
      a smooth flow (the box route), each timed, with the (tile, level)
-     route counts, which must equal ``tile_routes``';
+     route counts, which must equal ``tile_routes``'; again in bf16 at
+     RAFT small's shape (C = 128, r = 3); the f32 numbers are also the
+     --alternate_corr contract's;
   3. kernel K2 (flash attention) against its plain version at
      N=80, L=2340, ch=128, in f32 and bf16; F.scaled_dot_product_attention
      is timed beside it as a yardstick only;
@@ -32,6 +34,8 @@ Phases (any failure exits nonzero; nothing is caught):
      per level, timed beside it as a yardstick only; then the all-pairs
      pyramid build of
      one refine (TF32 product of bf16 features against the f32 product);
+     K3 at r = 3 on the bf16 pyramid of C = 128 features (RAFT small),
+     equal to its plain version, timed beside grid_sample;
      then RAFT refine in bf16 on a 64x64 pair with K1 and with its plain
      version in its place, whose flows must agree;
   6. the object-removal main path at full model width (random weights
@@ -60,10 +64,18 @@ Phases (any failure exits nonzero; nothing is caught):
      l1 falling, every TMHSA q/k/v embedding weight with a finite nonzero
      gradient; then a resume check (save the trio, 3 steps, reload,
      3 steps: gen_loss must match);
+     then RAFT --small through the CLI, cold and warm on both s1 paths
+     (K1 at C = 128, r = 3, 20 launches, or K3 at r = 3, 20 launches),
+     --alternate_corr with --fused_corr off (20 launches of K1's f32
+     body, no K3), the evaluation driver over 2 PNG videos x 24 frames
+     with a random-init I3D for VFID (every number finite, eval.json;
+     I3D features of a clip on the card against the CPU's) and one
+     6-frame run with every debug flag (--vis_*, --profile, an --opt
+     YAML that sets 3 GRU iterations);
   9. small inputs through the port on the card and on the CPU (plain
-     versions), which must agree: object-removal runs on the K1 path and
-     on the pyramid path with --Nonlocal, and one SGD GAN step (losses
-     and parameter deltas);
+     versions), which must agree: object-removal runs on the K1 path, on
+     the pyramid path with --Nonlocal and with RAFT --small, and one SGD
+     GAN step (losses and parameter deltas);
  10. one JSON line with every kernel's numbers, then the result line.
 
 ``--profile`` adds a torch.profiler trace of two training steps after
@@ -217,18 +229,22 @@ def k1_bound(f1, pyr, coords, out, r: int, dtype):
                                 torch.bfloat16 else H100_F32_FLOPS)
 
 
-def phase_k1(dtype, stats: dict):
+def phase_k1(dtype, stats: dict, C: int = 256, r: int = 4):
     """K1 at the main-path shape: 46 pairs x 60x108 pixels, C=256, r=4,
-    4 levels (60x108, 30x54, 15x27, 7x13 — odd sizes floor-pooled). Coords
+    4 levels (60x108, 30x54, 15x27, 7x13 — odd sizes floor-pooled), or at
+    RAFT small's (C=128, r=3). Coords
     are the pixel grid plus 8 px of noise per pixel (in bf16, level 0's
     tile boxes overflow: the general route) with far-out-of-range rows;
     in bf16 also a smooth flow (a 4x7 field of 8 px, upsampled: the box
-    route), both timed, with the routes each took."""
+    route), both timed, with the routes each took. Stats go under
+    ``stats[str(dtype)]`` at the main-path shape, under
+    ``stats[f"{dtype} C{C} r{r}"]`` at another."""
     import torch
     from fgt_tpu_torch.ops import corr_fused as cf
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-    B, H, W, C, r, L = 46, 60, 108, 256, 4, 4
+    g = torch.Generator(device="cuda").manual_seed(1 + C + r)
+    B, H, W, L = 46, 60, 108, 4
+    key = str(dtype) if (C, r) == (256, 4) else f"{dtype} C{C} r{r}"
     f1 = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
     f2 = torch.randn(B, H, W, C, device="cuda", generator=g)
     pyr = cf.build_fmap_pyramid(f2, L, dtype=dtype)
@@ -243,8 +259,8 @@ def phase_k1(dtype, stats: dict):
         smooth = smooth_coords(B, H, W, g)
         smooth[:, :2] = 1e4
         inputs.append(("smooth", smooth, 2))
-    name = str(dtype)[6:]
-    if dtype == torch.bfloat16:
+    name = str(dtype)[6:] + ("" if (C, r) == (256, 4) else f" C={C} r={r}")
+    if dtype == torch.bfloat16 and (C, r) == (256, 4):
         # the K1 path's memory: the pyramid of bf16 features (as RAFT's
         # bf16 encoder hands them over) and one lookup, above the features
         f2b = f2.to(dtype)
@@ -292,7 +308,7 @@ def phase_k1(dtype, stats: dict):
         log(f"K1 {name} ({label} coords): kernel_ms {kernel_ms:.4f} plain_ms "
             f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e9:.3f} "
             f"GB, {flops / 1e9:.2f} GFLOP)")
-        stats.setdefault(str(dtype), {})[label] = dict(
+        stats.setdefault(key, {})[label] = dict(
             ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=err, library_ms=None)
 
@@ -532,12 +548,10 @@ def phase_k3(dtype, stats: dict):
     grid — the reference bilinear_sampler — is timed beside it as a
     yardstick only."""
     import torch
-    import torch.nn.functional as F
     from fgt_tpu_torch.ops import corr_lookup as cl
 
     r, L = 4, 4
     pyr, coords = k3_inputs(dtype, L)
-    n, k = coords.numel() // 2, 2 * r + 1
     name = str(dtype)[6:]
     bf16 = torch.bfloat16
     for radius in (4, 3):
@@ -573,13 +587,36 @@ def phase_k3(dtype, stats: dict):
                              - want.to(bf16).float()).abs().max().item()}
         del outs, want
     times = {
-        "f32": cuda_ms(lambda: cl.lookup_corr_pyramid(pyr, coords, r), 20),
-        "bf16": cuda_ms(lambda: cl.lookup_corr_pyramid(
-            pyr, coords, r, out_dtype=bf16), 20),
         "warp": cuda_ms(lambda: cl.lookup_corr_pyramid_warp(pyr, coords, r),
                         20),
         "warp_cast": cuda_ms(lambda: cl.lookup_corr_pyramid_warp(
             pyr, coords, r).to(bf16), 20)}
+    out = k3_numbers(pyr, coords, r, errs, name)
+    log(f"K3 {name}: warp-per-pixel body {times['warp']:.4f} ms (f32 taps), "
+        f"{times['warp_cast']:.4f} ms with the cast to bf16 after it; the "
+        f"redesign {times['warp'] / out['f32']['ms']:.2f}x (f32 taps), "
+        f"{times['warp_cast'] / out['bf16']['ms']:.2f}x (bf16 taps against "
+        f"body + cast)")
+    stats[str(dtype)] = out
+
+
+def k3_numbers(pyr, coords, r: int, errs: dict, name: str) -> dict:
+    """K3's times at radius ``r`` on ``pyr`` and ``coords``, with f32 and
+    bf16 taps: the kernel, its plain version, F.grid_sample (one call per
+    level on [N, 1, H_l, W_l] with a [N, k, k, 2] grid — the reference
+    bilinear_sampler, align_corners=True, zero padding — a yardstick
+    only), the bound and the sector floor of this run's windows.
+    ``errs``: the kernel's max |err| per tap dtype. Returns {tap dtype:
+    the kernel line's numbers}."""
+    import torch
+    import torch.nn.functional as F
+    from fgt_tpu_torch.ops import corr_lookup as cl
+
+    bf16 = torch.bfloat16
+    n, k, L = coords.numel() // 2, 2 * r + 1, len(pyr)
+    times = {o: cuda_ms(lambda: cl.lookup_corr_pyramid(
+        pyr, coords, r, out_dtype=odt), 20)
+        for o, odt in (("f32", torch.float32), ("bf16", bf16))}
     plain = {o: cuda_ms(lambda: cl.lookup_corr_pyramid_plain(
         pyr, coords, r, out_dtype=odt), 2)
         for o, odt in (("f32", torch.float32), ("bf16", bf16))}
@@ -593,7 +630,7 @@ def phase_k3(dtype, stats: dict):
         c = coords.reshape(n, 1, 1, 2) / 2 ** lvl + delta
         scale = torch.tensor([2.0 / max(wl - 1, 1), 2.0 / max(hl - 1, 1)],
                              device="cuda")
-        grids.append((c * scale - 1).to(dtype))
+        grids.append((c * scale - 1).to(vol.dtype))
         vols.append(vol[:, None])
 
     def library():
@@ -620,8 +657,8 @@ def phase_k3(dtype, stats: dict):
         rest = coords.numel() * 4 + taps * tap_bytes
         b_ms, b_by = bound(cells * item + rest, flops, H100_F32_FLOPS)
         floor_ms = (sectors * 32 + rest) / H100_BYTES_PER_S * 1e3
-        log(f"K3 {name}, {o} taps: kernel_ms {times[o]:.4f} plain_ms "
-            f"{plain[o]:.4f} library_ms {library_ms:.4f} (grid_sample, 4 "
+        log(f"K3 {name} r {r}, {o} taps: kernel_ms {times[o]:.4f} plain_ms "
+            f"{plain[o]:.4f} library_ms {library_ms:.4f} (grid_sample, {L} "
             f"calls; max |diff| to the plain taps {lib_err:.3g}) bound_ms "
             f"{b_ms:.4f} ({b_by}; {(cells * item + rest) / 1e9:.3f} GB, "
             f"{flops / 1e9:.2f} GFLOP; {b_ms / times[o]:.3f} of the bound) "
@@ -630,14 +667,46 @@ def phase_k3(dtype, stats: dict):
         out[o] = dict(ms=times[o], plain_ms=plain[o], bound_ms=b_ms,
                       bound_by=b_by, max_abs_err=errs[o],
                       library_ms=library_ms)
-    log(f"K3 {name}: warp-per-pixel body {times['warp']:.4f} ms (f32 taps), "
-        f"{times['warp_cast']:.4f} ms with the cast to bf16 after it; the "
-        f"redesign {times['warp'] / times['f32']:.2f}x (f32 taps), "
-        f"{times['warp_cast'] / times['bf16']:.2f}x (bf16 taps against body "
-        f"+ cast); windows {cells * item / 1e9:.4f} GB in cells, "
+    log(f"K3 {name} r {r}: windows {cells * item / 1e9:.4f} GB in cells, "
         f"{sectors * 32 / 1e9:.4f} GB in sectors "
         f"({sectors * 32 / n / 1e3:.3f} KB a pixel)")
-    stats[str(dtype)] = out
+    return out
+
+
+def phase_k3_small(stats: dict):
+    """K3 at RAFT small's shape: the bf16 all-pairs pyramid of one refine
+    built from C = 128 features (46 pairs x 60x108 pixels, 4 levels), a
+    smooth 8 px flow with far-out-of-range rows, radius 3. Equal to the
+    plain version with f32 and bf16 taps; timed with its bound, the
+    plain version and grid_sample."""
+    import torch
+    from fgt_tpu_torch.ops import corr_lookup as cl
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    B, H, W, C, r = 46, 60, 108, 128, 3
+    f1, f2 = (torch.randn(B, H, W, C, device="cuda", generator=g)
+              .to(torch.bfloat16) for _ in range(2))
+    pyr = cl.build_corr_pyramid(f1, f2, 4, dtype=torch.bfloat16)
+    del f1, f2
+    coords = smooth_coords(B, H, W, g)
+    coords[:, :2] = 1e4
+    want = cl.lookup_corr_pyramid_plain(pyr, coords, r)
+    errs = {}
+    for o, odt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        got = cl.lookup_corr_pyramid(pyr, coords, r, out_dtype=odt)
+        ref = want.to(odt)
+        errs[o] = (got.float() - ref.float()).abs().max().item()
+        far = got[:, :2].abs().max().item()
+        log(f"K3 bfloat16 C=128 r {r}, {o} taps: max_abs_err {errs[o]:.3g} "
+            f"(tol 0: equal); far-coord taps max {far}")
+        if got.dtype != odt or errs[o] != 0.0 or far != 0.0:
+            raise AssertionError(f"K3 at r {r} ({o} taps) disagrees with "
+                                 "its plain version")
+    del want
+    stats["bfloat16 C128 r3"] = k3_numbers(pyr, coords, r, errs,
+                                           "bfloat16 C=128")
+    del pyr
+    torch.cuda.empty_cache()
 
 
 def phase_pyramid_build():
@@ -972,11 +1041,176 @@ def phase_batch(counters, root: str):
                                         "flash_mhsa": None})
 
 
-def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False):
-    """6 frames at 64x64, full-width RAFT and LAFC, FGT at 512 hidden /
-    4 heads (head dim 128 for K2) with 2 blocks, f32: the port on the card
-    (kernels) against the port on the CPU (plain versions), on the
-    ``corr`` path of s1 (and with --Nonlocal). Outside the hole the bytes
+def phase_small(counters, root: str):
+    """Object removal with RAFT --small through the CLI at full width (24
+    frames at 432x240, bf16), twice on each s1 path (cold: the small
+    model's first convolutions in the process; warm): the K1 path (K1 at
+    C = 128, r = 3: 20 launches, K3 none) and the pyramid path
+    (--fused_corr off: K3 at r = 3, 20 launches, K1 none). Returns the
+    warm runs' s1 seconds by path."""
+    from fgt_tpu_torch.ops import corr_fused as cf
+
+    frames, masks = synthetic_video()
+    hole = masks > 0
+    np.save(f"{root}/sm_frames.npy", frames)
+    np.save(f"{root}/sm_masks.npy", masks)
+    s1 = {}
+    for fused_corr, want in (
+            ("auto", {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0}),
+            ("off", {"lookup_corr_fused": 0, "lookup_corr_pyramid": 20})):
+        for run in ("cold", "warm"):
+            label = f"--small (--fused_corr {fused_corr}, {run})"
+            cf.reset_route_tiles()
+            out, _, _ = run_cli(label, counters, [
+                "--small", "--fused_corr", fused_corr, "--path",
+                f"{root}/sm_frames.npy", "--path_mask",
+                f"{root}/sm_masks.npy", "--outroot",
+                f"{root}/sm_{fused_corr}_{run}"], dict(want, flash_mhsa=None))
+            if fused_corr == "auto":
+                log(f"{label}: K1 routes of the (tile, level) pairs "
+                    f"{cf.route_tiles()}")
+            if out.shape != frames.shape or out.dtype != np.uint8 or \
+                    not np.array_equal(out[~hole], frames[~hole]):
+                raise AssertionError(f"{label}: output wrong outside the "
+                                     "hole")
+        with open(f"{root}/sm_{fused_corr}_warm/timings.json") as f:
+            s1[fused_corr] = json.load(f)["stages"]["s1_raft"]
+        log(f"--small (--fused_corr {fused_corr}): output ok; mean value "
+            f"inside the hole {out[hole].astype(np.float64).mean():.2f}")
+    log(f"--small s1, warm, same run: K1 path {s1['auto']:.4f} s, pyramid "
+        f"path (K3) {s1['off']:.4f} s")
+    return s1
+
+
+def phase_alternate(counters, root: str):
+    """Object removal with --alternate_corr (RAFT big) through the CLI,
+    --fused_corr off given too: s1 runs K1's f32 body, 20 launches, and
+    no K3 and no bf16 K1 (whose route counters stay 0)."""
+    from fgt_tpu_torch.ops import corr_fused as cf
+
+    frames, masks = synthetic_video()
+    hole = masks > 0
+    np.save(f"{root}/alt_frames.npy", frames)
+    np.save(f"{root}/alt_masks.npy", masks)
+    cf.reset_route_tiles()
+    out, _, _ = run_cli("--alternate_corr", counters, [
+        "--alternate_corr", "--fused_corr", "off", "--path",
+        f"{root}/alt_frames.npy", "--path_mask", f"{root}/alt_masks.npy",
+        "--outroot", f"{root}/alt"],
+        {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
+         "flash_mhsa": None})
+    routes = cf.route_tiles()
+    log(f"--alternate_corr: bf16 K1 route counts {routes} (0: every K1 "
+        f"launch took the f32 body)")
+    if sum(routes.values()) != 0:
+        raise AssertionError("--alternate_corr launched K1's bf16 body")
+    if not np.array_equal(out[~hole], frames[~hole]):
+        raise AssertionError("--alternate_corr output wrong outside the hole")
+    log("--alternate_corr: output ok")
+
+
+def phase_evaluate(counters, root: str):
+    """The evaluation driver on 2 synthetic videos x 24 frames at 432x240
+    (PNG directories), models resident (full width, bf16, random
+    weights), VFID from a random-init I3D state dict saved as .pt (I3D in
+    f32, TF32 off). Every number finite, eval.json written, 40 K1
+    launches; then one clip's I3D features on the card against the CPU's
+    (16 frames, a 120x216 crop), within 1e-4 of the largest |feature|
+    (f32 convolution reassociation, as the CPU test's bound)."""
+    import torch
+    from fgt_tpu_torch.core import vfid
+    from fgt_tpu_torch.pipeline import evaluate
+
+    for v in range(2):
+        frames, masks = synthetic_video(seed=30 + v)
+        write_pngs(f"{root}/ev/frames/v{v}", frames)
+        write_pngs(f"{root}/ev/masks/v{v}", masks * 255)
+    model = vfid.init_i3d(vfid.I3D(), torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), f"{root}/ev/i3d.pt")
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    t0 = time.perf_counter()
+    summary = evaluate.main([
+        "--frames", f"{root}/ev/frames", "--masks", f"{root}/ev/masks",
+        "--outroot", f"{root}/ev/out", "--raft_model", "/nonexistent",
+        "--lafc_ckpts", "/nonexistent", "--fgt_ckpts", "/nonexistent",
+        "--vfid_ckpt", f"{root}/ev/i3d.pt", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    nums = {k: summary[k] for k in ("psnr", "ssim", "l1", "l2", "vfid",
+                                    "fps")}
+    log(f"evaluation: {summary['num_videos']} videos, {summary['frames']} "
+        f"frames; " + json.dumps(nums) + f"; driver wall {wall:.2f} s "
+        f"(models built, PNG I/O included); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; I3D "
+        f"{vfid.F32_PRECISION}; launches {launches}")
+    if not all(np.isfinite(v) for v in nums.values()) or \
+            not os.path.exists(f"{root}/ev/out/eval.json"):
+        raise AssertionError("evaluation: a number is not finite or "
+                             "eval.json is missing")
+    expect_launches("evaluation", launches, {"lookup_corr_fused": 40,
+                                             "lookup_corr_pyramid": 0,
+                                             "flash_mhsa": None})
+    frames, _ = synthetic_video(seed=30)
+    clip = vfid.VFIDScorer(clip_len=16, device="cpu").clips(
+        frames)[:1, :, :120, :216]
+    feats = []
+    for dev in ("cuda", "cpu"):
+        with torch.inference_mode(), vfid.f32_precision():
+            feats.append(model.to(dev)(torch.from_numpy(clip).to(dev))
+                         .float().cpu().numpy())
+    err = np.abs(feats[0] - feats[1]).max()
+    top = np.abs(feats[1]).max()
+    log(f"evaluation: I3D features of one clip, card vs CPU: max |diff| "
+        f"{err:.3g} (tol {1e-4 * top:.3g}, max |feature| {top:.3g})")
+    if not err <= 1e-4 * top:
+        raise AssertionError("I3D features differ between the card and "
+                             "the CPU")
+
+
+def phase_debug_flags(counters, root: str):
+    """One 6-frame CLI run with --vis_flows --vis_completed_flows
+    --vis_prop --vis_frame --profile and an --opt YAML that sets
+    raft_iters to 3 (K1 launches 3, not 20); the debug directories hold
+    their files and the trace holds K1's kernel."""
+    frames, masks = synthetic_video(n=6)
+    os.makedirs(f"{root}/dbg", exist_ok=True)
+    np.save(f"{root}/dbg/frames.npy", frames)
+    np.save(f"{root}/dbg/masks.npy", masks)
+    with open(f"{root}/dbg/opt.yaml", "w") as f:
+        f.write("# overrides the flags\nraft_iters: 3\n")
+    out_dir = f"{root}/dbg/out"
+    run_cli("debug flags", counters, [
+        "--path", f"{root}/dbg/frames.npy", "--path_mask",
+        f"{root}/dbg/masks.npy", "--outroot", out_dir, "--vis_flows",
+        "--vis_completed_flows", "--vis_prop", "--vis_frame", "--profile",
+        f"{root}/dbg/trace", "--opt", f"{root}/dbg/opt.yaml"],
+        {"lookup_corr_fused": 3, "lookup_corr_pyramid": 0,
+         "flash_mhsa": None})
+    want = {f"{d}/{direction}_{kind}": 5 for d in ("flow", "completed_flow")
+            for direction in ("forward", "backward") for kind in ("flo",
+                                                                  "png")}
+    want.update({d: 6 for d in ("prop_frames", "masks_left",
+                                "prop_frames_npy", "masks_left_npy",
+                                "frames")})
+    counts = {d: len(os.listdir(os.path.join(out_dir, d))) for d in want}
+    trace = f"{root}/dbg/trace/trace.json"
+    with open(trace) as f:
+        text = f.read()
+    log(f"debug flags: files {counts}; trace {len(text) / 1e6:.1f} MB, "
+        f"K1 kernel in it: {'corr_fused' in text}")
+    if counts != want or "corr_fused" not in text:
+        raise AssertionError(f"debug flags: want {want} and K1 in the trace")
+
+
+def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
+                          small: bool = False):
+    """6 frames at 64x64, full-width RAFT (big, or small) and LAFC, FGT at
+    512 hidden / 4 heads (head dim 128 for K2) with 2 blocks, f32: the
+    port on the card (kernels) against the port on the CPU (plain
+    versions), on the ``corr`` path of s1 (and with --Nonlocal). Outside
+    the hole the bytes
     must match; inside, flowNN's thresholded decisions can amplify f32
     reassociation, so the bound is on the mean."""
     import torch
@@ -988,14 +1222,15 @@ def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False):
     outs = []
     for dev in ("cuda", "cpu"):
         models = vi.Models(dev, bf16=False, raft_iters=4, fgt_config=fgt_cfg,
-                           seed=3, corr=corr)
+                           seed=3, corr=corr, small=small)
         outs.append(vi.inpaint(frames, masks, models, flow_mask_dilates=2,
                                neighbor_stride=3, step=4,
                                use_nonlocal=use_nonlocal))
     gpu, cpu = (o.astype(np.int64) for o in outs)
     hole = masks > 0
     d = np.abs(gpu - cpu)[hole]
-    log(f"small reference ({corr}{', --Nonlocal' if use_nonlocal else ''}): "
+    log(f"small reference ({corr}{', --Nonlocal' if use_nonlocal else ''}"
+        f"{', --small' if small else ''}): "
         f"card vs CPU byte-equal: {np.array_equal(gpu, cpu)}; inside the "
         f"hole: mean |diff| {d.mean():.4f}, max {d.max()}, share > 8 levels "
         f"{(d > 8).mean():.4f}")
@@ -1290,6 +1525,13 @@ def main() -> int:
         phase_k2(dt, k2)
         phase_k45(dt, k45, resources)
         phase_k3(dt, k3)
+    alt = k1[str(torch.float32)]["noisy"]
+    log(f"K1 float32, the --alternate_corr contract (f32 features and "
+        f"levels, C=256, r=4, the f32 body): kernel_ms {alt['ms']:.4f} "
+        f"plain_ms {alt['plain_ms']:.4f} bound_ms {alt['bound_ms']:.4f} "
+        f"({alt['bound_by']}), max_abs_err {alt['max_abs_err']:.3g}")
+    phase_k1(torch.bfloat16, k1, C=128, r=3)     # RAFT --small
+    phase_k3_small(k3)
     phase_pyramid_build()
     phase_refine_bf16()
     counters = (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
@@ -1306,11 +1548,16 @@ def main() -> int:
         phase_modes(counters, root)
         phase_flow_extract(counters, root)
         phase_batch(counters, root)
+        phase_small(counters, root)
+        phase_alternate(counters, root)
+        phase_evaluate(counters, root)
+        phase_debug_flags(counters, root)
     train_launches, _ = phase_train(
         (flash_attention.flash_mhsa, flash_attention.flash_attention_dq,
          flash_attention.flash_attention_dkv), "--profile" in sys.argv)
     phase_small_reference()
     phase_small_reference("pyramid", use_nonlocal=True)
+    phase_small_reference(small=True)
     phase_small_train()
 
     bf16 = str(torch.bfloat16)

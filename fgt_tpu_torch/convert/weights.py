@@ -172,6 +172,56 @@ def raft_mapping() -> Mapping:
     return m
 
 
+def raft_small_mapping() -> Mapping:
+    """RAFT --small tree (SmallEncoder bottlenecks, plain ConvGRU,
+    FlowHead; reference raft.py:48-51, extractor.py:195-266,
+    update.py:62-112) <-> fgt_tpu.models.raft paths. Its instance norms
+    and cnet's missing norm carry no parameters."""
+    P = ("params",)
+    m: Mapping = {}
+    for name in ("fnet", "cnet"):
+        m.update(_conv(P + (name, "conv1"), f"{name}.conv1"))
+        m.update(_conv(P + (name, "conv2"), f"{name}.conv2"))
+        for i in range(3):
+            for j in range(2):
+                blk = P + (name, f"layer{i}_{j}")
+                tblk = f"{name}.layer{i + 1}.{j}"
+                for c in ("conv1", "conv2", "conv3"):
+                    m.update(_conv(blk + (c,), f"{tblk}.{c}"))
+                if i > 0 and j == 0:
+                    m.update(_conv(blk + ("downsample",),
+                                   f"{tblk}.downsample.0"))
+    ub = P + ("update_block",)
+    for c in ("convc1", "convf1", "convf2", "conv"):
+        m.update(_conv(ub + ("encoder", c), f"update_block.encoder.{c}"))
+    for g in ("convz", "convr", "convq"):
+        m.update(_conv(ub + ("gru", g), f"update_block.gru.{g}"))
+    m.update(_conv(ub + ("flow_conv1",), "update_block.flow_head.conv1"))
+    m.update(_conv(ub + ("flow_conv2",), "update_block.flow_head.conv2"))
+    return m
+
+
+def i3d_mapping() -> Mapping:
+    """The JAX package's I3D (``fgt_tpu/core/vfid.py``) <-> pytorch-i3d
+    ``InceptionI3d`` keys (what ``convert_i3d_checkpoint`` reads):
+    every unit a bias-free Conv3d and a BatchNorm3d named ``bn``."""
+    from fgt_tpu_torch.core.vfid import BRANCHES, INCEPTION_BLOCKS, STEM
+
+    P, S = ("params",), ("batch_stats",)
+    units = [name for name, *_ in STEM] + [
+        f"{name}.{b}" for name, _ in INCEPTION_BLOCKS for b in BRANCHES]
+    m: Mapping = {}
+    for unit in units:
+        path = tuple(unit.split("."))
+        m.update(_conv(P + path + ("conv3d",), f"{unit}.conv3d", "conv3d",
+                       bias=False))
+        m[P + path + ("bn", "scale")] = (f"{unit}.bn.weight", "raw")
+        m[P + path + ("bn", "bias")] = (f"{unit}.bn.bias", "raw")
+        m[S + path + ("bn", "mean")] = (f"{unit}.bn.running_mean", "raw")
+        m[S + path + ("bn", "var")] = (f"{unit}.bn.running_var", "raw")
+    return m
+
+
 def _vanilla(flax_prefix, torch_prefix, kind="conv2d", bias=True):
     """A VanillaConv block: <prefix>/conv/kernel <- <prefix>.featureConv."""
     return _conv(flax_prefix + ("conv",), torch_prefix + ".featureConv",

@@ -1,1 +1,2 @@
-"""File formats shared by the port's entry points."""
+"""File formats, flow colouring and quality metrics shared by the port's
+entry points."""

@@ -30,6 +30,26 @@ def _tuple(v: IntOrSeq, n: int) -> tuple:
     return (v,) * n if isinstance(v, int) else tuple(v)
 
 
+class FrozenBatchNorm(nn.Module):
+    """Inference batch norm on running statistics over dim 1 of an
+    N C [D] H W tensor; ``state_dict`` keys are the reference's
+    weight/bias/running_mean/running_var (no ``num_batches_tracked``)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(channels), requires_grad=False)
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.eps = eps
+
+    def forward(self, x):
+        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
+        shift = self.bias - self.running_mean * scale
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return x * scale.view(shape) + shift.view(shape)
+
+
 class VanillaConv(nn.Module):
     """Conv -> activation (reference VanillaConv / VanillaConv2d with
     norm=None). ``rank`` 2 or 3 picks Conv2d / Conv3d."""

@@ -8,7 +8,9 @@ the GPU machine has no decoder for it).
 
 :func:`resize_linear` and :func:`resize_nearest` reproduce cv2's
 ``INTER_LINEAR`` (on float32 frames) and ``INTER_NEAREST`` resizes bit
-for bit, so the port's frames match the JAX package's loaders.
+for bit, so the port's frames match the JAX package's loaders;
+:func:`resize_linear_u8` reproduces ``INTER_LINEAR`` on uint8 frames,
+which cv2 computes in fixed point (the evaluation tool's ground truth).
 """
 
 from __future__ import annotations
@@ -174,3 +176,42 @@ def resize_nearest(masks: np.ndarray, h: int, w: int) -> np.ndarray:
     xs = np.minimum((np.arange(w) * masks.shape[2] / w).astype(int),
                     masks.shape[2] - 1)
     return masks[:, ys][:, :, xs]
+
+
+def _linear_taps_u8(src: int, dst: int):
+    """cv2's fixed-point INTER_LINEAR taps along one axis: the position
+    rounded to f32, its fraction taken in f32, and the two weights
+    (1 - f, f) each rounded to 11 fractional bits (to even)."""
+    pos = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(
+        np.float32)
+    i0 = np.floor(pos).astype(np.int64)
+    frac = pos - i0.astype(np.float32)
+    return (i0, np.rint((np.float32(1) - frac) * np.float32(2048)).astype(
+        np.int64), np.rint(frac * np.float32(2048)).astype(np.int64))
+
+
+def resize_linear_u8(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """[H, W] or [H, W, C] uint8 -> [h, w(, C)] uint8, bit-equal to
+    ``cv2.resize(img, (w, h))`` (``INTER_LINEAR`` on uint8): columns
+    first in integers (weights of 2048), then rows as cv2's vector
+    path computes them, ((S0 >> 4)·b0 >> 16) + ((S1 >> 4)·b1 >> 16),
+    rounded off by two bits and saturated."""
+    img = np.asarray(img, np.uint8)
+    H, W = img.shape[:2]
+    if (H, W) == (h, w):
+        return img.copy()
+    x0, a0, a1 = _linear_taps_u8(W, w)
+    outside = (x0 < 0) | (x0 >= W - 1)       # the edge pixel, weight 2048
+    a0[outside], a1[outside] = 2048, 0
+    x0 = np.clip(x0, 0, W - 1)
+    x1 = np.minimum(x0 + 1, W - 1)
+    y0, b0, b1 = _linear_taps_u8(H, h)
+    y1 = np.clip(y0 + 1, 0, H - 1)
+    y0 = np.clip(y0, 0, H - 1)
+    ex = (slice(None),) + (None,) * (img.ndim - 2)
+    src = img.astype(np.int64)
+    rows = src[:, x0] * a0[ex] + src[:, x1] * a1[ex]
+    ey = (slice(None), None) + (None,) * (img.ndim - 2)
+    out = (((rows[y0] >> 4) * b0[ey] >> 16) + ((rows[y1] >> 4) * b1[ey] >> 16)
+           + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)

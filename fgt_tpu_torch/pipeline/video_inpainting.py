@@ -8,17 +8,20 @@ Stages (device work on the card unless the caller asks for the CPU):
 
   s1 RAFT     encode every frame once (2x upscale under 350 px), then
               forward and backward pairs batched through one refine;
-              correlation from kernel K1 (``--fused_corr auto|on``) or
-              from the all-pairs pyramid looked up by kernel K3
-              (``--fused_corr off``); flows resized to image resolution
-              with an antialiased bilinear filter
+              big RAFT, or the small variant under ``--small``;
+              correlation from kernel K1 (``--fused_corr auto|on``), from
+              K1 in f32 (``--alternate_corr``, which wins over
+              ``--fused_corr``) or from the all-pairs pyramid looked up
+              by kernel K3 (``--fused_corr off``); flows resized to image
+              resolution with an antialiased bilinear filter
   s1b         extrapolation only: the canvas, zero-padded flows and the
               border masks
   s2 LAFC     device diffusion (multigrid-preconditioned CG), then the
               P3D net over reflect-indexed windows, pivot composite
   s3 host     gradients (forward differences, hole-touching ones zeroed)
   s3b RAFT    ``--Nonlocal`` only: flows between every frame and the key
-              frames [0, N//2, N-1], always on the pyramid path (K3)
+              frames [0, N//2, N-1], on the pyramid path (K3), or K1 in
+              f32 under ``--alternate_corr``
   s4 host     flowNN gradient propagation (native OpenMP kernels)
   s5 host     Poisson blending (scipy splu)
   s6 FGT      batched windows, temporal attention through kernel K2,
@@ -27,7 +30,12 @@ Stages (device work on the card unless the caller asks for the CPU):
 Entry points: :func:`inpaint` (arrays in, arrays out) and
 :func:`video_inpainting` (the CLI: ``.npy`` stacks or PNG directories in,
 ``result.npy``, PNGs and the synchronized stage seconds in
-``timings.json`` out).
+``timings.json`` out). The CLI's debug flags write what the JAX CLI
+writes, in the same directories: ``--vis_flows`` (the s1 flows under
+``flow/``), ``--vis_completed_flows`` (s2's under ``completed_flow/``),
+``--vis_prop`` (the Poisson frames and the pixels left for FGT);
+``--opt`` overrides flags from a YAML file, ``--profile`` writes a
+``torch.profiler`` trace.
 
 Frames stay float from the resize on, as in the JAX pipeline: RAFT reads
 them rounded to u8, the gradients and Poisson read them /255, and FGT's
@@ -58,6 +66,7 @@ import torch.nn.functional as F
 
 from fgt_tpu_torch import DEFAULT_DEVICE
 from fgt_tpu_torch.convert.weights import load_state
+from fgt_tpu_torch.core import flow_io, flow_viz
 from fgt_tpu_torch.models import fgt as fgt_mod
 from fgt_tpu_torch.models import lafc as lafc_mod
 from fgt_tpu_torch.models import raft as raft_mod
@@ -69,7 +78,8 @@ from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
                                                 get_flownn_gradient_frames,
                                                 key_frames)
 from fgt_tpu_torch.utils.checkpoint import load_state_dict
-from fgt_tpu_torch.utils.config import read_flat_yaml
+from fgt_tpu_torch.utils.config import apply_yaml_over_args, read_flat_yaml
+from fgt_tpu_torch.utils.profiling import maybe_trace
 
 logger = logging.getLogger("fgt_tpu_torch")
 
@@ -234,14 +244,18 @@ class StageTimer:
 class Models:
     """RAFT + LAFC + FGT on one device, in one dtype, random-initialized
     from ``seed`` (a ``torch.Generator``) unless state dicts are given.
-    ``corr`` is s1's correlation path ("fused": K1, "pyramid": K3); the
+    ``small`` takes RAFT's small variant. ``corr`` is s1's correlation
+    path ("fused": K1, "alternate": K1 in f32, "pyramid": K3); the
     pyramid is stored in bf16 under bf16 compute unless ``corr_f32``."""
 
     def __init__(self, device: str = DEFAULT_DEVICE, bf16: bool = True,
                  raft_iters: int = 20, lafc_config: Optional[dict] = None,
                  fgt_config: Optional[dict] = None, seed: int = 0,
                  raft_state=None, lafc_state=None, fgt_state=None,
-                 corr: str = "fused", corr_f32: bool = False):
+                 corr: str = "fused", corr_f32: bool = False,
+                 small: bool = False):
+        if corr not in raft_mod.CORRS:
+            raise ValueError(f"unknown correlation path {corr!r}")
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if bf16 else torch.float32
         self.corr = corr
@@ -250,7 +264,7 @@ class Models:
         self.lafc_config = dict(lafc_config or DEFAULT_LAFC_CONFIG)
         self.fgt_config = dict(fgt_config or DEFAULT_FGT_CONFIG)
         gen = torch.Generator().manual_seed(seed)
-        self.raft = raft_mod.init_raft(raft_mod.RAFT(), gen)
+        self.raft = raft_mod.init_raft(raft_mod.RAFT(small), gen)
         self.lafc = lafc_mod.init_lafc(lafc_mod.Model(self.lafc_config), gen)
         self.fgt = fgt_mod.init_fgt(fgt_mod.Model(self.fgt_config), gen)
         for module, state in ((self.raft, raft_state),
@@ -341,9 +355,10 @@ def calculate_nonlocal_flows(models: Models, video_u8: torch.Tensor,
                              chunk: Optional[int] = None,
                              backoffs: Optional[list] = None):
     """s3b, ``--Nonlocal``: flows between every frame and the key frames
-    [0, N//2, N-1] on the all-pairs pyramid path (K3), as the JAX
-    package's ``calculate_nonlocal_flows``. ``video_u8``: [N, H, W, 3] at
-    flow resolution on the device. Returns (nl_f, nl_b), each f32
+    [0, N//2, N-1] on the all-pairs pyramid path (K3), or on K1 in f32
+    when s1 takes it, as the JAX package's ``calculate_nonlocal_flows``.
+    ``video_u8``: [N, H, W, 3] at flow resolution on the device. Returns
+    (nl_f, nl_b), each f32
     [N, 3, out_h, out_w, 2]: nl_f[t, k] is the flow t -> key k, nl_b[t, k]
     the flow key k -> t."""
     n, fh, fw = video_u8.shape[:3]
@@ -351,7 +366,8 @@ def calculate_nonlocal_flows(models: Models, video_u8: torch.Tensor,
     keys = torch.tensor(key_frames(n), device=video_u8.device)
     t_idx = torch.arange(n, device=video_u8.device).repeat_interleave(3)
     k_idx = keys.repeat(n)
-    nl = [refine_pairs(models, feats, a, b, out_h, out_w, chunk, "pyramid",
+    corr = "alternate" if models.corr == "alternate" else "pyramid"
+    nl = [refine_pairs(models, feats, a, b, out_h, out_w, chunk, corr,
                        "s3b_nonlocal", backoffs).reshape(n, 3, out_h, out_w, 2)
           for a, b in ((t_idx, k_idx), (k_idx, t_idx))]
     return nl[0], nl[1]
@@ -469,7 +485,8 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
             neighbor_stride: int = 5, step: int = 10, num_ref: int = -1,
             raft_chunk: Optional[int] = None, lafc_chunk: Optional[int] = None,
             window_batch: Optional[int] = None, host_upscale: bool = False,
-            timer: Optional[StageTimer] = None) -> np.ndarray:
+            timer: Optional[StageTimer] = None, vis: tuple = (),
+            vis_root: Optional[str] = None) -> np.ndarray:
     """Video inpainting on arrays. frames: [N, H, W, 3], uint8 or float in
     [0, 255] (a resized source); masks: [N, H, W] (nonzero = hole),
     unused by video extrapolation, whose hole is the canvas border.
@@ -480,9 +497,15 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
 
     Returns the inpainted [N, H', W', 3] uint8 frames (H', W' the canvas
     under extrapolation); outside the hole they equal the input, truncated
-    to uint8 where it was float (as the JAX CLI's)."""
+    to uint8 where it was float (as the JAX CLI's).
+
+    ``vis`` names the debug outputs to write under ``vis_root``, as the
+    JAX CLI's flags: "flows" (s1's flows), "completed_flows" (s2's),
+    "prop" (the Poisson frames and the pixels left for FGT)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    if set(vis) - set(VIS) or (vis and vis_root is None):
+        raise ValueError(f"vis {vis!r} needs names of {VIS} and a vis_root")
     dev = models.device
     timer = timer or StageTimer(dev)
     backoffs: list = []
@@ -504,6 +527,9 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
             flows_f, flows_b = calculate_flows(
                 models, torch.from_numpy(rgb).to(dev), flow_h, flow_w,
                 raft_chunk, backoffs, out_hw=(img_h, img_w))
+        if "flows" in vis:
+            save_flows(vis_root, flows_f.cpu().numpy(),
+                       flows_b.cpu().numpy(), subdir="flow")
         video = video255 / 255.0
         if mode == "video_extrapolation":
             with timer.stage("s1b_extrapolation"):
@@ -535,6 +561,8 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
                                     backoffs)
             flow_f_np = comp_f.cpu().numpy()
             flow_b_np = comp_b.cpu().numpy()
+        if "completed_flows" in vis:
+            save_flows(vis_root, flow_f_np, flow_b_np)
 
         with timer.stage("s3_gradients"):
             video, gx, gy = prepare_gradients(video, mask, mask_dilated)
@@ -575,6 +603,8 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
                     blends.append(video[i])
             logger.info("poisson blending done; %d px left for FGT",
                         int(mask_cur.sum()))
+        if "prop" in vis:
+            save_prop(vis_root, blends, mask_cur)
 
         with timer.stage("s6_fgt"):
             comp = fgt_synthesis(
@@ -587,6 +617,60 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
     if backoffs:
         logger.warning("OOM backoffs: %s", backoffs)
     return out
+
+
+# ---------------- debug outputs ----------------
+
+VIS = ("flows", "completed_flows", "prop")
+
+
+def _imwrite_as_cv2(path: str, img: np.ndarray) -> None:
+    """A PNG holding what ``cv2.imwrite(path, img)`` writes for a float
+    [H, W] or RGB [H, W, 3] array: values rounded to nearest (ties to
+    even) and saturated to uint8, the channels read as BGR (so the file
+    holds them reversed)."""
+    u8 = np.clip(np.rint(img), 0, 255).astype(np.uint8)
+    image_io.write_png(path, u8[..., ::-1] if u8.ndim == 3 else u8)
+
+
+def save_prop(outroot: str, frame_blends, masks_left) -> None:
+    """Stage-I (propagation + Poisson) outputs: a PNG and an ``.npy`` per
+    frame of the blends (·255) and of the pixels left for FGT, in the
+    JAX CLI's ``_save_prop`` directories (reference save_fgcp,
+    tool/video_inpainting.py:157-177); the PNGs decode to what its
+    ``cv2.imwrite`` calls write."""
+    dirs = {n: os.path.join(outroot, n) for n in
+            ("prop_frames", "masks_left", "prop_frames_npy",
+             "masks_left_npy")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    for i, frame in enumerate(frame_blends):
+        m = masks_left[i].astype(np.float32)
+        _imwrite_as_cv2(os.path.join(dirs["prop_frames"], f"{i:05d}.png"),
+                        frame * 255.0)
+        _imwrite_as_cv2(os.path.join(dirs["masks_left"], f"{i:05d}.png"),
+                        m * 255.0)
+        np.save(os.path.join(dirs["prop_frames_npy"], f"{i:05d}.npy"),
+                frame * 255.0)
+        np.save(os.path.join(dirs["masks_left_npy"], f"{i:05d}.npy"),
+                m * 255.0)
+
+
+def save_flows(outroot: str, flow_f: np.ndarray, flow_b: np.ndarray,
+               subdir: str = "completed_flow") -> None:
+    """``.flo`` files and flow-colour PNGs per direction, in the JAX
+    CLI's ``_save_flows`` directories (reference save_flows,
+    tool/video_inpainting.py:120-155; s1's flows go under ``flow/``)."""
+    for name, flows in (("forward", flow_f), ("backward", flow_b)):
+        flo_dir = os.path.join(outroot, subdir, f"{name}_flo")
+        png_dir = os.path.join(outroot, subdir, f"{name}_png")
+        os.makedirs(flo_dir, exist_ok=True)
+        os.makedirs(png_dir, exist_ok=True)
+        for i in range(flows.shape[0]):
+            flow_io.write_flow(flows[i], os.path.join(flo_dir, f"{i:05d}.flo"))
+            image_io.write_png(os.path.join(png_dir, f"{i:05d}.png"),
+                               (flow_viz.flow_to_rgb(flows[i]) * 255
+                                ).astype(np.uint8))
 
 
 # ---------------- CLI ----------------
@@ -621,6 +705,9 @@ def _load_ckpt_dir(path: Optional[str], default_cfg: dict):
 def build_parser() -> argparse.ArgumentParser:
     """The JAX CLI's flags that apply to the port."""
     p = argparse.ArgumentParser()
+    p.add_argument("--opt", default=None,
+                   help="YAML file whose top-level keys override the flags "
+                        "(only keys the parser has)")
     p.add_argument("--mode", default="object_removal", choices=MODES)
     p.add_argument("--path", default="data/frames",
                    help=".npy stack or directory of PNG frames (no JPEG: "
@@ -638,6 +725,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "turns it on")
     p.add_argument("--raft_model", default="checkpoints/raft/raft.pth",
                    help="reference RAFT state dict (random init if absent)")
+    p.add_argument("--small", action="store_true",
+                   help="RAFT's small variant (hidden 96, context 64, "
+                        "radius 3)")
+    p.add_argument("--mixed_precision", action="store_true",
+                   help="accepted for the reference CLI's sake; the dtype "
+                        "is --bf16 / --f32")
+    p.add_argument("--alternate_corr", action="store_true",
+                   help="s1 and s3b correlation as the reference's "
+                        "AlternateCorrBlock: kernel K1 in f32 on pooled "
+                        "features (wins over --fused_corr)")
     p.add_argument("--lafc_ckpts", default="checkpoints/lafc",
                    help="directory with a .pth/.pth.tar state dict and a "
                         ".yaml or config.json config")
@@ -673,6 +770,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bfloat16 weights and activations (default)")
     p.add_argument("--f32", dest="bf16", action="store_false",
                    help="float32 inference")
+    p.add_argument("--vis_flows", action="store_true",
+                   help="write s1's flows (.flo + PNG) under flow/")
+    p.add_argument("--vis_completed_flows", action="store_true",
+                   help="write s2's completed flows under completed_flow/")
+    p.add_argument("--vis_prop", action="store_true",
+                   help="write the Poisson frames and the pixels left for "
+                        "FGT (prop_frames/, masks_left/, and their .npy)")
+    p.add_argument("--vis_frame", action="store_true",
+                   help="accepted for the JAX CLI's sake: the output frames "
+                        "are always written as frames/NNNNN.png")
+    p.add_argument("--profile", default="",
+                   help="write a torch.profiler trace (trace.json) of the "
+                        "run to this directory")
     p.add_argument("--device", default=DEFAULT_DEVICE)
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random init of models without weights")
@@ -686,15 +796,16 @@ def build_models(args) -> Models:
     fgt_cfg, fgt_state = _load_ckpt_dir(args.fgt_ckpts, DEFAULT_FGT_CONFIG)
     raft_state = (load_state_dict(args.raft_model)
                   if os.path.exists(args.raft_model) else None)
+    corr = ("alternate" if args.alternate_corr else
+            "pyramid" if args.fused_corr == "off" else "fused")
     for name, st in (("RAFT", raft_state), ("LAFC", lafc_state),
                      ("FGT", fgt_state)):
         if st is None:
             logger.warning("%s weights not found; random init (seed %d)",
                            name, args.seed)
     return Models(args.device, args.bf16, args.raft_iters, lafc_cfg, fgt_cfg,
-                  args.seed, raft_state, lafc_state, fgt_state,
-                  corr="pyramid" if args.fused_corr == "off" else "fused",
-                  corr_f32=args.corr_f32)
+                  args.seed, raft_state, lafc_state, fgt_state, corr=corr,
+                  corr_f32=args.corr_f32, small=args.small)
 
 
 def load_frames(path: str, img_h: int, img_w: int,
@@ -746,7 +857,8 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
                   num_ref=args.num_ref, raft_chunk=args.raft_chunk,
                   lafc_chunk=args.lafc_chunk, window_batch=args.window_batch,
                   host_upscale=tuple(src_hw) != (args.imgH, args.imgW),
-                  timer=timer)
+                  timer=timer, vis_root=args.outroot,
+                  vis=tuple(v for v in VIS if getattr(args, f"vis_{v}")))
     with timer.stage("s7_write"):
         image_io.write_frames(args.outroot, out)
     n = out.shape[0]
@@ -762,7 +874,10 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
-    return video_inpainting(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    args = apply_yaml_over_args(args, args.opt)
+    with maybe_trace(args.profile, torch.device(args.device)):
+        return video_inpainting(args)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,8 @@ part the builders need, with PyYAML's ``safe_load`` meaning for it:
   (``{...}``) is skipped with its indented lines.
 
 Anything else at the top level raises ``ValueError``, rather than being
-read differently from PyYAML.
+read differently from PyYAML. :func:`apply_yaml_over_args` is the
+inference CLI's ``--opt`` on top of it.
 """
 
 from __future__ import annotations
@@ -129,3 +130,16 @@ def read_flat_yaml(path: str) -> dict:
         else:
             out[key] = _scalar(value, line)
     return out
+
+
+def apply_yaml_over_args(args, opt_path: str | None):
+    """The inference CLI's ``--opt`` (reference
+    tool/video_inpainting.py:427-429; ``fgt_tpu/utils/config.py``): the
+    YAML file's top-level keys win over the parsed flags, but only keys
+    the namespace already has. Returns ``args``, changed in place."""
+    if not opt_path:
+        return args
+    for k, v in read_flat_yaml(opt_path).items():
+        if hasattr(args, k):
+            setattr(args, k, v)
+    return args

@@ -190,9 +190,11 @@ def test_raft_forward_matches_jax_call(raft_pair):
 
 
 def test_raft_pyramid_and_fused_paths_agree(raft_pair):
-    """The port's two correlation paths on the same features: pooling
-    the correlation equals correlating pooled features up to f32
-    reassociation (2e-3 px upsampled)."""
+    """The port's correlation paths on the same features: pooling the
+    correlation equals correlating pooled features up to f32
+    reassociation (2e-3 px upsampled); in an f32 model the alternate
+    path (K1 in f32) is the fused path, bit for bit; an unknown path
+    raises."""
     _, _, port, video = raft_pair
     x = torch.from_numpy(video)
     with torch.no_grad():
@@ -200,6 +202,8 @@ def test_raft_pyramid_and_fused_paths_agree(raft_pair):
         args = (fmap[:2], fmap[1:], net[:2], inp[:2], 2)
         _, up_p = port.refine(*args, corr="pyramid")
         _, up_f = port.refine(*args, corr="fused")
+        _, up_a = port.refine(*args, corr="alternate")
     np.testing.assert_allclose(up_p.numpy(), up_f.numpy(), atol=2e-3)
+    np.testing.assert_array_equal(up_a.numpy(), up_f.numpy())
     with pytest.raises(ValueError):
-        port.refine(*args, corr="alternate")
+        port.refine(*args, corr="xla")

@@ -26,7 +26,8 @@ def dev():
 
 @pytest.mark.parametrize("dtype,c,radius,levels", [
     (torch.float32, 64, 4, 4), (torch.bfloat16, 256, 4, 4),
-    (torch.float32, 32, 2, 2)])
+    (torch.float32, 32, 2, 2), (torch.float32, 128, 3, 4),
+    (torch.bfloat16, 128, 3, 4)])
 def test_k1_kernel_matches_plain(dev, dtype, c, radius, levels):
     g = torch.Generator(device=dev).manual_seed(0)
     f1 = torch.randn(2, 15, 21, c, device=dev, generator=g).to(dtype)
@@ -100,6 +101,34 @@ def test_k1_bf16_tile_routes_match_plain(dev, kind, c):
         assert routes["general"] > 0 and routes["box"] > 0
 
 
+@pytest.mark.parametrize("kind", ["smooth", "noisy"])
+def test_k1_bf16_raft_small_shape_matches_plain(dev, kind):
+    """RAFT small's K1 shape in bf16: C = 128, radius 3, 4 levels of a
+    60x108 feature map (60x108, 30x54, 15x27, 7x13), 2 pairs; against the
+    plain version to one bf16 ulp of the largest tap, with the kernel's
+    route counts equal to tile_routes' (smooth flow: all box route)."""
+    gen = torch.Generator().manual_seed(11 + len(kind))
+    b, h, w, c, r = 2, 60, 108, 128, 3
+    f1 = torch.randn(b, h, w, c, generator=gen).to(torch.bfloat16)
+    f2 = torch.randn(b, h, w, c, generator=gen)
+    coords = smooth_coords(b, h, w, gen, amp=8.0 if kind == "smooth" else 0.0)
+    if kind == "noisy":
+        coords = coords + 8 * torch.randn(b, h, w, 2, generator=gen)
+    coords[0, :2] = 1e4
+    f1, f2, coords = f1.to(dev), f2.to(dev), coords.to(dev)
+    pyr = cf.build_fmap_pyramid(f2, 4, dtype=torch.bfloat16)
+    cf.reset_route_tiles()
+    got = cf.lookup_corr_fused(f1, pyr, coords, r)
+    routes = cf.route_tiles()
+    want = cf.lookup_corr_plain(f1, pyr, coords, r)
+    assert got.shape == (b, h, w, 4 * 49) and got.dtype == torch.bfloat16
+    top = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= top * 2 ** -7
+    assert got[0, :2].abs().max().item() == 0.0
+    assert routes == cf.tile_routes(coords, [lv.shape[1:3] for lv in pyr], r)
+    assert (routes["general"] == 0) == (kind == "smooth")
+
+
 def test_k1_rejects_bf16_coarse_levels(dev):
     """In bf16 the kernel takes f32 levels >= 1 only (the repaired
     pyramid); a pyramid rounded to bf16 throughout is refused."""
@@ -116,7 +145,7 @@ def test_k1_rejects_bf16_coarse_levels(dev):
     (torch.float32, 4, 4, 15, 21), (torch.bfloat16, 4, 4, 15, 21),
     (torch.float32, 3, 4, 9, 13), (torch.bfloat16, 3, 3, 12, 20),
     (torch.float32, 3, 2, 5, 7), (torch.bfloat16, 4, 4, 60, 108),
-    (torch.float32, 3, 4, 60, 108)])
+    (torch.float32, 3, 4, 60, 108), (torch.bfloat16, 3, 4, 60, 108)])
 def test_k3_kernel_matches_plain(dev, dtype, radius, levels, h, w,
                                  out_dtype):
     """K3 against its plain version: the same products and sums, each

@@ -2,10 +2,12 @@
 
 * no module of ``fgt_tpu_torch`` (nor ``chip_smoke.py``) imports JAX,
   flax, the JAX package, or cv2/imageio/yaml, which the GPU machine lacks;
-* entry points default to the ``cuda`` device;
-* the weight bridge round-trips every leaf of the RAFT, LAFC,
-  LAFC-single, FGT and T-PatchGAN tables with no key missing on either
-  side, and its tables equal the JAX package's converter tables;
+* entry points default to the ``cuda`` device (the evaluation driver
+  and the VFID scorer too);
+* the weight bridge round-trips every leaf of the RAFT (big and small),
+  LAFC, LAFC-single, FGT, T-PatchGAN and I3D tables with no key missing
+  on either side, and its tables equal the JAX package's converter
+  tables;
 * CPU tensors take the kernels' plain versions (K1-K5) without counting a
   launch;
 * flash attention stays differentiable when its forward is a kernel
@@ -35,13 +37,14 @@ import torch
 from fgt_tpu.convert import torch2jax
 from fgt_tpu_torch import DEFAULT_DEVICE
 from fgt_tpu_torch.convert import weights
+from fgt_tpu_torch.core import vfid as tvfid
 from fgt_tpu_torch.models import discriminator as tdisc
 from fgt_tpu_torch.models import fgt as tfgt
 from fgt_tpu_torch.models import lafc as tlafc
 from fgt_tpu_torch.models import lafc_single as tls
 from fgt_tpu_torch.models import raft as traft
 from fgt_tpu_torch.ops import _build, corr_fused, corr_lookup, flash_attention
-from fgt_tpu_torch.pipeline import batch, flow_extract, image_io
+from fgt_tpu_torch.pipeline import batch, evaluate, flow_extract, image_io
 from fgt_tpu_torch.pipeline import video_inpainting as tvi
 from fgt_tpu_torch.train.trainer import FGTTrainer
 
@@ -74,6 +77,10 @@ def _imported_roots(path):
 def test_port_imports_no_jax_no_reference_package_no_cv2():
     sources = list(_port_sources())
     assert len(sources) > 15
+    rel = {os.path.relpath(p, ROOT) for p in sources}
+    for module in ("core/flow_viz.py", "core/metrics.py", "core/vfid.py",
+                   "pipeline/evaluate.py", "utils/profiling.py"):
+        assert f"fgt_tpu_torch/{module}" in rel, module
     bad = {(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -92,6 +99,12 @@ def test_entry_points_default_to_cuda():
         "device"].default == "cuda"
     # the batch driver parses the inference CLI's flags
     assert batch.build_parser is tvi.build_parser
+    assert evaluate.build_parser().parse_args(
+        ["--frames", "f", "--masks", "m"]).device == "cuda"
+    assert inspect.signature(tvfid.VFIDScorer.__init__).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(tvfid.vfid).parameters["device"].default == \
+        "cuda"
 
 
 def _random_tree(own, paths):
@@ -146,12 +159,18 @@ def _discriminator_roundtrip(module):
                                       leaves[("spectral", f"conv{i}", "v")])
 
 
-@pytest.mark.parametrize("name", ["raft", "lafc", "lafc_single", "fgt",
-                                  "discriminator"])
+@pytest.mark.parametrize("name", ["raft", "raft_small", "lafc",
+                                  "lafc_single", "fgt", "discriminator",
+                                  "i3d"])
 def test_weight_bridge_roundtrips_every_leaf(name):
     if name == "raft":
         mapping, module = weights.raft_mapping(), traft.RAFT()
         assert mapping == torch2jax.raft_mapping()
+    elif name == "raft_small":
+        mapping, module = weights.raft_small_mapping(), traft.RAFT(small=True)
+        assert mapping == torch2jax.raft_small_mapping()
+    elif name == "i3d":   # the JAX package converts with code, no table
+        mapping, module = weights.i3d_mapping(), tvfid.I3D()
     elif name == "lafc":
         mapping = weights.lafc_mapping(1)
         module = tlafc.Model(tvi.DEFAULT_LAFC_CONFIG)
