@@ -54,12 +54,25 @@ Phases (any failure exits nonzero; nothing is caught):
      must be the input) and --Nonlocal on 12 frames (pyramid path);
      offline flow extraction of 2 PNG videos x 8 frames (28 .flo files,
      K3 160 launches); the batch driver over 2 videos (every row ok);
-  8. FGT stage-2 GAN training at the full width of
+  8. stage-1 training at the full width of configs/lafc_train.yaml
+     (LAFC: batch 4 x 3 flows at 256x256, cnum 48, resBlocks 1, bf16,
+     the global-norm clip) and configs/lafc_single_train.yaml
+     (LAFC-single: batch 4 at 256x256, 4-D items) through
+     ``LAFCTrainer``, on a batch made on the card (smooth flows with
+     moving blocks, moving holes, diffused flows from ``ops/diffusion``,
+     Canny edges from ``core/edge``, a frame pair warped by the flow):
+     2 cold steps, then 10 timed steps (steps/s, peak memory, TFLOP of
+     convolutions a step, the card's name and power limit); every loss
+     term finite, the total falling; a resume check under deterministic
+     algorithms (bit-equal losses and weights); no launch of K1-K5. The
+     LAFC trainer's ``latest`` directory is then ``--lafc_ckpts`` of a
+     6-frame object-removal run (20 K1 launches), and the LAFC-single
+     trainer's checkpoint is stage 2's flow oracle:
+     FGT stage-2 GAN training at the full width of
      configs/fgt_train.yaml (240x432, 5 frames, batch 2, 512 hidden,
      8 blocks, mixed precision: bf16 parameter copies, as the JAX step)
-     through ``FGTTrainer``, with the frozen
-     LAFC-single oracle (random weights from seed 0) loaded from a
-     checkpoint: 2 cold steps, then 10 timed steps (steps/s, peak memory,
+     through ``FGTTrainer``, with that frozen LAFC-single oracle: 2 cold
+     steps, then 10 timed steps (steps/s, peak memory,
      K2/K4/K5 launches per step, which must be 4 each); losses finite,
      l1 falling, every TMHSA q/k/v embedding weight with a finite nonzero
      gradient; then a resume check (save the trio, 3 steps, reload,
@@ -74,8 +87,8 @@ Phases (any failure exits nonzero; nothing is caught):
      YAML that sets 3 GRU iterations);
   9. small inputs through the port on the card and on the CPU (plain
      versions), which must agree: object-removal runs on the K1 path, on
-     the pyramid path with --Nonlocal and with RAFT --small, and one SGD
-     GAN step (losses and parameter deltas);
+     the pyramid path with --Nonlocal and with RAFT --small, one SGD
+     GAN step and one SGD LAFC step (losses and parameter deltas);
  10. one JSON line with every kernel's numbers, then the result line.
 
 ``--profile`` adds a torch.profiler trace of two training steps after
@@ -907,7 +920,7 @@ def run_cli(label: str, counters, argv: list, want: dict):
     torch.cuda.reset_peak_memory_stats()
     reset(counters)
     t0 = time.perf_counter()
-    path = vi.main(argv + CLI_RANDOM)
+    path = vi.main(CLI_RANDOM + argv)      # argv's flags win
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read(counters)
@@ -1240,7 +1253,294 @@ def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
     torch.cuda.empty_cache()
 
 
-FGT_TRAIN_STEPS = 10
+TRAIN_STEPS = 10      # timed steps of each training run, after 2 cold ones
+
+
+def lafc_opt(root: str, single: bool, **kw) -> dict:
+    """configs/lafc_train.yaml (``single``: lafc_single_train.yaml) as a
+    dict (the GPU machine has no PyYAML): cnum 48, resBlocks 1, bf16
+    mixed precision, the global-norm clip (``gc``) for LAFC only, the
+    reference optimizer recipe; logging every step for the per-step
+    losses."""
+    opt = dict(
+        name="LAFC_single_train" if single else "LAFC_train",
+        model="lafc_single" if single else "lafc", outputdir=root, seed=10,
+        mixed_precision=1, num_flows=1 if single else 3, flow_interval=3,
+        sample="seq", use_edges=0, input_resolution=[256, 256], PASSMASK=1,
+        use_bias=1, cnum=48, in_channel=3, conv_type="vanilla",
+        use_residual=1, resBlocks=1, record_iter=1,
+        train={"lr": 1e-4, "lr_decay": 0.1, "MAX_ITERS": 0,
+               "UPDATE_INTERVAL": 120000, "log_freq": 1,
+               "save_checkpoint_freq": 10 ** 9})
+    if not single:
+        opt["gc"] = 1
+        opt["train"].update(BETA1=0.9, BETA2=0.999, WARMUP=None,
+                            ternary=0.01, edge_loss=1.0)
+    opt.update(kw)
+    return opt
+
+
+def lafc_train_batch(b=4, t=3, h=256, w=256, seed=0, device="cuda"):
+    """A stage-1 batch made on the card: per sample, a smooth flow field
+    (``smooth_coords``' recipe, 4 px) plus 3 blocks of 64x72 (at 256x256)
+    moving 8 px against it, 120 degrees apart on the colour wheel (motion
+    boundaries, so the Canny targets are not empty), and drifting 1 px a
+    frame; a 64x80 hole moving 6 px a frame;
+    ``diffused_flows`` from the port's ``ops/diffusion`` (the stand-in
+    for the dataset's host regionfill); ``edges`` from
+    ``core/edge.flow_edge`` of the pivot flow (host); a smoothed-noise
+    shift frame and the current frame warped from it by the pivot
+    flow."""
+    import torch
+    import torch.nn.functional as F
+    from fgt_tpu_torch.core.edge import flow_edge
+    from fgt_tpu_torch.core.warp import image_warp
+    from fgt_tpu_torch.ops.diffusion import diffuse_flows_device
+
+    gen = torch.Generator(device).manual_seed(seed)
+    rng = np.random.RandomState(seed)
+    ys, xs = torch.meshgrid(torch.arange(h, device=device),
+                            torch.arange(w, device=device), indexing="ij")
+    grid = torch.stack([xs, ys], -1).float()
+    bh, bw = h // 4, w * 9 // 32                 # block
+    hh, hw, step = h // 4, w * 5 // 16, max(1, w // 40)   # hole
+    flows = torch.empty(b, t, h, w, 2, device=device)
+    masks = torch.zeros(b, t, h, w, 1, device=device)
+    for i in range(b):
+        field = smooth_coords(1, h, w, gen, amp=4.0)[0] - grid
+        corners = list(zip(rng.randint(0, h - bh - t, 3),
+                           rng.randint(0, w - bw - t, 3)))
+        angles = rng.uniform(0, 2 * np.pi) + np.arange(3) * 2 * np.pi / 3
+        moves = (8 * np.stack([np.cos(angles), np.sin(angles)], -1)) \
+            .astype(np.float32)
+        y0, x0 = rng.randint(0, h - hh + 1), rng.randint(0, w - hw - step * t)
+        for j in range(t):
+            flows[i, j] = field
+            for (by, bx), mv in zip(corners, moves):
+                flows[i, j, by + j:by + j + bh, bx + j:bx + j + bw] = \
+                    torch.from_numpy(mv).to(device)
+            masks[i, j, y0:y0 + hh, x0 + step * j:x0 + step * j + hw] = 1.0
+    diffused = torch.stack([diffuse_flows_device(flows[i], masks[i])
+                            for i in range(b)])
+    pivot = flows[:, t // 2]
+    edges = np.stack([flow_edge(f)[1] for f in pivot.cpu().numpy()])
+    noise = torch.rand(b, 3, h + 8, w + 8, device=device, generator=gen)
+    shift = F.avg_pool2d(noise, 9, stride=1)[:, :, :h, :w] \
+        .permute(0, 2, 3, 1).contiguous()
+    shift = (shift - shift.amin()) / (shift.amax() - shift.amin())
+    return {"flows": flows, "diffused_flows": diffused, "masks": masks,
+            "edges": torch.from_numpy(edges[..., None]).float().to(device),
+            "current_frame": image_warp(shift, pivot),
+            "shift_frame": shift}
+
+
+def conv_tflop(model, *inputs) -> float:
+    """TFLOP of a training step's convolutions: 3 x the forward's
+    (forward, input and weight gradients), 2 per multiply-add, counted
+    from each convolution's output shape on these inputs."""
+    import torch
+
+    macs = [0]
+
+    def hook(m, _, out):
+        macs[0] += out.numel() * m.in_channels // m.groups * int(
+            np.prod(m.kernel_size))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))]
+    with torch.no_grad():
+        model(*inputs)
+    for h in hooks:
+        h.remove()
+    return 3 * 2 * macs[0] / 1e12
+
+
+LAFC_METRICS = ("loss", "l1_masked", "l1_valid", "sm1", "sm2", "ternary",
+                "edge")
+
+
+def train_lafc(counters, root: str, single: bool, smi: str) -> dict:
+    """One stage-1 model through ``LAFCTrainer`` at full width (see the
+    module doc). Returns its numbers and the paths of its last
+    checkpoint and ``latest`` directory."""
+    import torch
+    from fgt_tpu_torch.train.trainer import LAFCTrainer
+
+    label = "LAFC-single" if single else "LAFC"
+    opt = lafc_opt(root, single)
+    batch = lafc_train_batch()
+    if single:                 # 4-D single-flow items, lifted to T = 1
+        for k in ("flows", "diffused_flows", "masks"):
+            batch[k] = batch[k][:, 1]
+    log(f"{label} batch: " + ", ".join(
+        f"{k} {list(v.shape)}" for k, v in batch.items())
+        + f"; edge pixels {batch['edges'].mean().item():.4f}, hole share "
+        f"{batch['masks'].mean().item():.4f}")
+    if not batch["edges"].amax(dim=(1, 2, 3)).all():
+        raise AssertionError(f"{label}: a sample has no edge target")
+    reset(counters)
+    t0 = time.perf_counter()
+    trainer = LAFCTrainer(opt)
+    n_par = sum(p.numel() for p in trainer.model.parameters())
+    tflop = conv_tflop(trainer.model, batch["diffused_flows"],
+                       batch["masks"])
+    log(f"{label}: trainer built in {time.perf_counter() - t0:.2f} s; "
+        f"{n_par / 1e6:.3f} M parameters; {tflop:.4f} TFLOP of "
+        f"convolutions a step")
+
+    trainer.total_iterations = 2                 # cold steps
+    t0 = time.perf_counter()
+    trainer.train([batch])
+    torch.cuda.synchronize()
+    log(f"{label}: 2 cold steps (+ final checkpoint) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    trainer.total_iterations = 2 + TRAIN_STEPS
+    t0 = time.perf_counter()
+    trainer.train([batch])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = read_metrics(trainer, 2)
+    steps_per_s = (len(rows) - 1) / (rows[-1]["time"] - rows[0]["time"])
+    log(f"{label} train: {TRAIN_STEPS} steps, {steps_per_s:.4f} "
+        f"steps/s ({1e3 / steps_per_s:.3f} ms/step, "
+        f"{tflop * steps_per_s:.2f} TFLOP/s of convolutions; wall "
+        f"{wall:.2f} s with the final checkpoint); peak device memory "
+        f"{peak:.3f} GiB; {smi}")
+    for r in rows:
+        log(f"{label} step " + json.dumps(
+            {k: round(r[k], 6) for k in ("step", "lr") + LAFC_METRICS}))
+    if not all(np.isfinite(r[k]) for r in rows for k in LAFC_METRICS):
+        raise AssertionError(f"{label}: a loss term is not finite")
+    total = [r["loss"] for r in rows]
+    if not np.mean(total[-3:]) < total[0]:
+        raise AssertionError(f"{label}: the total loss did not fall: {total}")
+
+    # resume: save the pair, 3 steps, reload into a new trainer, 3 steps;
+    # deterministic algorithms (cuDNN's too), so the two runs are bit-equal
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        paths = trainer.save_checkpoint(0)
+        start = trainer.current_step
+        trainer.total_iterations = start + 3
+        trainer.train([batch])
+        want = [r["loss"] for r in read_metrics(trainer, start)]
+        resumed = LAFCTrainer(dict(opt, path=paths, resume=True))
+        if resumed.current_step != start or resumed.lafc_step.step != start:
+            raise AssertionError(f"{label}: resume did not restore the step")
+        resumed.total_iterations = start + 3
+        resumed.train([batch])
+        got = [r["loss"] for r in read_metrics(resumed, start)][-3:]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    log(f"{label} resume: loss {want} (continued) vs {got} (resumed)")
+    if got != want:
+        raise AssertionError(f"{label}: the resumed run differs")
+    for a, b in zip(trainer.model.state_dict().values(),
+                    resumed.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: resumed weights differ")
+    launches = read(counters)
+    log(f"{label}: kernel launches during the phase {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: stage-1 training launched a kernel")
+    final = resumed.save_checkpoint(1)
+    stats = dict(steps_per_s=steps_per_s, peak_gib=peak, tflop=tflop,
+                 gen_state=final["gen_state"],
+                 latest=os.path.join(resumed.run_dir, "latest"))
+    del trainer, resumed
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_lafc_train(kernels, inference_counters, root: str, smi: str):
+    """Stage 1 at full width, both models, then the chain: the LAFC
+    trainer's ``latest`` directory is ``--lafc_ckpts`` of a 6-frame
+    object-removal run. Returns the LAFC-single trainer's checkpoint,
+    stage 2's flow oracle."""
+    stats = {single: train_lafc(kernels, root, single, smi)
+             for single in (False, True)}
+    frames, masks = synthetic_video(n=6)
+    np.save(f"{root}/s1_frames.npy", frames)
+    np.save(f"{root}/s1_masks.npy", masks)
+    out, _, _ = run_cli("6 frames with the trained LAFC", inference_counters,
+                        ["--path", f"{root}/s1_frames.npy", "--path_mask",
+                         f"{root}/s1_masks.npy", "--outroot",
+                         f"{root}/s1_out", "--lafc_ckpts",
+                         stats[False]["latest"]],
+                        {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
+                         "flash_mhsa": None})
+    hole = masks > 0
+    if out.shape != frames.shape or not np.array_equal(out[~hole],
+                                                       frames[~hole]):
+        raise AssertionError("trained-LAFC run: output wrong outside the "
+                             "hole")
+    log(f"stage 1 -> inference: the LAFC trainer's latest directory as "
+        f"--lafc_ckpts: output ok")
+    return stats[True]["gen_state"], stats
+
+
+def phase_small_lafc_train():
+    """One SGD LAFC step (cnum 48, resBlocks 1, gc) on 1 x 3 flows at
+    64x64, on the card and on the CPU from the same weights and batch, in
+    f64. SGD with lr 1 makes each parameter delta the negative (clipped)
+    gradient. Loss terms must agree to 1e-9 relative, every tensor's
+    delta to 1e-7 of its own largest |delta| plus 1e-9 of the model's
+    largest. Not in f32: on the card's batch the f32 step on either
+    device left the f64 one by more than the GAN step's tolerance (1e-3
+    of a tensor's largest delta plus 1e-5 of the model's; PERF.md, PR 8),
+    so the f32 steps are printed against the f64 one, unchecked."""
+    import torch
+    from fgt_tpu_torch.models import lafc
+    from fgt_tpu_torch.train.lafc_step import LAFCTrainStep
+
+    batch = {k: v.cpu().double() for k, v in
+             lafc_train_batch(b=1, h=64, w=64, seed=2).items()}
+    cfg = lafc_opt(".", False)
+    results = {}
+    for dev, dt in (("cuda", torch.float64), ("cpu", torch.float64),
+                    ("cuda", torch.float32), ("cpu", torch.float32)):
+        model = lafc.init_lafc(lafc.Model(cfg),
+                               torch.Generator().manual_seed(5)).to(dev, dt)
+        before = {k: p.detach().cpu().double().clone()
+                  for k, p in model.named_parameters()}
+        step = LAFCTrainStep(model, torch.optim.SGD(model.parameters(),
+                                                    lr=1.0), grad_clip=10.0)
+        metrics = step({k: v.to(dev, dt) for k, v in batch.items()})
+        deltas = {k: p.detach().cpu().double() - before[k]
+                  for k, p in model.named_parameters()}
+        results[dev, dt] = ({k: float(v) for k, v in metrics.items()},
+                            deltas)
+
+    def compare(got, want, own, model):
+        """(max rel loss err, worst delta err / tol, at which tensor)"""
+        (m_got, d_got), (m_want, d_want) = got, want
+        loss_err = max(abs(m_got[k] - m_want[k]) / max(abs(m_want[k]), 1e-12)
+                       for k in m_want)
+        top = max(v.abs().max().item() for v in d_want.values())
+        worst = max(((d_got[k] - w).abs().max().item()
+                     / (own * w.abs().max().item() + model * top), k)
+                    for k, w in d_want.items())
+        return loss_err, worst[0], worst[1]
+
+    ref = results["cpu", torch.float64]
+    loss_err, worst, key = compare(results["cuda", torch.float64], ref,
+                                   1e-7, 1e-9)
+    log(f"small LAFC step (f64): card vs CPU loss terms max rel err "
+        f"{loss_err:.3g} (tol 1e-9); parameter deltas worst err/tol "
+        f"{worst:.3g} at {key}; loss "
+        f"{results['cuda', torch.float64][0]['loss']:.12f} vs "
+        f"{ref[0]['loss']:.12f}")
+    for dev in ("cuda", "cpu"):
+        e32 = compare(results[dev, torch.float32], ref, 1e-3, 1e-5)
+        log(f"small LAFC step (f32 on {dev}) vs the f64 CPU step: loss "
+            f"terms max rel err {e32[0]:.3g}; parameter deltas worst "
+            f"err / (1e-3 own max + 1e-5 model max) {e32[1]:.3g} at {e32[2]}")
+    if not (loss_err <= 1e-9 and worst <= 1.0):
+        raise AssertionError("card and CPU LAFC steps disagree")
 
 
 def train_opt(root: str, **kw) -> dict:
@@ -1252,7 +1552,7 @@ def train_opt(root: str, **kw) -> dict:
 
     opt = dict(DEFAULT_FGT_CONFIG, name="FGT_train", outputdir=root,
                seed=10, mixed_precision=1, dist_cnum=32, record_iter=1,
-               flow_direction="for", flow_checkPoint=f"{root}/oracle.pth",
+               flow_direction="for",
                flow_config={"cnum": 48, "in_channel": 3, "PASSMASK": 1,
                             "use_residual": 1, "resBlocks": 1,
                             "use_bias": 1, "conv_type": "vanilla"},
@@ -1279,31 +1579,22 @@ def synthetic_train_batch(b=2, t=5, h=240, w=432, seed=0):
             "forward_flo": flows}
 
 
-def save_oracle(path: str, config: dict, seed: int = 0):
-    import torch
-    from fgt_tpu_torch.models import lafc_single
-    from fgt_tpu_torch.utils import checkpoint
-
-    model = lafc_single.init_lafc_single(lafc_single.Model(config),
-                                         torch.Generator().manual_seed(seed))
-    checkpoint.save(model.state_dict(), path)
-
-
 def read_metrics(trainer, first_step: int) -> list:
     with open(trainer.metrics.path) as f:
         rows = [json.loads(line) for line in f]
     return [r for r in rows if r["step"] > first_step]
 
 
-def phase_train(counters, profile: bool):
-    """Full-width FGT GAN training on the card (see the module doc)."""
+def phase_train(counters, profile: bool, oracle: str):
+    """Full-width FGT GAN training on the card (see the module doc), with
+    ``oracle`` (the LAFC-single trainer's state dict) as the frozen flow
+    oracle."""
     import torch
     from fgt_tpu_torch.ops.attention import TMHSA
     from fgt_tpu_torch.train.trainer import FGTTrainer
 
     with tempfile.TemporaryDirectory() as root:
-        opt = train_opt(root)
-        save_oracle(opt["flow_checkPoint"], opt["flow_config"])
+        opt = train_opt(root, flow_checkPoint=oracle)
         batch = {k: torch.from_numpy(v).cuda()
                  for k, v in synthetic_train_batch().items()}
         t0 = time.perf_counter()
@@ -1323,7 +1614,7 @@ def phase_train(counters, profile: bool):
         for c in counters:
             c.launches = 0
         torch.cuda.reset_peak_memory_stats()
-        trainer.total_iterations = 2 + FGT_TRAIN_STEPS
+        trainer.total_iterations = 2 + TRAIN_STEPS
         t0 = time.perf_counter()
         trainer.train([batch])
         torch.cuda.synchronize()
@@ -1334,8 +1625,8 @@ def phase_train(counters, profile: bool):
         # steps/s between the first and last step's log stamps (each log
         # syncs the card); the wall also holds the final checkpoint save
         steps_per_s = (len(rows) - 1) / (rows[-1]["time"] - rows[0]["time"])
-        per_step = {k: v / FGT_TRAIN_STEPS for k, v in launches.items()}
-        log(f"train: {FGT_TRAIN_STEPS} steps, {steps_per_s:.4f} steps/s "
+        per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+        log(f"train: {TRAIN_STEPS} steps, {steps_per_s:.4f} steps/s "
             f"({1 / steps_per_s:.4f} s/step; wall {wall:.2f} s with the "
             f"final checkpoint); peak device memory {peak:.2f} GiB; "
             f"launches per step {per_step}")
@@ -1552,13 +1843,20 @@ def main() -> int:
         phase_alternate(counters, root)
         phase_evaluate(counters, root)
         phase_debug_flags(counters, root)
-    train_launches, _ = phase_train(
-        (flash_attention.flash_mhsa, flash_attention.flash_attention_dq,
-         flash_attention.flash_attention_dkv), "--profile" in sys.argv)
+    train_counters = (flash_attention.flash_mhsa,
+                      flash_attention.flash_attention_dq,
+                      flash_attention.flash_attention_dkv)
+    with tempfile.TemporaryDirectory() as stage_root:
+        oracle, _ = phase_lafc_train(
+            (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
+             *train_counters), counters, stage_root, smi)
+        train_launches, _ = phase_train(train_counters,
+                                        "--profile" in sys.argv, oracle)
     phase_small_reference()
     phase_small_reference("pyramid", use_nonlocal=True)
     phase_small_reference(small=True)
     phase_small_train()
+    phase_small_lafc_train()
 
     bf16 = str(torch.bfloat16)
     kernels = [

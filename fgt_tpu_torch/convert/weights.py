@@ -290,6 +290,18 @@ def lafc_single_mapping(res_blocks: int = 1) -> Mapping:
     return m
 
 
+def vgg19_mapping() -> Mapping:
+    """The JAX package's ``VGG19Features`` (``conv0 .. conv15``) <->
+    torchvision's ``features.<idx>`` keys (what
+    ``convert_vgg19_checkpoint`` reads, in conv order)."""
+    from fgt_tpu_torch.train.perceptual import conv_indices
+
+    m: Mapping = {}
+    for i, idx in enumerate(conv_indices()):
+        m.update(_conv(("params", f"conv{i}"), f"features.{idx}"))
+    return m
+
+
 def _transformer_t(flax_prefix, torch_prefix):
     m = {}
     att = flax_prefix + ("attention",)

@@ -180,8 +180,11 @@ def tile_routes(coords: torch.Tensor, sizes: list, radius: int) -> dict:
 def _route_buffer(device: torch.device) -> torch.Tensor:
     buf = _routes.get(device)
     if buf is None:
-        buf = _routes[device] = torch.zeros(2, dtype=torch.int64,
-                                            device=device)
+        # a normal tensor even when the first launch runs under
+        # inference mode, so reset_route_tiles() may zero it anywhere
+        with torch.inference_mode(False):
+            buf = _routes[device] = torch.zeros(2, dtype=torch.int64,
+                                                device=device)
     return buf
 
 

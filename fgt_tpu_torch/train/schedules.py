@@ -12,6 +12,8 @@ A schedule is a plain function of the step, counted from 0 as optax's
 count is. :func:`set_lr` writes ``schedule(step)`` into an optimizer
 before its update. Adam is ``torch.optim.Adam(betas, eps=1e-8)``, the
 update of optax ``scale_by_adam`` followed by ``scale_by_learning_rate``.
+:func:`clip_grad_global_norm` is optax's ``clip_by_global_norm`` (LAFC's
+``gc`` flag, max_norm 10 — LAFC/networks/network.py:131-134).
 """
 
 from __future__ import annotations
@@ -52,3 +54,18 @@ def make_adam(params: Iterable[torch.nn.Parameter], beta1: float = 0.9,
 def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
     for group in opt.param_groups:
         group["lr"] = lr
+
+
+def clip_grad_global_norm(params: Iterable[torch.nn.Parameter],
+                          max_norm: float) -> torch.Tensor:
+    """Clip the gradients in place by their global norm, as optax's
+    ``clip_by_global_norm`` does: left alone below ``max_norm``, scaled
+    by ``max_norm / norm`` at or above it, with no epsilon (unlike
+    ``torch.nn.utils.clip_grad_norm_``, which divides by norm + 1e-6).
+    Stays on the device (no host sync). Returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm

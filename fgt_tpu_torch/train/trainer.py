@@ -1,7 +1,8 @@
 """Training orchestration — counterpart of ``fgt_tpu/train/trainer.py``
-(``MetricsWriter``, the base loop, ``FGTTrainer``), which replaces the
-reference's Trainer/Network split (FGT/trainer.py:14-199,
-FGT/networks/network.py:21-491).
+(``MetricsWriter``, the base loop, ``LAFCTrainer`` for stage 1 and
+``FGTTrainer`` for stage 2), which replaces the reference's
+Trainer/Network split (FGT/trainer.py:14-199, FGT/networks/network.py:
+21-491, LAFC/networks/network.py).
 
 * The loop takes an iterable of batches (each pass over it is one
   epoch) in place of the JAX package's dataset and loader, which wait
@@ -10,9 +11,10 @@ FGT/networks/network.py:21-491).
   ``torch.utils.tensorboard`` imports; logged values are running means
   over the last ``record_iter`` logs, reset every ``record_iter`` logs
   (reference ``_printLog``, network.py:184-206).
-* Checkpoints: the gen / dist / opt trio with the reference's name
-  pattern and resume / finetune semantics (network.py:51-78, 225-256),
-  plus a ``latest`` model directory for the inference CLI.
+* Checkpoints: the gen / dist / opt trio (gen / opt for LAFC) with the
+  reference's name pattern and resume / finetune semantics
+  (network.py:51-78, 225-256), plus a ``latest`` model directory for
+  the inference CLI.
 
 One device, no mesh: data, tensor and sequence parallelism wait for the
 multi-GPU slice. In-training validation waits for validation data.
@@ -34,10 +36,11 @@ import torch
 from fgt_tpu_torch import DEFAULT_DEVICE
 from fgt_tpu_torch.convert.weights import load_state
 from fgt_tpu_torch.models import fgt as fgt_mod
-from fgt_tpu_torch.models import lafc_single
+from fgt_tpu_torch.models import lafc, lafc_single
 from fgt_tpu_torch.models.discriminator import (TemporalPatchGAN,
                                                 init_discriminator)
 from fgt_tpu_torch.train.fgt_step import FGTLossWeights, FGTTrainStep
+from fgt_tpu_torch.train.lafc_step import LAFCLossWeights, LAFCTrainStep
 from fgt_tpu_torch.train.schedules import make_adam, warmup_step_decay
 from fgt_tpu_torch.utils import checkpoint
 
@@ -174,6 +177,94 @@ class Trainer:
     def _ckpt_path(self, tag: str, epoch: int) -> str:
         return os.path.join(self.run_dir, "checkpoints",
                             f"{tag}_{epoch}_{self.current_step}.pth")
+
+
+class LAFCTrainer(Trainer):
+    """Stage-1 flow completion: the multi-flow P3D LAFC, or with
+    ``single`` (or ``opt['model'] == 'lafc_single'``) the 2D LAFC-single,
+    which trains on the pivot flow only and serves stage 2 as its frozen
+    flow oracle.
+
+    ``opt`` holds the keys of ``configs/lafc_train.yaml`` or
+    ``configs/lafc_single_train.yaml`` as a dict: the model config at
+    top level, ``mixed_precision``, ``gc`` (global-norm clip at 10),
+    ``train`` (lr, betas, schedule, loss weights L1M / sm / sm2 /
+    ternary / edge_loss, MAX_ITERS, log and save frequencies) and
+    ``path`` (gen_state / opt_state) to resume. Batches hold flows and
+    diffused_flows [B, T, H, W, 2], masks [B, T, H, W, 1], edges
+    [B, H, W, 1], current_frame and shift_frame [B, H, W, 3] in [0, 1],
+    as numpy arrays or tensors; LAFC-single items may be 4-D
+    (no T axis)."""
+
+    model_kind = "lafc"
+
+    def __init__(self, opt: dict, device: str = DEFAULT_DEVICE,
+                 single: bool = False):
+        self.single = single or str(opt.get("model", "")) == "lafc_single"
+        super().__init__(opt, device)
+        tr = opt["train"]
+        if self.single:
+            self.model = lafc_single.init_lafc_single(
+                lafc_single.Model(opt), self.init_gen)
+        else:
+            self.model = lafc.init_lafc(lafc.Model(opt), self.init_gen)
+        self.model.to(self.device)
+        self.sched = warmup_step_decay(
+            float(tr["lr"]), decay_interval=int(tr["UPDATE_INTERVAL"]),
+            gamma=float(tr.get("lr_decay", 0.1)), warmup=tr.get("WARMUP"),
+            world_size=self.world_size)
+        self.optimizer = make_adam(self.model.parameters(),
+                                   float(tr.get("BETA1", 0.9)),
+                                   float(tr.get("BETA2", 0.999)))
+        weights = LAFCLossWeights(
+            L1M=float(tr.get("L1M", 1.0)), sm=float(tr.get("sm", 1.0)),
+            sm2=float(tr.get("sm2", 1.0)),
+            ternary=float(tr.get("ternary", 0.01)),
+            edge=float(tr.get("edge_loss", 1.0)))
+        self.lafc_step = LAFCTrainStep(
+            self.model, self.optimizer, self.sched, weights,
+            grad_clip=10.0 if opt.get("gc") else None,
+            mixed_precision=bool(int(opt.get("mixed_precision", 0))),
+            single=self.single)
+        if opt.get("path", {}).get("gen_state"):
+            self._resume(opt["path"])
+
+    def _train_step(self, batch: dict) -> dict:
+        b = {k: torch.as_tensor(v).to(self.device, torch.float32)
+             for k, v in batch.items() if k != "flow_gray"}
+        if self.single:     # lift 4-D single-flow items to a T = 1 window
+            for k in ("flows", "diffused_flows", "masks"):
+                if b[k].dim() == 4:
+                    b[k] = b[k][:, None]
+        return self.lafc_step(b)
+
+    def save_checkpoint(self, epoch: int) -> dict:
+        """Write the gen / opt pair; returns its paths under the
+        ``opt['path']`` keys that :meth:`_resume` reads."""
+        paths = {"gen_state": self._ckpt_path("gen", epoch),
+                 "opt_state": self._ckpt_path("opt", epoch)}
+        checkpoint.save(self.model.state_dict(), paths["gen_state"])
+        checkpoint.save({"epoch": epoch, "iteration": self.current_step,
+                         "optimizer": self.optimizer.state_dict()},
+                        paths["opt_state"])
+        cfg = {k: v for k, v in self.opt.items()
+               if isinstance(v, (int, float, str, bool, list, tuple))}
+        cfg["model"] = "lafc_single" if self.single else "lafc"
+        checkpoint.save_model_dir(self.model.state_dict(), cfg,
+                                  os.path.join(self.run_dir, "latest"))
+        self.logger.info("checkpoint saved at step %d", self.current_step)
+        return paths
+
+    def _resume(self, paths: dict) -> None:
+        load_state(self.model, checkpoint.load_state_dict(paths["gen_state"]))
+        if paths.get("opt_state") and not self.opt.get("finetune"):
+            st = checkpoint.load(paths["opt_state"])
+            self.start_epoch = int(st["epoch"])
+            self.current_step = int(st["iteration"])
+            self.optimizer.load_state_dict(st["optimizer"])
+        self.lafc_step.step = self.current_step
+        self.logger.info("resumed from %s (finetune=%s)", paths["gen_state"],
+                         self.opt.get("finetune"))
 
 
 class FGTTrainer(Trainer):

@@ -2,12 +2,12 @@
 
 * no module of ``fgt_tpu_torch`` (nor ``chip_smoke.py``) imports JAX,
   flax, the JAX package, or cv2/imageio/yaml, which the GPU machine lacks;
-* entry points default to the ``cuda`` device (the evaluation driver
-  and the VFID scorer too);
+* entry points default to the ``cuda`` device (the evaluation driver,
+  the VFID scorer and both trainers too);
 * the weight bridge round-trips every leaf of the RAFT (big and small),
-  LAFC, LAFC-single, FGT, T-PatchGAN and I3D tables with no key missing
-  on either side, and its tables equal the JAX package's converter
-  tables;
+  LAFC, LAFC-single, FGT, T-PatchGAN, I3D and VGG19 tables with no key
+  missing on either side, and its tables equal the JAX package's
+  converter tables;
 * CPU tensors take the kernels' plain versions (K1-K5) without counting a
   launch;
 * flash attention stays differentiable when its forward is a kernel
@@ -46,7 +46,8 @@ from fgt_tpu_torch.models import raft as traft
 from fgt_tpu_torch.ops import _build, corr_fused, corr_lookup, flash_attention
 from fgt_tpu_torch.pipeline import batch, evaluate, flow_extract, image_io
 from fgt_tpu_torch.pipeline import video_inpainting as tvi
-from fgt_tpu_torch.train.trainer import FGTTrainer
+from fgt_tpu_torch.train import perceptual as tperc
+from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
 
 torch.set_num_threads(1)
 
@@ -79,7 +80,9 @@ def test_port_imports_no_jax_no_reference_package_no_cv2():
     assert len(sources) > 15
     rel = {os.path.relpath(p, ROOT) for p in sources}
     for module in ("core/flow_viz.py", "core/metrics.py", "core/vfid.py",
-                   "pipeline/evaluate.py", "utils/profiling.py"):
+                   "pipeline/evaluate.py", "utils/profiling.py",
+                   "core/edge.py", "core/warp.py", "train/lafc_step.py",
+                   "train/perceptual.py", "train/precision.py"):
         assert f"fgt_tpu_torch/{module}" in rel, module
     bad = {(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN}
@@ -91,8 +94,9 @@ def test_entry_points_default_to_cuda():
     sig = inspect.signature(tvi.Models.__init__)
     assert sig.parameters["device"].default == "cuda"
     assert tvi.build_parser().parse_args([]).device == "cuda"
-    sig = inspect.signature(FGTTrainer.__init__)
-    assert sig.parameters["device"].default == "cuda"
+    for trainer in (FGTTrainer, LAFCTrainer):
+        sig = inspect.signature(trainer.__init__)
+        assert sig.parameters["device"].default == "cuda"
     assert flow_extract.build_parser().parse_args(
         ["--datapath", "d", "--outroot", "o"]).device == "cuda"
     assert inspect.signature(flow_extract.load_raft).parameters[
@@ -161,7 +165,7 @@ def _discriminator_roundtrip(module):
 
 @pytest.mark.parametrize("name", ["raft", "raft_small", "lafc",
                                   "lafc_single", "fgt", "discriminator",
-                                  "i3d"])
+                                  "i3d", "vgg19"])
 def test_weight_bridge_roundtrips_every_leaf(name):
     if name == "raft":
         mapping, module = weights.raft_mapping(), traft.RAFT()
@@ -171,6 +175,8 @@ def test_weight_bridge_roundtrips_every_leaf(name):
         assert mapping == torch2jax.raft_small_mapping()
     elif name == "i3d":   # the JAX package converts with code, no table
         mapping, module = weights.i3d_mapping(), tvfid.I3D()
+    elif name == "vgg19":  # likewise (convert_vgg19_checkpoint)
+        mapping, module = weights.vgg19_mapping(), tperc.VGG19Features()
     elif name == "lafc":
         mapping = weights.lafc_mapping(1)
         module = tlafc.Model(tvi.DEFAULT_LAFC_CONFIG)
@@ -214,6 +220,20 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     for fn in (flash_attention.flash_mhsa, flash_attention.flash_attention_dq,
                flash_attention.flash_attention_dkv):
         assert fn.launches == 0, fn.__name__
+
+
+def test_route_counter_resets_after_inference_mode():
+    """K1's route counter made by a first launch under inference mode
+    (as the pipeline runs it) can still be reset outside it."""
+    dev = torch.device("cpu")
+    corr_fused._routes.pop(dev, None)
+    try:
+        with torch.inference_mode():
+            corr_fused._route_buffer(dev).add_(3)
+        corr_fused.reset_route_tiles()
+        assert corr_fused._routes[dev].tolist() == [0, 0]
+    finally:
+        corr_fused._routes.pop(dev, None)
 
 
 def test_flash_attend_keeps_autograd_history(monkeypatch):
