@@ -166,16 +166,21 @@ def resize_linear(frames: np.ndarray, h: int, w: int) -> np.ndarray:
     return out
 
 
+def _nearest_index(src: int, dst: int) -> np.ndarray:
+    """cv2's INTER_NEAREST source index along one axis:
+    floor(x · (1 / (dst / src))), clamped to src - 1. The reciprocal of
+    the reciprocal matters: floor(x · src / dst) picks another pixel
+    wherever x · src / dst is whole and cv2's product rounds below it."""
+    return np.minimum(np.floor(np.arange(dst) * (1.0 / (dst / src)))
+                      .astype(np.int64), src - 1)
+
+
 def resize_nearest(masks: np.ndarray, h: int, w: int) -> np.ndarray:
-    """[N, H, W] -> [N, h, w] with cv2 ``INTER_NEAREST`` (source index
-    floor(dst · src / dst_size))."""
+    """[N, H, W(, C)] -> [N, h, w(, C)] with cv2 ``INTER_NEAREST``."""
     if masks.shape[1:3] == (h, w):
         return masks
-    ys = np.minimum((np.arange(h) * masks.shape[1] / h).astype(int),
-                    masks.shape[1] - 1)
-    xs = np.minimum((np.arange(w) * masks.shape[2] / w).astype(int),
-                    masks.shape[2] - 1)
-    return masks[:, ys][:, :, xs]
+    return masks[:, _nearest_index(masks.shape[1], h)][
+        :, :, _nearest_index(masks.shape[2], w)]
 
 
 def _linear_taps_u8(src: int, dst: int):
