@@ -7,10 +7,13 @@ masks as video tools write them. Anything else raises (JPEG included:
 the GPU machine has no decoder for it).
 
 :func:`resize_linear` and :func:`resize_nearest` reproduce cv2's
-``INTER_LINEAR`` (on float32 frames) and ``INTER_NEAREST`` resizes bit
-for bit, so the port's frames match the JAX package's loaders;
-:func:`resize_linear_u8` reproduces ``INTER_LINEAR`` on uint8 frames,
-which cv2 computes in fixed point (the evaluation tool's ground truth).
+``INTER_LINEAR`` (on float32 frames and flows) and ``INTER_NEAREST``
+resizes, so the port's frames, flows and masks match the JAX package's
+loaders (bit for bit at the sizes ``tests/test_torch_port_data.py``
+lists; the few large upscales of 3- and 4-channel images it names sit
+one ulp away); :func:`resize_linear_u8` reproduces ``INTER_LINEAR`` on
+uint8 frames, which cv2 computes in fixed point (the evaluation tool's
+ground truth and the training datasets' frames).
 """
 
 from __future__ import annotations
@@ -129,9 +132,9 @@ def write_frames(outdir: str, frames: np.ndarray) -> None:
 
 
 def _linear_taps(src: int, dst: int):
-    """cv2's INTER_LINEAR source indices and fractions along one axis:
-    the position is taken in f64, its fraction stored in f32, both taps
-    clamped to the edge."""
+    """INTER_LINEAR source indices and fractions along one axis as cv2's
+    1-, 3- and 4-channel float path takes them: the position in f64, its
+    fraction stored in f32, both taps clamped to the edge."""
     pos = (np.arange(dst) + 0.5) * (src / dst) - 0.5
     i0 = np.floor(pos).astype(np.int64)
     frac = (pos - i0).astype(np.float32)
@@ -149,12 +152,51 @@ def lerp_f32(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
     return ((b - a).astype(np.float64) * t + a).astype(np.float32)
 
 
+def _generic_taps(src: int, dst: int):
+    """cv2's generic INTER_LINEAR taps along one axis: the position
+    (x + 0.5) · (1 / (dst / src)) - 0.5 rounded to f32, its fraction
+    taken in f32, the weights (1 - f, f). Returns the two source
+    indices, clipped to the image, the two weights, and where the
+    position lies outside [0, src - 1)."""
+    pos = ((np.arange(dst) + 0.5) * (1.0 / (dst / src)) - 0.5).astype(
+        np.float32)
+    i0 = np.floor(pos).astype(np.int64)
+    frac = pos - i0.astype(np.float32)
+    outside = (i0 < 0) | (i0 >= src - 1)
+    return (np.clip(i0, 0, src - 1), np.clip(i0 + 1, 0, src - 1),
+            np.float32(1) - frac, frac, outside)
+
+
+def _resize_generic(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """cv2.resize's own INTER_LINEAR on one float32 [H, W, C] image, as
+    it runs for 2 channels (flows): columns then rows, each a0·S0 + a1·S1
+    in f32 with no fused multiply-add. Along x a position outside the
+    image takes the edge pixel; along y only the row indices are clipped,
+    the weights stay. An exact 2x downscale is cv2's area-fast path:
+    ((S00 + S01) + S10) + S11, times 0.25."""
+    H, W = img.shape[:2]
+    if (H, W) == (2 * h, 2 * w):
+        return (((img[0::2, 0::2] + img[0::2, 1::2]) + img[1::2, 0::2])
+                + img[1::2, 1::2]) * np.float32(0.25)
+    x0, x1, a0, a1, x_out = _generic_taps(W, w)
+    y0, y1, b0, b1, _ = _generic_taps(H, h)
+    rows = img[:, x0] * a0[:, None] + img[:, x1] * a1[:, None]
+    rows[:, x_out] = img[:, x0[x_out]]
+    return rows[y0] * b0[:, None, None] + rows[y1] * b1[:, None, None]
+
+
 def resize_linear(frames: np.ndarray, h: int, w: int) -> np.ndarray:
-    """[N, H, W, C] frames -> [N, h, w, C] float32 with cv2.resize
-    ``INTER_LINEAR`` on float32 input: rows first, then columns."""
+    """[N, H, W(, C)] frames -> [N, h, w(, C)] float32 with cv2.resize
+    ``INTER_LINEAR`` on float32 input. cv2 takes two routes: 1, 3 and 4
+    channels go through its IPP layer (rows first, then columns, each a
+    lerp with a fused multiply-add); other channel counts, flows among
+    them, through :func:`_resize_generic`."""
     frames = np.asarray(frames, np.float32)
     if frames.shape[1:3] == (h, w):
         return frames.copy()
+    channels = frames.shape[3] if frames.ndim == 4 else 1
+    if channels not in (1, 3, 4):
+        return np.stack([_resize_generic(fr, h, w) for fr in frames])
     x0, x1, fx = _linear_taps(frames.shape[2], w)
     y0, y1, fy = _linear_taps(frames.shape[1], h)
     out = np.empty((frames.shape[0], h, w) + frames.shape[3:], np.float32)

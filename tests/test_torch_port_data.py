@@ -3,7 +3,14 @@
 * ``image_io.resize_nearest`` bit-equal to ``cv2.resize(INTER_NEAREST)``
   over a grid of sizes, up and down; the inference loader's masks equal
   the JAX CLI's ``load_masks`` on an 800-px-wide mask (before the repair
-  the port took floor(x·src/dst) and picked other columns).
+  the port took floor(x·src/dst) and picked other columns);
+* ``image_io.resize_linear`` bit-equal to ``cv2.resize`` on float32 with
+  1-4 channels at the slice's size pairs: frame and flow sources (the
+  test tree's 48x64, 240x432, 480p) to 256x256, 240x432 and 480x864,
+  and 240x432 <-> 480x864. cv2 resizes 1, 3 and 4 channels through IPP
+  and 2 (flows) through its own path; the pairs where IPP's 3- and
+  4-channel kernel leaves the port's lerp are named, with the deviation
+  pinned at one ulp.
 """
 
 import cv2
@@ -13,6 +20,8 @@ import pytest
 from fgt_tpu.pipeline import video_inpainting as jvi
 from fgt_tpu_torch.pipeline import image_io
 from fgt_tpu_torch.pipeline import video_inpainting as tvi
+
+ULP_255 = float(np.spacing(np.float32(255)))
 
 
 # ------------------------------------------------------------ resizes
@@ -46,3 +55,43 @@ def test_load_masks_matches_jax_cli_on_a_wide_mask(tmp_path):
     got = tvi.load_masks(str(tmp_path), 240, 432) > 0
     assert got.shape == want.shape
     assert np.array_equal(got, want)
+
+
+SOURCES = [(48, 64), (240, 432), (480, 854), (480, 864)]
+TARGETS = [(256, 256), (240, 432), (480, 864)]
+PAIRS = sorted({(s, t) for s in SOURCES for t in TARGETS if s != t}
+               | {((480, 864), (240, 432)), ((240, 432), (480, 864))})
+# cv2's IPP kernel for 3 and 4 channels leaves the lerp here, by one ulp
+IPP_UPSCALE = {((48, 64), (480, 864))}
+
+
+def _float_image(shape, channels, seed):
+    img = np.random.RandomState(seed).rand(*shape, channels) * 255
+    return img[..., 0].astype(np.float32) if channels == 1 \
+        else img.astype(np.float32)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+@pytest.mark.parametrize("src,dst", PAIRS)
+def test_resize_linear_bit_equal_to_cv2(src, dst, channels):
+    img = _float_image(src, channels, seed=sum(src) + channels)
+    want = cv2.resize(img, dst[::-1])
+    got = image_io.resize_linear(img[None], *dst)[0]
+    assert got.shape == want.shape and got.dtype == np.float32
+    if channels in (3, 4) and (src, dst) in IPP_UPSCALE:
+        err = np.abs(got - want)
+        assert 0 < err.max() <= ULP_255, err.max()
+        assert (err > 0).mean() < 0.01
+    else:
+        assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("src,dst", [((240, 432), (61, 97)),
+                                     ((480, 864), (240, 432)),
+                                     ((33, 17), (480, 864))])
+def test_resize_linear_flows_take_cv2s_own_path(src, dst):
+    """Two channels: cv2's generic path (no IPP), including an exact 2x
+    downscale (its area-fast path) and a 4x one."""
+    flow = np.random.RandomState(1).randn(*src, 2).astype(np.float32) * 20
+    want = cv2.resize(flow, dst[::-1])
+    assert np.array_equal(image_io.resize_linear(flow[None], *dst)[0], want)
