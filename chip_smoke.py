@@ -85,6 +85,23 @@ Phases (any failure exits nonzero; nothing is caught):
      I3D features of a clip on the card against the CPU's) and one
      6-frame run with every debug flag (--vis_*, --profile, an --opt
      YAML that sets 3 GRU iterations);
+     then training from disk through the training CLI
+     (``fgt_tpu_torch.train.train.main``): a YouTube-VOS-style tree (4
+     videos x 16 PNG frames at 480x864, .flo flows at 240x432: smooth
+     fields with blocks moving against them) and a DAVIS-style
+     validation tree (2 videos x 24 frames, flows and masks, at
+     240x432), both from a seed; copies of configs/lafc_single_train,
+     lafc_train and fgt_train.yaml with only the data paths, MAX_ITERS,
+     val_freq, log_freq, a valInfo block and FGT's flow_checkPoint (the
+     LAFC-single run's latest/model.pth) replaced, read and written by
+     the port's YAML reader; each run 2 cold + 10 timed steps with
+     --use_valid and the committed n_workers (4): steps/s through the
+     loader, the loader's own items/s with 4 workers and with 0, the
+     validation scores, peak memory; every loss term finite, val/psnr,
+     ssim, l1, l2 finite in metrics.jsonl, no kernel launch in either
+     stage-1 run, 4 launches a step of K2, K4 and K5 in FGT training and
+     K2's launches inside validate_fgt equal to 2 videos x its temporal
+     blocks; the on-card-batch rates are printed beside them;
   9. small inputs through the port on the card and on the CPU (plain
      versions), which must agree: object-removal runs on the K1 path, on
      the pyramid path with --Nonlocal and with RAFT --small, one SGD
@@ -1256,26 +1273,29 @@ def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
 TRAIN_STEPS = 10      # timed steps of each training run, after 2 cold ones
 
 
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+
+def committed_config(name: str) -> dict:
+    """``configs/<name>.yaml`` through the port's own YAML reader (the GPU
+    machine has no PyYAML), with the training CLI's derived tuples."""
+    from fgt_tpu_torch.utils.config import derive_model_tuples, read_yaml
+
+    return derive_model_tuples(read_yaml(os.path.join(CONFIGS,
+                                                      f"{name}.yaml")))
+
+
 def lafc_opt(root: str, single: bool, **kw) -> dict:
-    """configs/lafc_train.yaml (``single``: lafc_single_train.yaml) as a
-    dict (the GPU machine has no PyYAML): cnum 48, resBlocks 1, bf16
-    mixed precision, the global-norm clip (``gc``) for LAFC only, the
-    reference optimizer recipe; logging every step for the per-step
-    losses."""
-    opt = dict(
-        name="LAFC_single_train" if single else "LAFC_train",
-        model="lafc_single" if single else "lafc", outputdir=root, seed=10,
-        mixed_precision=1, num_flows=1 if single else 3, flow_interval=3,
-        sample="seq", use_edges=0, input_resolution=[256, 256], PASSMASK=1,
-        use_bias=1, cnum=48, in_channel=3, conv_type="vanilla",
-        use_residual=1, resBlocks=1, record_iter=1,
-        train={"lr": 1e-4, "lr_decay": 0.1, "MAX_ITERS": 0,
-               "UPDATE_INTERVAL": 120000, "log_freq": 1,
-               "save_checkpoint_freq": 10 ** 9})
-    if not single:
-        opt["gc"] = 1
-        opt["train"].update(BETA1=0.9, BETA2=0.999, WARMUP=None,
-                            ternary=0.01, edge_loss=1.0)
+    """configs/lafc_train.yaml (``single``: lafc_single_train.yaml) as
+    committed (cnum 48, resBlocks 1, bf16 mixed precision, the
+    global-norm clip ``gc`` for LAFC only, the reference optimizer
+    recipe), without its dataset (the phase feeds its batch), writing
+    under ``root``, logging every step for the per-step losses."""
+    opt = committed_config("lafc_single_train" if single else "lafc_train")
+    del opt["datasets"]
+    opt.update(outputdir=root, record_iter=1)
+    opt["train"].update(MAX_ITERS=0, log_freq=1,
+                        save_checkpoint_freq=10 ** 9)
     opt.update(kw)
     return opt
 
@@ -1544,23 +1564,16 @@ def phase_small_lafc_train():
 
 
 def train_opt(root: str, **kw) -> dict:
-    """configs/fgt_train.yaml as a dict (the GPU machine has no PyYAML):
-    the full-width generator, T-PatchGAN with dist_cnum 32, bf16 mixed
-    precision, the oracle's LAFC-single config, the reference optimizer
-    recipe; logging every step for the per-step losses."""
-    from fgt_tpu_torch.pipeline.video_inpainting import DEFAULT_FGT_CONFIG
-
-    opt = dict(DEFAULT_FGT_CONFIG, name="FGT_train", outputdir=root,
-               seed=10, mixed_precision=1, dist_cnum=32, record_iter=1,
-               flow_direction="for",
-               flow_config={"cnum": 48, "in_channel": 3, "PASSMASK": 1,
-                            "use_residual": 1, "resBlocks": 1,
-                            "use_bias": 1, "conv_type": "vanilla"},
-               train={"lr": 1e-4, "lr_decay": 0.1, "BETA1": 0.9,
-                      "BETA2": 0.999, "MAX_ITERS": 0,
-                      "UPDATE_INTERVAL": 300000, "WARMUP": None,
-                      "log_freq": 1, "save_checkpoint_freq": 10 ** 9,
-                      "L1M": 1, "L1V": 1, "adv": 0.01})
+    """configs/fgt_train.yaml as committed (the full-width generator,
+    T-PatchGAN with dist_cnum 32, bf16 mixed precision, the oracle's
+    LAFC-single config, the reference optimizer recipe), without its
+    dataset (the phase feeds its batch), writing under ``root``, logging
+    every step for the per-step losses."""
+    opt = committed_config("fgt_train")
+    del opt["datasets"]
+    opt.update(outputdir=root, record_iter=1)
+    opt["train"].update(MAX_ITERS=0, log_freq=1,
+                        save_checkpoint_freq=10 ** 9)
     opt.update(kw)
     return opt
 
@@ -1681,6 +1694,285 @@ def phase_train(counters, profile: bool, oracle: str):
         del resumed
         torch.cuda.empty_cache()
     return launches, dict(steps_per_s=steps_per_s, peak_gib=peak)
+
+
+# ---------------- training from disk through the CLI ----------------
+
+CLI_STEPS = 12          # 2 cold + 10 timed steps of each CLI run
+LOADER_ITEMS = 16       # items the loader's own rate is taken over
+
+
+def smooth_field(h: int, w: int, rng, amp: float) -> np.ndarray:
+    """A smooth [h, w, 2] float32 field: two random sinusoids a channel."""
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    out = np.zeros((h, w, 2))
+    for c in range(2):
+        for _ in range(2):
+            fy, fx, ph = rng.uniform(0.5, 2.0), rng.uniform(0.5, 2.0), \
+                rng.uniform(0, 2 * np.pi)
+            out[..., c] += amp / 2 * np.sin(2 * np.pi * (fy * yy / h
+                                                         + fx * xx / w) + ph)
+    return out.astype(np.float32)
+
+
+def write_video_tree(root: str, videos: int, frames: int, frame_hw,
+                     flow_hw, seed: int, masks: bool = False) -> dict:
+    """A YouTube-VOS / DAVIS-style tree from a seed: ``frames/<v>/*.png``
+    (smoothed noise panning 2 px a frame), ``flows/<v>/{forward,
+    backward}_flo/*.flo`` (a smooth 4 px field plus 3 blocks moving 8 px
+    against it, 120 degrees apart on the colour wheel, drifting 1 px a
+    frame, so the Canny targets are not empty) and, with ``masks``,
+    ``masks/<v>/*.png`` (a moving box). Returns the three roots."""
+    from fgt_tpu_torch.core.flow_io import write_flow
+    from fgt_tpu_torch.pipeline.image_io import resize_linear_u8, write_png
+
+    rng = np.random.RandomState(seed)
+    (fh, fw), (gh, gw) = frame_hw, flow_hw
+    roots = {k: os.path.join(root, k) for k in ("frames", "flows", "masks")}
+    bh, bw = gh // 4, gw * 9 // 32
+    for v in range(videos):
+        name = f"video_{v:02d}"
+        for k in ("frames", "masks") if masks else ("frames",):
+            os.makedirs(os.path.join(roots[k], name))
+        low = (rng.rand(fh // 8 + 8, fw // 8 + 8 + frames, 3) * 255).astype(
+            np.uint8)
+        big = resize_linear_u8(low, (fh // 8 + 8) * 8,
+                               (fw // 8 + 8 + frames) * 8)
+        for i in range(frames):
+            write_png(os.path.join(roots["frames"], name, f"{i:05d}.png"),
+                      big[32:32 + fh, 32 + 2 * i:32 + 2 * i + fw])
+            if masks:
+                m = np.zeros((fh, fw), np.uint8)
+                m[fh // 3:fh // 3 + fh // 4,
+                  fw // 3 + 2 * i:fw // 3 + 2 * i + fw // 5] = 255
+                write_png(os.path.join(roots["masks"], name,
+                                       f"{i:05d}.png"), m)
+        for d in ("forward_flo", "backward_flo"):
+            out = os.path.join(roots["flows"], name, d)
+            os.makedirs(out)
+            field = smooth_field(gh, gw, rng, 4.0)
+            corners = list(zip(rng.randint(0, gh - bh - frames, 3),
+                               rng.randint(0, gw - bw - frames, 3)))
+            angles = rng.uniform(0, 2 * np.pi) + np.arange(3) * 2 * np.pi / 3
+            moves = 8 * np.stack([np.cos(angles), np.sin(angles)], -1)
+            for i in range(frames - 1):
+                flow = field.copy()
+                for (by, bx), mv in zip(corners, moves):
+                    flow[by + i:by + i + bh, bx + i:bx + i + bw] = mv
+                write_flow(flow, os.path.join(out, f"{i:05d}.flo"))
+    return roots
+
+
+def cli_config(path: str, name: str, train: dict, val: dict,
+               **replace) -> str:
+    """A copy of ``configs/<name>.yaml`` at ``path`` with only the data
+    paths, ``MAX_ITERS``, ``val_freq``, ``log_freq`` (every step, for the
+    per-step losses and time stamps) and the ``valInfo`` block replaced,
+    plus ``replace`` (``flow_checkPoint``). Every width, the batch size
+    and ``n_workers`` are the committed file's."""
+    from fgt_tpu_torch.utils.config import dump_yaml, read_yaml
+
+    cfg = read_yaml(os.path.join(CONFIGS, f"{name}.yaml"))
+    info = cfg["datasets"]["dataInfo"]
+    info.update(frame_path=train["frames"], flow_path=train["flows"])
+    cfg["datasets"]["valInfo"] = dict(cfg["datasets"].get("valInfo", {}),
+                                      **val)
+    cfg["train"].update(MAX_ITERS=CLI_STEPS, log_freq=1,
+                        val_freq=replace.pop("val_freq"))
+    cfg.update(replace)
+    with open(path, "w") as f:
+        f.write(dump_yaml(cfg))
+    return path
+
+
+def loader_rate(dataset, batch: int, workers: int, items: int) -> float:
+    """Items/s of the port's loader over ``dataset`` alone (no training
+    step): ``items`` items in batches of ``batch``; with workers, timed
+    after a first batch that starts the pool."""
+    from fgt_tpu_torch.data import DataLoader
+
+    order = [i % len(dataset) for i in range(items + batch)]
+    with DataLoader(dataset, batch, sampler=order, num_workers=workers,
+                    drop_last=True) as loader:
+        it = iter(loader)
+        next(it)
+        t0 = time.perf_counter()
+        n = sum(len(next(iter(b.values()))) for b in it)
+        return n / (time.perf_counter() - t0)
+
+
+def step_rate(rows: list) -> float:
+    """Steps/s over steps 3..12 from the per-step log stamps, leaving out
+    an interval that holds a validation."""
+    steps = [r for r in rows if not any(k.startswith("val/") for k in r)]
+    vals = [r["time"] for r in rows if any(k.startswith("val/") for k in r)]
+    spans = [(a["time"], b["time"]) for a, b in zip(steps[1:], steps[2:])]
+    kept = [b - a for a, b in spans if not any(a <= v <= b for v in vals)]
+    return len(kept) / sum(kept)
+
+
+def phase_cli_train(kernels, root: str, smi: str) -> dict:
+    """The three training configurations from disk through the training
+    CLI (see the module doc). ``kernels``: the K1-K5 counters."""
+    import torch
+    from fgt_tpu_torch.ops import flash_attention
+    from fgt_tpu_torch.train import train as train_cli
+    from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
+
+    t_phase = time.perf_counter()
+    train = write_video_tree(os.path.join(root, "train"), 4, 16, (480, 864),
+                             (240, 432), seed=20)
+    val = write_video_tree(os.path.join(root, "val"), 2, 24, (240, 432),
+                           (240, 432), seed=21, masks=True)
+    log(f"cli train: trees written in {time.perf_counter() - t_phase:.2f} s "
+        f"(train 4 videos x 16 PNG frames 480x864 + .flo 240x432; val 2 x "
+        f"24 at 240x432 with masks)")
+    val_info = {"frame_root": val["frames"], "flow_root": val["flows"],
+                "mask_root": val["masks"], "num_videos": 2}
+    # one validation each, mid-run: LAFC takes one batch an epoch (4
+    # videos, batch 4), FGT two (batch 2); the last epoch ends training
+    runs = (("lafc_single", "lafc_single_train", 11, {}),
+            ("lafc", "lafc_train", 11, {}),
+            ("model", "fgt_train", 5, {"flow_checkPoint": os.path.join(
+                root, "outputs", "LAFC_single_train", "latest",
+                "model.pth")}))
+    # instrumentation around the trainers' methods (restored below): each
+    # step's entry and synchronized exit, and each validation's K2
+    # launches, seconds and peak memory (the run's peak kept beside it)
+    probe = {"steps": [], "vals": []}
+    patched = {(cls, name): getattr(cls, name)
+               for cls in (LAFCTrainer, FGTTrainer)
+               for name in ("_train_step", "_validate")}
+
+    def timed_step(orig):
+        def step(self, batch):
+            t0 = time.perf_counter()
+            metrics = orig(self, batch)
+            torch.cuda.synchronize()
+            probe["steps"].append((t0, time.perf_counter()))
+            return metrics
+        return step
+
+    def measured_validate(orig):
+        def validate(self, epoch):
+            before = flash_attention.flash_mhsa.launches
+            run_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            orig(self, epoch)
+            torch.cuda.synchronize()
+            probe["vals"].append(dict(
+                k2=flash_attention.flash_mhsa.launches - before,
+                s=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated(), run_peak=run_peak))
+        return validate
+
+    out = {}
+    cwd = os.getcwd()
+    os.chdir(root)                    # the configs' outputdir is relative
+    for (cls, name), orig in patched.items():
+        setattr(cls, name, (timed_step if name == "_train_step"
+                            else measured_validate)(orig))
+    try:
+        for model, name, val_freq, extra in runs:
+            cfg = cli_config(os.path.join(root, f"{name}.yaml"), name, train,
+                             val_info, val_freq=val_freq, **extra)
+            probe["steps"], probe["vals"] = [], []
+            reset(kernels)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer = train_cli.main(["--model", model, "--opt", cfg,
+                                      "--use_valid"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read(kernels)
+            vals = probe["vals"]
+            peak = max([torch.cuda.max_memory_allocated()]
+                       + [v["run_peak"] for v in vals]) / 2 ** 30
+            with open(trainer.metrics.path) as f:
+                rows = [json.loads(line) for line in f]
+            # steps 3..12: the wait before each (the loader) and the step
+            # itself; the wait that holds the validation is left out
+            spans = probe["steps"]
+            waits = [b[0] - a[1] for a, b in zip(spans[1:], spans[2:])]
+            busy = [b[1] - b[0] for b in spans[2:]]
+            if vals:
+                drop = int(np.argmax(waits))
+                waits = waits[:drop] + waits[drop + 1:]
+            out[model] = stats = dict(
+                steps_per_s=step_rate(rows), peak_gib=peak, wall=wall,
+                launches=launches, rows=rows, trainer=trainer,
+                wait_ms=1e3 * float(np.mean(waits)),
+                step_ms=1e3 * float(np.mean(busy)), vals=vals)
+            stats["items_per_s"] = {
+                w: loader_rate(trainer.train_set,
+                               trainer.train_loader.batch_size, w,
+                               LOADER_ITEMS if w else 4)
+                for w in (trainer.train_loader.num_workers, 0)}
+    finally:
+        for (cls, name), orig in patched.items():
+            setattr(cls, name, orig)
+        os.chdir(cwd)
+
+    for model, st in out.items():
+        trainer, rows = st["trainer"], st["rows"]
+        steps = [r for r in rows if "val/psnr" not in r]
+        vals = [r for r in rows if "val/psnr" in r]
+        terms = [k for k in steps[0] if k not in ("step", "time", "lr",
+                                                  "it_per_s")]
+        log(f"cli {model}: {len(steps)} steps from disk, "
+            f"{st['steps_per_s']:.4f} steps/s through the loader "
+            f"(steps 3-12, the validation's interval left out; "
+            f"batch {trainer.train_loader.batch_size}, "
+            f"{trainer.train_loader.num_workers} workers); run wall "
+            f"{st['wall']:.2f} s; loader alone "
+            + ", ".join(f"{w} workers {r:.3f} items/s"
+                        for w, r in st["items_per_s"].items())
+            + f"; peak device memory {st['peak_gib']:.3f} GiB; launches "
+            f"{st['launches']}; {smi}")
+        share = st["wait_ms"] / (st["wait_ms"] + st["step_ms"])
+        log(f"cli {model} steps 3-12: waiting on the loader "
+            f"{st['wait_ms']:.2f} ms/step, in the step (synchronized) "
+            f"{st['step_ms']:.2f} ms/step; host data share {share:.4f}")
+        for v, probe_v in zip(vals, st["vals"]):
+            log(f"cli {model} validation: " + json.dumps(
+                {k: round(v[k], 6) for k in v if k.startswith("val/")})
+                + f"; {probe_v['s']:.3f} s, peak device memory "
+                f"{probe_v['peak'] / 2 ** 30:.3f} GiB (the run's peak "
+                f"before it {probe_v['run_peak'] / 2 ** 30:.3f} GiB)")
+        if [r["step"] for r in steps] != list(range(1, CLI_STEPS + 1)):
+            raise AssertionError(f"cli {model}: steps {steps}")
+        if not all(np.isfinite(r[k]) for r in steps for k in terms):
+            raise AssertionError(f"cli {model}: a loss term is not finite")
+        if len(vals) != 1 or not all(
+                np.isfinite(vals[0][f"val/{k}"])
+                for k in ("psnr", "ssim", "l1", "l2")):
+            raise AssertionError(f"cli {model}: val/* missing or not finite")
+        if trainer.train_loader._pool is not None:
+            raise AssertionError(f"cli {model}: loader workers left running")
+    for model in ("lafc_single", "lafc"):
+        if any(out[model]["launches"].values()):
+            raise AssertionError(f"cli {model}: stage 1 launched a kernel: "
+                                 f"{out[model]['launches']}")
+    fgt = out["model"]
+    blocks = int(fgt["trainer"].opt["numBlocks"]) // 2
+    k2_in_val = [sum(v["k2"] for v in fgt["vals"]), len(fgt["vals"])]
+    want_val = k2_in_val[1] * 2 * blocks      # 2 videos, a forward each
+    want = {"flash_mhsa": 4 * CLI_STEPS + want_val,
+            "flash_attention_dq": 4 * CLI_STEPS,
+            "flash_attention_dkv": 4 * CLI_STEPS,
+            "lookup_corr_fused": 0, "lookup_corr_pyramid": 0}
+    log(f"cli model: K2 in validate_fgt {k2_in_val[0]} launches over "
+        f"{k2_in_val[1]} validation(s) (want {want_val}: 2 videos x "
+        f"{blocks} temporal blocks); all launches {fgt['launches']}")
+    if fgt["launches"] != want or k2_in_val[0] != want_val:
+        raise AssertionError(f"cli model: launches {fgt['launches']}, want "
+                             f"{want}")
+    log(f"cli train phase: {time.perf_counter() - t_phase:.2f} s")
+    for st in out.values():
+        del st["trainer"], st["rows"], st["vals"]
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_steps(trainer, batch):
@@ -1846,12 +2138,22 @@ def main() -> int:
     train_counters = (flash_attention.flash_mhsa,
                       flash_attention.flash_attention_dq,
                       flash_attention.flash_attention_dkv)
+    all_counters = (corr_fused.lookup_corr_fused,
+                    corr_lookup.lookup_corr_pyramid, *train_counters)
     with tempfile.TemporaryDirectory() as stage_root:
-        oracle, _ = phase_lafc_train(
-            (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
-             *train_counters), counters, stage_root, smi)
-        train_launches, _ = phase_train(train_counters,
-                                        "--profile" in sys.argv, oracle)
+        oracle, lafc_stats = phase_lafc_train(all_counters, counters,
+                                              stage_root, smi)
+        train_launches, fgt_stats = phase_train(
+            train_counters, "--profile" in sys.argv, oracle)
+    with tempfile.TemporaryDirectory() as cli_root:
+        cli = phase_cli_train(all_counters, cli_root, smi)
+    on_card = {"lafc_single": lafc_stats[True]["steps_per_s"],
+               "lafc": lafc_stats[False]["steps_per_s"],
+               "model": fgt_stats["steps_per_s"]}
+    log("training steps/s, from disk through the CLI vs on a batch made on "
+        "the card: " + "; ".join(
+            f"{m} {cli[m]['steps_per_s']:.4f} vs {on_card[m]:.4f}"
+            for m in on_card) + f"; {smi}")
     phase_small_reference()
     phase_small_reference("pyramid", use_nonlocal=True)
     phase_small_reference(small=True)

@@ -1,0 +1,162 @@
+"""Training CLI for both stages — counterpart of
+``fgt_tpu/train/train.py`` (reference FGT/train.py, LAFC/train.py;
+argparse surfaces FGT/inputs.py:4-83, LAFC/flow_inputs.py:4-50):
+
+    python -m fgt_tpu_torch.train.train --model model       --opt cfg.yaml
+    python -m fgt_tpu_torch.train.train --model lafc        --opt cfg.yaml
+    python -m fgt_tpu_torch.train.train --model lafc_single --opt cfg.yaml
+
+YAML keys override the flags (reference parse.py:28); ``--datadir``
+prefixes the relative paths of ``datasets.dataInfo``. Frames are PNG,
+flows ``.flo`` (``data/datasets.py``). Runs on the card unless
+``--device cpu`` is given; there is no fallback to the CPU. One card:
+``--tp``/``--sp`` above 1 and ``--coordinator`` raise (multi-GPU waits).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from fgt_tpu_torch import DEFAULT_DEVICE
+from fgt_tpu_torch.utils.config import (derive_model_tuples, merge_args_yaml,
+                                        prefix_paths)
+
+
+def args_parser(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="fgt_tpu_torch trainer")
+    p.add_argument("--opt", type=str, default=None,
+                   help="Path to YAML config (overrides argparse defaults)")
+    p.add_argument("--model", type=str, default="model",
+                   choices=["model", "fgt", "lafc", "lafc_single"])
+    p.add_argument("--name", type=str, default="FGT_train")
+    p.add_argument("--outputdir", type=str, default="outputs")
+    p.add_argument("--datadir", type=str, default="")
+    p.add_argument("--datasetName_train", type=str, default=None)
+    p.add_argument("--finetune", type=int, default=0)
+    p.add_argument("--gen_state", type=str, default="")
+    p.add_argument("--dis_state", type=str, default="")
+    p.add_argument("--opt_state", type=str, default="")
+    p.add_argument("--record_iter", type=int, default=16)
+    p.add_argument("--flow_checkPoint", type=str, default="")
+    p.add_argument("--dataMode", type=str, default="resize")
+    p.add_argument("--seed", type=int, default=10)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree (1 only: one card)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree (1 only: one card)")
+    p.add_argument("--device", type=str, default=DEFAULT_DEVICE,
+                   help="torch device (default cuda; cpu for the CPU)")
+
+    # data
+    p.add_argument("--flow2rgb", type=int, default=1)
+    p.add_argument("--flow_direction", type=str, default="for",
+                   choices=["for", "back", "bi"])
+    p.add_argument("--num_frames", type=int, default=5)
+    p.add_argument("--num_flows", type=int, default=3)
+    p.add_argument("--flow_interval", type=int, default=3)
+    p.add_argument("--sample", type=str, default="random",
+                   choices=["random", "seq"])
+    p.add_argument("--max_val", type=float, default=0.01)
+    p.add_argument("--norm", type=int, default=0)
+
+    # model
+    p.add_argument("--res_h", type=int, default=240)
+    p.add_argument("--res_w", type=int, default=432)
+    p.add_argument("--in_channel", type=int, default=4)
+    p.add_argument("--cnum", type=int, default=64)
+    p.add_argument("--flow_inChannel", type=int, default=2)
+    p.add_argument("--flow_cnum", type=int, default=64)
+    p.add_argument("--dist_cnum", type=int, default=32)
+    p.add_argument("--frame_hidden", type=int, default=512)
+    p.add_argument("--flow_hidden", type=int, default=256)
+    p.add_argument("--PASSMASK", type=int, default=1)
+    p.add_argument("--numBlocks", type=int, default=8)
+    p.add_argument("--kernel_size_w", type=int, default=7)
+    p.add_argument("--kernel_size_h", type=int, default=7)
+    p.add_argument("--stride_h", type=int, default=3)
+    p.add_argument("--stride_w", type=int, default=3)
+    p.add_argument("--pad_h", type=int, default=3)
+    p.add_argument("--pad_w", type=int, default=3)
+    p.add_argument("--num_head", type=int, default=4)
+    p.add_argument("--conv_type", type=str, default="vanilla",
+                   choices=["vanilla", "gated", "partial"])
+    p.add_argument("--use_bias", type=int, default=1)
+    p.add_argument("--ape", type=int, default=1)
+    p.add_argument("--mlp_ratio", type=int, default=40)
+    p.add_argument("--drop", type=float, default=0)
+    p.add_argument("--init_weights", type=int, default=1)
+    p.add_argument("--use_residual", type=int, default=1)
+    p.add_argument("--resBlocks", type=int, default=1)
+    p.add_argument("--use_edges", type=int, default=0)
+    p.add_argument("--gc", type=int, default=0)
+
+    # losses
+    p.add_argument("--L1M", type=float, default=1)
+    p.add_argument("--L1V", type=float, default=1)
+    p.add_argument("--adv", type=float, default=0.01)
+
+    # windows
+    p.add_argument("--tw", type=int, default=2)
+    p.add_argument("--sw", type=int, default=8)
+    p.add_argument("--gd", type=int, default=4)
+    p.add_argument("--ref_length", type=int, default=10)
+    p.add_argument("--use_valid", action="store_true")
+
+    # multi-host (the JAX CLI's); refused here
+    p.add_argument("--coordinator", type=str, default="")
+    p.add_argument("--num_processes", type=int, default=0)
+    p.add_argument("--process_id", type=int, default=-1)
+    return p.parse_args(argv)
+
+
+def build_opt(args: argparse.Namespace) -> dict:
+    """The flags, overridden by the YAML, with the derived tuples and the
+    training defaults (``fgt_tpu/train/train.py:build_opt``)."""
+    opt = merge_args_yaml(args, args.opt)
+    opt = derive_model_tuples(opt)
+    opt.setdefault("model", args.model)
+    opt.setdefault("train", {})
+    opt["train"].setdefault("MAX_ITERS", 500000)
+    opt["train"].setdefault("lr", 1e-4)
+    opt["train"].setdefault("UPDATE_INTERVAL", 300000)
+    opt.setdefault("datasets", {})
+    if args.datadir and "dataInfo" in opt.get("datasets", {}):
+        opt["datasets"]["dataInfo"] = prefix_paths(
+            opt["datasets"]["dataInfo"], args.datadir)
+    opt.setdefault("path", {})
+    for k in ("gen_state", "dis_state", "opt_state"):
+        v = getattr(args, k, "")
+        if v:
+            opt["path"][k] = v
+    opt["resume"] = bool(opt["path"].get("gen_state"))
+    return opt
+
+
+def main(argv=None):
+    args = args_parser(argv)
+    opt = build_opt(args)
+    if int(opt.get("tp", 1) or 1) > 1 or int(opt.get("sp", 1) or 1) > 1:
+        raise NotImplementedError("--tp/--sp > 1: the port trains on one "
+                                  "card (multi-GPU is not ported)")
+    if opt.get("coordinator"):
+        raise NotImplementedError("--coordinator: multi-host training is "
+                                  "not ported")
+
+    from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
+
+    device = str(opt.get("device", args.device))
+    model = str(opt.get("model", args.model))
+    if model in ("model", "fgt"):
+        trainer = FGTTrainer(opt, device=device)
+    elif model == "lafc":
+        trainer = LAFCTrainer(opt, device=device)
+    elif model == "lafc_single":
+        trainer = LAFCTrainer(opt, device=device, single=True)
+    else:
+        raise ValueError(f"unknown model {model}")
+    trainer.train()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

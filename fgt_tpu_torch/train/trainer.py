@@ -4,9 +4,16 @@
 Trainer/Network split (FGT/trainer.py:14-199, FGT/networks/network.py:
 21-491, LAFC/networks/network.py).
 
-* The loop takes an iterable of batches (each pass over it is one
-  epoch) in place of the JAX package's dataset and loader, which wait
-  for training data in the repo; it runs until ``train.MAX_ITERS``.
+* Data: with ``opt['datasets']['dataInfo']`` the trainer builds the
+  dataset named by ``datasetName_train`` (or the stage's default), a
+  shuffling ``ShardedSampler`` seeded from ``seed`` and the prefetching
+  loader (``opt['datasets']['train']``: batch_size, n_workers), and
+  :meth:`Trainer.train` steps over it epoch by epoch. An iterable of
+  batches given to :meth:`Trainer.train` takes its place (each pass is
+  one epoch). Training runs until ``train.MAX_ITERS``.
+* Validation: with ``use_valid``, every ``train.val_freq`` epochs, on
+  the ``opt['datasets']['valInfo']`` tree (``train/validate.py``);
+  scores go to the metrics stream as ``val/*``.
 * Metrics: a JSONL stream (always) plus TensorBoard when
   ``torch.utils.tensorboard`` imports; logged values are running means
   over the last ``record_iter`` logs, reset every ``record_iter`` logs
@@ -17,7 +24,7 @@ Trainer/Network split (FGT/trainer.py:14-199, FGT/networks/network.py:
   the inference CLI.
 
 One device, no mesh: data, tensor and sequence parallelism wait for the
-multi-GPU slice. In-training validation waits for validation data.
+multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -119,59 +126,131 @@ class Trainer:
         random.seed(seed)
         np.random.seed(seed)
         self.init_gen = torch.Generator().manual_seed(seed)
+        self.val_info = opt.get("datasets", {}).get("valInfo")
+        self.train_loader = None
+        if opt.get("datasets", {}).get("dataInfo"):
+            self._prepare_dataset()
         self.total_iterations = int(opt["train"]["MAX_ITERS"])
         self.current_step = 0
         self.start_epoch = 0
         self.sched = None
 
-    def train(self, batches: Iterable[dict]) -> None:
-        """Steps over ``batches``, pass after pass, until
-        ``total_iterations``; a pass that yields nothing ends training."""
+    # ---------------- data ----------------
+
+    def _dataset_name(self) -> str:
+        raise NotImplementedError
+
+    def _prepare_dataset(self) -> None:
+        """The dataset, sampler and loader of ``opt['datasets']`` (JAX
+        ``Trainer._prepare_dataset`` on one device)."""
+        from fgt_tpu_torch.data import (ShardedSampler, create_dataloader,
+                                        create_dataset)
+
+        opt = self.opt
+        dcfg = dict(opt["datasets"].get("train", {}))
+        for key in ("num_frames", "num_flows", "flow_interval", "sample",
+                    "flow_direction", "input_resolution", "norm"):
+            if key in opt:
+                dcfg.setdefault(key, opt[key])
+        ds_name = str(opt.get("datasetName_train") or self._dataset_name())
+        self.train_set = create_dataset(dcfg, opt["datasets"]["dataInfo"],
+                                        "train", ds_name)
+        self.sampler = ShardedSampler(len(self.train_set), shuffle=True,
+                                      seed=int(opt.get("seed", 10)))
+        self.train_loader = create_dataloader("train", self.train_set, dcfg,
+                                              opt, self.sampler)
+        self.logger.info("videos: %d, iters/epoch: %d, batch: %d, "
+                         "workers: %d", len(self.train_set),
+                         len(self.train_loader),
+                         self.train_loader.batch_size,
+                         self.train_loader.num_workers)
+
+    def train(self, batches: Optional[Iterable[dict]] = None) -> None:
+        """Steps over the dataset's loader (``batches`` None) or over
+        ``batches``, epoch after epoch, until ``total_iterations``; an
+        epoch that yields nothing ends training. The loader's workers
+        are stopped on return."""
+        loader = self.train_loader if batches is None else None
+        if batches is None and loader is None:
+            raise ValueError("train(): no batches given and no dataset "
+                             "(opt['datasets']['dataInfo']) to load")
         tr = self.opt.get("train", {})
         log_freq = int(tr.get("log_freq", self.opt.get("PRINT_INFO_FREQ",
                                                        100)))
         save_freq = int(tr.get("save_checkpoint_freq",
                                self.opt.get("SAVE_CHECKPOINT_FREQ", 5000)))
+        val_freq = int(tr.get("val_freq", 1))
+        use_valid = bool(self.opt.get("use_valid", False))
         record_iter = max(1, int(self.opt.get("record_iter", 16)))
         run_sum: dict = {}
         run_n = 0
-        for epoch in itertools.count(self.start_epoch):
-            t0 = time.time()
-            seen = 0
-            for batch in batches:
-                if self.current_step >= self.total_iterations:
+        try:
+            for epoch in itertools.count(self.start_epoch):
+                if loader is not None:
+                    self.sampler.set_epoch(epoch)
+                t0 = time.time()
+                seen = 0
+                for batch in (loader if loader is not None else batches):
+                    if self.current_step >= self.total_iterations:
+                        break
+                    seen += 1
+                    self.current_step += 1
+                    metrics = self._train_step(batch)
+                    if self.current_step % log_freq == 0:
+                        scalars = {k: float(v) for k, v in metrics.items()}
+                        scalars["it_per_s"] = log_freq / max(
+                            time.time() - t0, 1e-9)
+                        if self.sched is not None:
+                            scalars["lr"] = float(
+                                self.sched(self.current_step))
+                        t0 = time.time()
+                        if run_n >= record_iter:
+                            run_sum, run_n = {}, 0
+                        run_n += 1
+                        for k, v in scalars.items():
+                            run_sum[k] = run_sum.get(k, 0.0) + v
+                        means = {k: v / run_n for k, v in run_sum.items()}
+                        self.metrics.write(self.current_step, means)
+                        self.logger.info(
+                            "[epoch %d step %d] %s", epoch,
+                            self.current_step,
+                            " ".join(f"{k}:{v:.4f}"
+                                     for k, v in means.items()))
+                    if self.current_step % save_freq == 0:
+                        self.save_checkpoint(epoch)
+                if seen == 0 or self.current_step >= self.total_iterations:
                     break
-                seen += 1
-                self.current_step += 1
-                metrics = self._train_step(batch)
-                if self.current_step % log_freq == 0:
-                    scalars = {k: float(v) for k, v in metrics.items()}
-                    scalars["it_per_s"] = log_freq / max(time.time() - t0,
-                                                         1e-9)
-                    if self.sched is not None:
-                        scalars["lr"] = float(self.sched(self.current_step))
-                    t0 = time.time()
-                    if run_n >= record_iter:
-                        run_sum, run_n = {}, 0
-                    run_n += 1
-                    for k, v in scalars.items():
-                        run_sum[k] = run_sum.get(k, 0.0) + v
-                    means = {k: v / run_n for k, v in run_sum.items()}
-                    self.metrics.write(self.current_step, means)
-                    self.logger.info(
-                        "[epoch %d step %d] %s", epoch, self.current_step,
-                        " ".join(f"{k}:{v:.4f}" for k, v in means.items()))
-                if self.current_step % save_freq == 0:
-                    self.save_checkpoint(epoch)
-            if seen == 0 or self.current_step >= self.total_iterations:
-                break
+                if use_valid and (epoch + 1) % val_freq == 0:
+                    self._validate(epoch)
+        finally:
+            if loader is not None:
+                loader.close()
         self.save_checkpoint(epoch)
         self.logger.info("Train process has been finished")
+
+    def _write_val(self, epoch: int, scores: dict) -> None:
+        if not scores:
+            return
+        self.metrics.write(self.current_step,
+                           {f"val/{k}": v for k, v in scores.items()})
+        self.logger.info("[val epoch %d] %s", epoch,
+                         " ".join(f"{k}:{v:.4f}" for k, v in scores.items()))
+
+    def _val_dir(self, epoch: int) -> str:
+        return os.path.join(self.run_dir, "validation", f"epoch_{epoch}")
+
+    def _val_resolution(self) -> tuple:
+        vi = self.val_info or {}
+        return tuple(vi.get("input_resolution",
+                            self.opt.get("input_resolution", (240, 432))))
 
     def _train_step(self, batch: dict) -> dict:
         raise NotImplementedError
 
     def save_checkpoint(self, epoch: int) -> dict:
+        raise NotImplementedError
+
+    def _validate(self, epoch: int) -> None:
         raise NotImplementedError
 
     def _ckpt_path(self, tag: str, epoch: int) -> str:
@@ -228,6 +307,28 @@ class LAFCTrainer(Trainer):
             single=self.single)
         if opt.get("path", {}).get("gen_state"):
             self._resume(opt["path"])
+
+    def _dataset_name(self) -> str:
+        return ("train_dataset_single_edge" if self.single
+                else "train_dataset_edge")
+
+    def _validate(self, epoch: int) -> None:
+        """Flow-domain validation (reference LAFC network.py:271-373)."""
+        from fgt_tpu_torch.train.validate import validate_lafc
+
+        vi = self.val_info or {}
+        flow_root = vi.get("flow_root", vi.get("flow_path"))
+        if not flow_root or not os.path.isdir(flow_root):
+            self.logger.info("validation skipped: no val flows at %s",
+                             flow_root)
+            return
+        self._write_val(epoch, validate_lafc(
+            self.model, flow_root, num_videos=int(vi.get("num_videos", 10)),
+            resolution=self._val_resolution(),
+            mask_size=int(vi.get("flow_mask_rect", 96)),
+            num_flows=int(self.opt.get("num_flows", 3)),
+            interval=int(self.opt.get("flow_interval", 3)),
+            single=self.single, save_dir=self._val_dir(epoch)))
 
     def _train_step(self, batch: dict) -> dict:
         b = {k: torch.as_tensor(v).to(self.device, torch.float32)
@@ -321,6 +422,32 @@ class FGTTrainer(Trainer):
             mixed_precision=bool(int(opt.get("mixed_precision", 0))))
         if opt.get("path", {}).get("gen_state"):
             self._resume(opt["path"])
+
+    def _dataset_name(self) -> str:
+        return "train_dataset"
+
+    def _validate(self, epoch: int) -> None:
+        """DAVIS-protocol validation (FGT/networks/network.py:258-354),
+        with the frozen oracle completing the flows. The valInfo's
+        ``mask_root`` is read (the JAX trainer leaves it unread and
+        always validates on the centered square)."""
+        from fgt_tpu_torch.train.validate import validate_fgt
+
+        vi = self.val_info or {}
+        frame_root = vi.get("frame_root", vi.get("frame_path"))
+        if not frame_root or not os.path.isdir(frame_root):
+            self.logger.info("validation skipped: no val data at %s",
+                             frame_root)
+            return
+        self._write_val(epoch, validate_fgt(
+            self.gen, frame_root, vi.get("flow_root", vi.get("flow_path")),
+            flow_model=self.flow_model, mask_root=vi.get("mask_root"),
+            num_videos=int(vi.get("num_videos", 10)),
+            resolution=self._val_resolution(),
+            mask_size=int(vi.get("flow_mask_rect", 96)),
+            pivot=int(vi.get("pivot", 20)),
+            num_frames=int(self.opt.get("num_frames", 5)),
+            save_dir=self._val_dir(epoch)))
 
     def _train_step(self, batch: dict) -> dict:
         b = {"frames": batch["frames"], "masks": batch["masks"]}

@@ -1,30 +1,38 @@
-"""A reader for the top-level scalar keys of a YAML config, without PyYAML.
+"""YAML configs without PyYAML, and the training CLI's config helpers.
 
-The reference ships its LAFC and FGT checkpoints with the training config
-they came from (``config.yaml``): a flat block of model hyperparameters
-beside nested ``datasets:`` / ``train:`` blocks that no model builder
-reads. The GPU machine has no PyYAML, so :func:`read_flat_yaml` reads the
-part the builders need, with PyYAML's ``safe_load`` meaning for it:
+The GPU machine has no PyYAML. Two readers give PyYAML's ``safe_load``
+meaning to the subset this repository's files use:
 
-* ``key: value`` lines at column 0, the value an int, a float (with a
-  dot, as YAML 1.1 resolves it), ``true``/``false`` (and YAML 1.1's
-  ``yes``/``no``/``on``/``off``), ``~``/``null`` (or nothing, where no
-  indented block follows), a quoted or bare string, or a flow list such
-  as ``[240, 432]``;
-* comment lines, ``#`` comments after a value, and the document marker
-  ``---`` are skipped;
-* a key opening a nested block (nothing after the colon) or a flow map
-  (``{...}``) is skipped with its indented lines.
+* :func:`read_yaml` reads a whole config: block mappings nested by
+  indentation (spaces), flow maps ``{a: 1, b: x}`` and flow lists
+  ``[240, 432]`` (nested, and spanning lines), and the scalars below.
+  Anything else (block sequences, anchors, tags, block scalars, tabs,
+  multi-document files) raises ``ValueError``;
+* :func:`read_flat_yaml` reads only the top-level scalar and flow-list
+  keys of a file and skips nested blocks and flow maps: the reference
+  ships its checkpoints with the training config they came from
+  (``config.yaml``), whose nested ``datasets:`` / ``train:`` blocks no
+  model constructor reads.
 
-Anything else at the top level raises ``ValueError``, rather than being
-read differently from PyYAML. :func:`apply_yaml_over_args` is the
-inference CLI's ``--opt`` on top of it.
+Scalars: an int, a float (with a dot, as YAML 1.1 resolves it),
+``true``/``false`` (and YAML 1.1's ``yes``/``no``/``on``/``off``),
+``~``/``null`` (or nothing), a quoted or bare string. Comment lines,
+``#`` comments after a value, and the document marker ``---`` are
+skipped.
+
+:func:`apply_yaml_over_args` is the inference CLI's ``--opt``;
+:func:`merge_args_yaml`, :func:`prefix_paths` and
+:func:`derive_model_tuples` are the training CLI's, as in
+``fgt_tpu/utils/config.py`` (reference FGT/parse.py:6-76).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import re
+from typing import Optional
 
 _KEY = re.compile(r"^([A-Za-z_][\w\-.]*)\s*:(?:\s+(.*))?$")
 _INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
@@ -143,3 +151,235 @@ def apply_yaml_over_args(args, opt_path: str | None):
         if hasattr(args, k):
             setattr(args, k, v)
     return args
+
+
+# ---------------- the whole-file reader ----------------
+
+def _fail(line: str, why: str = "cannot read"):
+    raise ValueError(f"read_yaml: {why} {line!r}")
+
+
+def _closed(text: str) -> bool:
+    """Whether the brackets of a flow collection balance (outside
+    quotes)."""
+    depth, quote = 0, None
+    for ch in text:
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+    return depth == 0
+
+
+class _Flow:
+    """Recursive descent over one flow collection's text."""
+
+    def __init__(self, text: str, line: str):
+        self.text, self.line, self.i = text, line, 0
+
+    def _skip(self):
+        while self.i < len(self.text) and self.text[self.i] in " \t":
+            self.i += 1
+
+    def _plain(self) -> str:
+        start, quote = self.i, None
+        while self.i < len(self.text):
+            ch = self.text[self.i]
+            if quote:
+                if ch == quote:
+                    quote = None
+            elif ch in "'\"" and self.i == start:
+                quote = ch
+            elif ch in ",]}" or (ch == ":" and self.text[self.i + 1:self.i + 2]
+                                  in (" ", "")):
+                break
+            self.i += 1
+        return self.text[start:self.i].strip()
+
+    def value(self):
+        self._skip()
+        ch = self.text[self.i:self.i + 1]
+        if ch == "{":
+            return self._collection("}", True)
+        if ch == "[":
+            return self._collection("]", False)
+        return _scalar(self._plain(), self.line)
+
+    def _collection(self, close: str, mapping: bool):
+        self.i += 1
+        out = {} if mapping else []
+        while True:
+            self._skip()
+            if self.text[self.i:self.i + 1] == close:
+                self.i += 1
+                return out
+            if mapping:
+                key = _scalar(self._plain(), self.line)
+                if self.text[self.i:self.i + 1] != ":":
+                    _fail(self.line)
+                self.i += 1
+                out[key] = self.value()
+            else:
+                out.append(self.value())
+            self._skip()
+            ch = self.text[self.i:self.i + 1]
+            if ch == ",":
+                self.i += 1
+            elif ch != close:
+                _fail(self.line)
+
+    def parse(self):
+        out = self.value()
+        self._skip()
+        if self.i != len(self.text):
+            _fail(self.line)
+        return out
+
+
+def _indent(line: str) -> int:
+    body = line.lstrip(" ")
+    if body.startswith("\t"):
+        _fail(line, "tab indentation in")
+    return len(line) - len(body)
+
+
+def read_yaml(path: str) -> dict:
+    """The YAML file at ``path`` as ``yaml.safe_load`` reads it, for the
+    subset in the module doc; an empty file reads as ``{}``."""
+    with open(path) as f:
+        raw = f.read().splitlines()
+    lines = []
+    for n, line in enumerate(raw):
+        body = _strip_comment(line)
+        if not body.strip():
+            continue
+        if body.strip() == "---":
+            if lines:
+                _fail(line, "a second document at")
+            continue
+        if body.strip() == "...":
+            break
+        lines.append(body)
+    pos = 0
+
+    def block(indent: int) -> dict:
+        nonlocal pos
+        out: dict = {}
+        while pos < len(lines):
+            line = lines[pos]
+            ind = _indent(line)
+            if ind < indent:
+                break
+            if ind > indent:
+                _fail(line, "unexpected indentation at")
+            body = line.strip()
+            if body.startswith("- ") or body == "-":
+                _fail(line, "block sequences are not read:")
+            m = _KEY.match(body)
+            if m is None:
+                _fail(line)
+            key, value = m.group(1), (m.group(2) or "").strip()
+            pos += 1
+            if not value:
+                nxt = lines[pos] if pos < len(lines) else ""
+                out[key] = block(_indent(nxt)) if nxt and \
+                    _indent(nxt) > indent else None
+            elif value[0] in "[{":
+                while not _closed(value) and pos < len(lines):
+                    value += " " + lines[pos].strip()
+                    pos += 1
+                if not _closed(value):
+                    _fail(line, "unclosed flow collection at")
+                out[key] = _Flow(value, line).parse()
+            else:
+                out[key] = _scalar(value, line)
+        return out
+
+    out = block(_indent(lines[0]) if lines else 0)
+    if pos != len(lines):
+        _fail(lines[pos], "unexpected indentation at")
+    return out
+
+
+# ---------------- the training CLI's helpers ----------------
+
+def merge_args_yaml(args: argparse.Namespace,
+                    opt_path: Optional[str]) -> dict:
+    """``{**vars(args), **yaml}`` — YAML wins (reference FGT/parse.py:28)."""
+    cfg = dict(vars(args))
+    if opt_path:
+        cfg.update(read_yaml(opt_path))
+    return cfg
+
+
+def prefix_paths(data_info: dict, datadir: str) -> dict:
+    """Prefix a root dir onto relative paths (reference parse.py:6-17)."""
+    out = {}
+    for k, v in data_info.items():
+        if isinstance(v, dict):
+            out[k] = prefix_paths(v, datadir)
+        elif isinstance(v, str) and ("path" in k or "root" in k) \
+                and not os.path.isabs(v):
+            out[k] = os.path.join(datadir, v)
+        else:
+            out[k] = v
+    return out
+
+
+def derive_model_tuples(cfg: dict) -> dict:
+    """Assemble the derived tuple params (reference FGT/train.py:63-66)."""
+    cfg = dict(cfg)
+    if "res_h" in cfg and "res_w" in cfg:
+        cfg.setdefault("input_resolution", (cfg["res_h"], cfg["res_w"]))
+    if "kernel_size_h" in cfg:
+        cfg.setdefault("kernel_size", (cfg["kernel_size_h"],
+                                       cfg["kernel_size_w"]))
+    if "stride_h" in cfg:
+        cfg.setdefault("stride", (cfg["stride_h"], cfg["stride_w"]))
+    if "pad_h" in cfg:
+        cfg.setdefault("padding", (cfg["pad_h"], cfg["pad_w"]))
+    return cfg
+
+
+def _dump_scalar(v) -> str:
+    if v is None:
+        return "~"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v or v in (float("inf"), float("-inf")):
+            return {"nan": ".nan", "inf": ".inf", "-inf": "-.inf"}[repr(v)]
+        mant, _, exp = repr(v).partition("e")
+        if "." not in mant:
+            mant += ".0"
+        return f"{mant}e{exp if exp[0] in '+-' else '+' + exp}" if exp \
+            else mant
+    if isinstance(v, str):
+        return json.dumps(v)
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{k}: {_dump_scalar(x)}"
+                               for k, x in v.items()) + "}"
+    raise TypeError(f"dump_yaml: cannot write {type(v).__name__}")
+
+
+def dump_yaml(data: dict, indent: int = 0) -> str:
+    """YAML text of ``data`` that :func:`read_yaml` (and PyYAML) read
+    back as ``data``: nested dicts as blocks, lists as flow lists,
+    strings double-quoted (lists come back as lists)."""
+    out = []
+    for k, v in data.items():
+        pad = " " * indent
+        if isinstance(v, dict) and v:
+            out.append(f"{pad}{k}:\n{dump_yaml(v, indent + 2)}")
+        else:
+            out.append(f"{pad}{k}: {_dump_scalar(v)}\n")
+    return "".join(out)

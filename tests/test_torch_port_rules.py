@@ -3,7 +3,7 @@
 * no module of ``fgt_tpu_torch`` (nor ``chip_smoke.py``) imports JAX,
   flax, the JAX package, or cv2/imageio/yaml, which the GPU machine lacks;
 * entry points default to the ``cuda`` device (the evaluation driver,
-  the VFID scorer and both trainers too);
+  the VFID scorer, both trainers and the training CLI too);
 * the weight bridge round-trips every leaf of the RAFT (big and small),
   LAFC, LAFC-single, FGT, T-PatchGAN, I3D and VGG19 tables with no key
   missing on either side, and its tables equal the JAX package's
@@ -47,6 +47,7 @@ from fgt_tpu_torch.ops import _build, corr_fused, corr_lookup, flash_attention
 from fgt_tpu_torch.pipeline import batch, evaluate, flow_extract, image_io
 from fgt_tpu_torch.pipeline import video_inpainting as tvi
 from fgt_tpu_torch.train import perceptual as tperc
+from fgt_tpu_torch.train import train as train_cli
 from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
 
 torch.set_num_threads(1)
@@ -82,7 +83,11 @@ def test_port_imports_no_jax_no_reference_package_no_cv2():
     for module in ("core/flow_viz.py", "core/metrics.py", "core/vfid.py",
                    "pipeline/evaluate.py", "utils/profiling.py",
                    "core/edge.py", "core/warp.py", "train/lafc_step.py",
-                   "train/perceptual.py", "train/precision.py"):
+                   "train/perceptual.py", "train/precision.py",
+                   "core/raster.py", "core/masks.py", "core/region_fill.py",
+                   "data/__init__.py", "data/datasets.py", "data/loader.py",
+                   "train/validate.py", "train/train.py",
+                   "utils/config.py"):
         assert f"fgt_tpu_torch/{module}" in rel, module
     bad = {(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN}
@@ -97,6 +102,7 @@ def test_entry_points_default_to_cuda():
     for trainer in (FGTTrainer, LAFCTrainer):
         sig = inspect.signature(trainer.__init__)
         assert sig.parameters["device"].default == "cuda"
+    assert train_cli.args_parser(["--model", "lafc"]).device == "cuda"
     assert flow_extract.build_parser().parse_args(
         ["--datapath", "d", "--outroot", "o"]).device == "cuda"
     assert inspect.signature(flow_extract.load_raft).parameters[
