@@ -5,9 +5,11 @@
 
 Phases (any failure exits nonzero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels
-     (one nvcc per source, all at once) and the host flowNN library;
-     print every kernel's registers, stack, static shared memory and
-     spills (cuobjdump);
+     (one nvcc per source, all at once), the host flowNN library and the
+     host JPEG decoder; decode the committed JPEG fixtures
+     (tests/data/jpeg), which must equal cv2's decodes bit for bit, and
+     time an 854x480 4:2:0 decode; print every kernel's registers,
+     stack, static shared memory and spills (cuobjdump);
   2. kernel K1 (RAFT corner-dot correlation) against its plain PyTorch
      version at the main-path shape, in f32 and bf16 (bf16 level 0, f32
      coarser levels); in bf16 on noisy coords (the general route) and on
@@ -52,8 +54,9 @@ Phases (any failure exits nonzero; nothing is caught):
      directories with premasked frames (default path), video
      extrapolation to a 1.2x canvas of 288x516 (pyramid path; the centre
      must be the input) and --Nonlocal on 12 frames (pyramid path);
-     offline flow extraction of 2 PNG videos x 8 frames (28 .flo files,
-     K3 160 launches); the batch driver over 2 videos (every row ok);
+     offline flow extraction of a PNG and a JPEG video x 8 frames (28
+     .flo files, K3 160 launches); the batch driver over a PNG and a
+     JPEG video (every row ok);
   8. stage-1 training at the full width of configs/lafc_train.yaml
      (LAFC: batch 4 x 3 flows at 256x256, cnum 48, resBlocks 1, bf16,
      the global-norm clip) and configs/lafc_single_train.yaml
@@ -84,7 +87,14 @@ Phases (any failure exits nonzero; nothing is caught):
      with a random-init I3D for VFID (every number finite, eval.json;
      I3D features of a clip on the card against the CPU's) and one
      6-frame run with every debug flag (--vis_*, --profile, an --opt
-     YAML that sets 3 GRU iterations);
+     YAML that sets 3 GRU iterations); object removal from a
+     DAVIS-style JPEG clip (24 frames at 854x480, baseline 4:2:0, PNG
+     masks, written by the tests' numpy encoder) at 432x240: the default
+     run, --exact_windows (one FGT forward per window of 8, 12, 13, 12
+     and 11 frames: 20 K2 launches, each window's K2 shape then held
+     against its plain version in f32 and bf16 and timed) and
+     --host_diffusion (s2 on the host's multigrid solve), s6 and s2
+     seconds side by side;
      then training from disk through the training CLI
      (``fgt_tpu_torch.train.train.main``): a YouTube-VOS-style tree (4
      videos x 16 PNG frames at 480x864, .flo flows at 240x432: smooth
@@ -101,7 +111,9 @@ Phases (any failure exits nonzero; nothing is caught):
      ssim, l1, l2 finite in metrics.jsonl, no kernel launch in either
      stage-1 run, 4 launches a step of K2, K4 and K5 in FGT training and
      K2's launches inside validate_fgt equal to 2 videos x its temporal
-     blocks; the on-card-batch rates are printed beside them;
+     blocks; the on-card-batch rates are printed beside them; the same
+     phase again from a JPEG tree (the same pixels as baseline 4:2:0
+     JPEG), its rates beside the PNG tree's;
   9. small inputs through the port on the card and on the CPU (plain
      versions), which must agree: object-removal runs on the K1 path, on
      the pyramid path with --Nonlocal and with RAFT --small, one SGD
@@ -111,7 +123,8 @@ Phases (any failure exits nonzero; nothing is caught):
 ``--profile`` adds a torch.profiler trace of two training steps after
 phase 8 and prints the device time by kernel.
 
-Needs torch with CUDA, nvcc and g++; imports nothing of JAX.
+Needs torch with CUDA, nvcc and g++; imports nothing of JAX (the JPEG
+trees are written by ``tests/torch_port_jpeg_encoder.py``, numpy only).
 """
 
 from __future__ import annotations
@@ -125,6 +138,8 @@ import time
 
 import numpy as np
 
+REPO = os.path.dirname(os.path.abspath(__file__))
+JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12       # dense tensor-core peak
 H100_F32_FLOPS = 67e12         # f32 outside the tensor cores
@@ -922,6 +937,27 @@ def write_pngs(root: str, frames: np.ndarray) -> str:
     return root
 
 
+def jpeg_encoder():
+    """The tests' baseline JPEG encoder (``tests/torch_port_jpeg_encoder.py``,
+    numpy only): this machine has neither cv2 nor Pillow, and the port
+    only decodes."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_port_jpeg_encoder import encode_jpeg
+
+    return encode_jpeg
+
+
+def write_jpegs(root: str, frames: np.ndarray, quality: int = 90) -> str:
+    """``NNNNN.jpg`` files, baseline 4:2:0 (as DAVIS and YouTube-VOS
+    ship their frames)."""
+    encode = jpeg_encoder()
+    os.makedirs(root, exist_ok=True)
+    for i, fr in enumerate(frames):
+        with open(os.path.join(root, f"{i:05d}.jpg"), "wb") as f:
+            f.write(encode(fr, quality, "420"))
+    return root
+
+
 CLI_RANDOM = ["--raft_model", "/nonexistent", "--lafc_ckpts", "/nonexistent",
               "--fgt_ckpts", "/nonexistent", "--imgH", "240", "--imgW", "432",
               "--device", "cuda"]
@@ -1012,17 +1048,18 @@ def phase_modes(counters, root: str):
 
 
 def phase_flow_extract(counters, root: str):
-    """Offline flow extraction: 2 synthetic PNG videos x 8 frames at
-    432x240, f32 RAFT (random weights, seed 0) on the pyramid path, 4
-    pairs per call: 2 x 7 x 2 .flo files read back finite at [240, 432,
-    2]; K3 launches 2 videos x 2 directions x 2 calls x 20 iterations."""
+    """Offline flow extraction: 2 synthetic videos x 8 frames at 432x240
+    (a PNG and a JPEG directory), f32 RAFT (random weights, seed 0) on
+    the pyramid path, 4 pairs per call: 2 x 7 x 2 .flo files read back
+    finite at [240, 432, 2]; K3 launches 2 videos x 2 directions x 2
+    calls x 20 iterations."""
     import torch
     from fgt_tpu_torch.core import flow_io
     from fgt_tpu_torch.pipeline import flow_extract
 
-    for v in range(2):
+    for v, write in enumerate((write_pngs, write_jpegs)):
         frames, _ = synthetic_video(n=8, seed=10 + v)
-        write_pngs(f"{root}/fx/data/video{v}", frames)
+        write(f"{root}/fx/data/video{v}", frames)
     reset(counters)
     t0 = time.perf_counter()
     n = flow_extract.main(["--datapath", f"{root}/fx/data", "--outroot",
@@ -1035,7 +1072,8 @@ def phase_flow_extract(counters, root: str):
                    os.walk(f"{root}/fx/out") for f in fs if f.endswith(".flo"))
     flows = [flow_io.read_flow(f) for f in files]
     log(f"flow extraction: {n} frames, {len(files)} .flo files in "
-        f"{wall:.2f} s (model built, PNG I/O included); launches {launches}; "
+        f"{wall:.2f} s (model built, PNG/JPEG I/O included); launches "
+        f"{launches}; "
         f"max |flow| {max(np.abs(f).max() for f in flows):.3f} px")
     if len(files) != 28 or any(f.shape != (240, 432, 2)
                                or not np.isfinite(f).all() for f in flows):
@@ -1045,15 +1083,15 @@ def phase_flow_extract(counters, root: str):
 
 
 def phase_batch(counters, root: str):
-    """The batch driver: 2 synthetic videos x 8 frames at 432x240 (PNG
-    directories with masks) through one resident model set (full width,
-    bf16, default path); every summary row must be ok."""
+    """The batch driver: 2 synthetic videos x 8 frames at 432x240 (a PNG
+    and a JPEG frame directory, PNG masks) through one resident model set
+    (full width, bf16, default path); every summary row must be ok."""
     import torch
     from fgt_tpu_torch.pipeline import batch
 
-    for v in range(2):
+    for v, write in enumerate((write_pngs, write_jpegs)):
         frames, masks = synthetic_video(n=8, seed=20 + v)
-        write_pngs(f"{root}/bt/videos/v{v}", frames)
+        write(f"{root}/bt/videos/v{v}", frames)
         write_pngs(f"{root}/bt/masks/v{v}", masks * 255)
     reset(counters)
     t0 = time.perf_counter()
@@ -1232,6 +1270,158 @@ def phase_debug_flags(counters, root: str):
         f"K1 kernel in it: {'corr_fused' in text}")
     if counts != want or "corr_fused" not in text:
         raise AssertionError(f"debug flags: want {want} and K1 in the trace")
+
+
+def phase_jpeg_fixtures() -> dict:
+    """(a) The host JPEG decoder built here against the committed
+    fixtures (``tests/data/jpeg``: cv2-, Pillow- and test-encoder-written
+    files of every supported layout, an EXIF-rotated one and one whose
+    samples saturate, each beside cv2's decode as PNG): bit-equal. Then
+    the decode time of an 854x480 4:2:0 frame (DAVIS's size, q90) beside
+    the PNG reader's on the same frame."""
+    from fgt_tpu_torch.core import jpeg
+    from fgt_tpu_torch.pipeline import image_io
+
+    names = sorted(f for f in os.listdir(JPEG_FIXTURES) if f.endswith(".jpg"))
+    if len(names) < 8:
+        raise AssertionError(f"JPEG fixtures missing: {names}")
+    for name in names:
+        got = jpeg.read_jpeg(os.path.join(JPEG_FIXTURES, name),
+                             orientation=True)
+        if got.ndim == 2:
+            got = np.repeat(got[..., None], 3, axis=-1)
+        want = image_io.read_png(os.path.join(JPEG_FIXTURES,
+                                              name[:-4] + ".png"))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"JPEG fixture {name}: the decode differs "
+                                 f"from cv2's")
+    frame = davis_clip(n=1)[0][0]
+    data = jpeg_encoder()(frame, 90, "420")
+    with tempfile.TemporaryDirectory() as d:
+        png = os.path.join(d, "f.png")
+        image_io.write_png(png, frame)
+        times = {}
+        for name, fn in (("jpeg", lambda: jpeg.decode_jpeg(data)),
+                         ("png", lambda: image_io.read_png(png))):
+            fn()
+            reps = 30 if name == "jpeg" else 3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times[name] = 1e3 * (time.perf_counter() - t0) / reps
+    log(f"JPEG fixtures: {len(names)} files bit-equal to cv2's decode; "
+        f"decode of an 854x480 4:2:0 q90 frame ({len(data)} bytes) "
+        f"{times['jpeg']:.3f} ms, the PNG reader on the same frame "
+        f"{times['png']:.3f} ms (host CPU, one thread)")
+    return times
+
+
+def davis_clip(n: int = 24):
+    """A DAVIS-style clip: 854x480 frames (bench.py's smoothed noise,
+    panning 4 px a frame) with a 112 px square hole moving with it."""
+    return synthetic_video(n=n, h=480, w=854, hole=112, y0=180, x0=320,
+                           pan=4, seed=3)
+
+
+def k2_at_window_shapes(shapes: list) -> dict:
+    """K2 against its plain version at each (N, L) the exact windows gave
+    it, in f32 and bf16 (``check_k2``'s tolerances), and its bf16 time at
+    each shape. Returns {(N, L): ms}."""
+    import torch
+    from fgt_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ms = {}
+    for n, l, ch in sorted(set(shapes)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(n, l, ch, device="cuda", generator=g)
+                       .to(dtype) for _ in range(3))
+            check_k2(q, k, v, ch ** -0.5,
+                     f"{str(dtype)[6:]} exact window N={n} L={l}")
+        ms[(n, l)] = cuda_ms(lambda: fa.flash_mhsa(q, k, v, ch ** -0.5), 10)
+    return ms
+
+
+def phase_jpeg_clip(counters, root: str) -> dict:
+    """(b), (c) Object removal through the CLI from a DAVIS-style JPEG
+    clip (24 frames 854x480, baseline 4:2:0, PNG masks) at 432x240, full
+    width, bf16, on the K1 path: the default run (batched windows, device
+    PCG), then ``--exact_windows`` (one FGT forward per window: 8, 12,
+    13, 12 and 11 frames, so 5 x 4 = 20 K2 launches, each of whose shapes
+    is then held against K2's plain version in f32 and bf16), then
+    ``--host_diffusion`` (s2's regionfill by the host's multigrid solve).
+    Each output [24, 240, 432, 3] u8, within 1 of the resized source
+    outside the hole."""
+    from fgt_tpu_torch.ops import flash_attention as fa
+    from fgt_tpu_torch.pipeline import video_inpainting as vi
+
+    frames, masks = davis_clip()
+    jdir = write_jpegs(f"{root}/davis/frames", frames)
+    mdir = write_pngs(f"{root}/davis/masks", masks * 255)
+    source = vi.load_frames(jdir, 240, 432)[0]
+    hole = vi.load_masks(mdir, 240, 432) > 0
+    shapes, real_kernel = [], fa._kernel
+
+    def recording_kernel(lib, name, n_ptrs):
+        """K2's entry point, noting each launch's (N, L, ch); the launch
+        count stays the wrapper's own."""
+        launch = real_kernel(lib, name, n_ptrs)
+        if name != "flash_attention_forward":
+            return launch
+
+        def call(*args):
+            shapes.append((args[n_ptrs], args[n_ptrs + 1], 128))
+            return launch(*args)
+        return call
+
+    stats = {}
+    for label, flags, k2 in (("default", [], 4),
+                             ("--exact_windows", ["--exact_windows"], 20),
+                             ("--host_diffusion", ["--host_diffusion"], 4)):
+        out_dir = f"{root}/davis/out_{label.strip('-')}"
+        fa._kernel = recording_kernel
+        shapes.clear()
+        try:
+            out, _, _ = run_cli(f"JPEG clip {label}", counters, [
+                "--path", jdir, "--path_mask", mdir, "--outroot", out_dir]
+                + flags, {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
+                          "flash_mhsa": k2})
+        finally:
+            fa._kernel = real_kernel
+        with open(f"{out_dir}/timings.json") as f:
+            stats[label] = dict(json.load(f)["stages"],
+                                k2_shapes=list(shapes))
+        err = np.abs(out.astype(np.float64) - source)[~hole].max()
+        if out.shape != (24, 240, 432, 3) or out.dtype != np.uint8 or err > 1:
+            raise AssertionError(f"JPEG clip {label}: output {out.shape} "
+                                 f"{out.dtype}, max |out - source| outside "
+                                 f"the hole {err}")
+    exact = stats["--exact_windows"]["k2_shapes"]
+    frames_per_window = sorted(l // 180 for _, l, _ in exact)  # 180 tokens
+    want = sorted([8, 12, 13, 12, 11] * 4)                      # a frame
+    log(f"JPEG clip --exact_windows: K2 shapes {sorted(set(exact))} "
+        f"(frames a window x 4 blocks: {frames_per_window})")
+    if frames_per_window != want or any(l % 180 for _, l, _ in exact):
+        raise AssertionError(f"exact windows: K2 shapes {exact}, want "
+                             f"windows of {want} frames")
+    ms = k2_at_window_shapes(exact)
+    k2_total = sum(ms[(n, l)] for n, l, _ in exact)
+    batched = stats["default"]["k2_shapes"]
+    n, l, _ = batched[0]
+    log(f"JPEG clip: K2 bf16 ms at the exact windows' shapes "
+        + ", ".join(f"N={a} L={b}: {t:.4f}" for (a, b), t in ms.items())
+        + f"; 20 launches {k2_total:.3f} ms against the batched path's "
+        f"{len(batched)} at N={n} L={l}")
+    s6 = {k: stats[k]["s6_fgt"] for k in ("default", "--exact_windows")}
+    s2 = {k: stats[k]["s2_lafc"] for k in ("default", "--host_diffusion")}
+    log(f"JPEG clip: s6 {s6['--exact_windows']:.4f} s "
+        f"({24 / s6['--exact_windows']:.2f} frames/s) with --exact_windows "
+        f"against {s6['default']:.4f} s ({24 / s6['default']:.2f} frames/s) "
+        f"batched; s2 {s2['--host_diffusion']:.4f} s with --host_diffusion "
+        f"against {s2['default']:.4f} s with the device PCG; s0 frame load "
+        f"(24 JPEG frames decoded and resized) "
+        f"{stats['default']['s0_load_frames']:.4f} s")
+    return stats
 
 
 def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
@@ -1716,9 +1906,12 @@ def smooth_field(h: int, w: int, rng, amp: float) -> np.ndarray:
 
 
 def write_video_tree(root: str, videos: int, frames: int, frame_hw,
-                     flow_hw, seed: int, masks: bool = False) -> dict:
+                     flow_hw, seed: int, masks: bool = False,
+                     fmt: str = "png") -> dict:
     """A YouTube-VOS / DAVIS-style tree from a seed: ``frames/<v>/*.png``
-    (smoothed noise panning 2 px a frame), ``flows/<v>/{forward,
+    (smoothed noise panning 2 px a frame; with ``fmt`` "jpg" the same
+    pixels as ``*.jpg``, baseline 4:2:0 q90, as both datasets ship
+    them), ``flows/<v>/{forward,
     backward}_flo/*.flo`` (a smooth 4 px field plus 3 blocks moving 8 px
     against it, 120 degrees apart on the colour wheel, drifting 1 px a
     frame, so the Canny targets are not empty) and, with ``masks``,
@@ -1738,9 +1931,11 @@ def write_video_tree(root: str, videos: int, frames: int, frame_hw,
             np.uint8)
         big = resize_linear_u8(low, (fh // 8 + 8) * 8,
                                (fw // 8 + 8 + frames) * 8)
+        clip = np.stack([big[32:32 + fh, 32 + 2 * i:32 + 2 * i + fw]
+                         for i in range(frames)])
+        (write_jpegs if fmt == "jpg" else write_pngs)(
+            os.path.join(roots["frames"], name), clip)
         for i in range(frames):
-            write_png(os.path.join(roots["frames"], name, f"{i:05d}.png"),
-                      big[32:32 + fh, 32 + 2 * i:32 + 2 * i + fw])
             if masks:
                 m = np.zeros((fh, fw), np.uint8)
                 m[fh // 3:fh // 3 + fh // 4,
@@ -1811,9 +2006,10 @@ def step_rate(rows: list) -> float:
     return len(kept) / sum(kept)
 
 
-def phase_cli_train(kernels, root: str, smi: str) -> dict:
+def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png") -> dict:
     """The three training configurations from disk through the training
-    CLI (see the module doc). ``kernels``: the K1-K5 counters."""
+    CLI (see the module doc), from a tree of ``fmt`` ("png" or "jpg")
+    frames. ``kernels``: the K1-K5 counters."""
     import torch
     from fgt_tpu_torch.ops import flash_attention
     from fgt_tpu_torch.train import train as train_cli
@@ -1821,12 +2017,13 @@ def phase_cli_train(kernels, root: str, smi: str) -> dict:
 
     t_phase = time.perf_counter()
     train = write_video_tree(os.path.join(root, "train"), 4, 16, (480, 864),
-                             (240, 432), seed=20)
+                             (240, 432), seed=20, fmt=fmt)
     val = write_video_tree(os.path.join(root, "val"), 2, 24, (240, 432),
-                           (240, 432), seed=21, masks=True)
-    log(f"cli train: trees written in {time.perf_counter() - t_phase:.2f} s "
-        f"(train 4 videos x 16 PNG frames 480x864 + .flo 240x432; val 2 x "
-        f"24 at 240x432 with masks)")
+                           (240, 432), seed=21, masks=True, fmt=fmt)
+    log(f"cli train ({fmt}): trees written in "
+        f"{time.perf_counter() - t_phase:.2f} s (train 4 videos x 16 "
+        f"{fmt.upper()} frames 480x864 + .flo 240x432; val 2 x 24 at "
+        f"240x432 with PNG masks)")
     val_info = {"frame_root": val["frames"], "flow_root": val["flows"],
                 "mask_root": val["masks"], "num_videos": 2}
     # one validation each, mid-run: LAFC takes one batch an epoch (4
@@ -1920,7 +2117,7 @@ def phase_cli_train(kernels, root: str, smi: str) -> dict:
         vals = [r for r in rows if "val/psnr" in r]
         terms = [k for k in steps[0] if k not in ("step", "time", "lr",
                                                   "it_per_s")]
-        log(f"cli {model}: {len(steps)} steps from disk, "
+        log(f"cli {model} ({fmt}): {len(steps)} steps from disk, "
             f"{st['steps_per_s']:.4f} steps/s through the loader "
             f"(steps 3-12, the validation's interval left out; "
             f"batch {trainer.train_loader.batch_size}, "
@@ -1931,11 +2128,11 @@ def phase_cli_train(kernels, root: str, smi: str) -> dict:
             + f"; peak device memory {st['peak_gib']:.3f} GiB; launches "
             f"{st['launches']}; {smi}")
         share = st["wait_ms"] / (st["wait_ms"] + st["step_ms"])
-        log(f"cli {model} steps 3-12: waiting on the loader "
+        log(f"cli {model} ({fmt}) steps 3-12: waiting on the loader "
             f"{st['wait_ms']:.2f} ms/step, in the step (synchronized) "
             f"{st['step_ms']:.2f} ms/step; host data share {share:.4f}")
         for v, probe_v in zip(vals, st["vals"]):
-            log(f"cli {model} validation: " + json.dumps(
+            log(f"cli {model} ({fmt}) validation: " + json.dumps(
                 {k: round(v[k], 6) for k in v if k.startswith("val/")})
                 + f"; {probe_v['s']:.3f} s, peak device memory "
                 f"{probe_v['peak'] / 2 ** 30:.3f} GiB (the run's peak "
@@ -1968,7 +2165,7 @@ def phase_cli_train(kernels, root: str, smi: str) -> dict:
     if fgt["launches"] != want or k2_in_val[0] != want_val:
         raise AssertionError(f"cli model: launches {fgt['launches']}, want "
                              f"{want}")
-    log(f"cli train phase: {time.perf_counter() - t_phase:.2f} s")
+    log(f"cli train phase ({fmt}): {time.perf_counter() - t_phase:.2f} s")
     for st in out.values():
         del st["trainer"], st["rows"], st["vals"]
     torch.cuda.empty_cache()
@@ -2096,8 +2293,11 @@ def main() -> int:
     secs = _build.build_cuda_kernels()
     t0 = time.perf_counter()
     native._load()
+    t1 = time.perf_counter()
+    _build.load_host_library("jpeg_decode")
     log(f"build: CUDA kernels {secs:.2f} s, host flowNN library "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{t1 - t0:.2f} s, host JPEG decoder {time.perf_counter() - t1:.2f} s")
+    phase_jpeg_fixtures()
     resources = resource_usage()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2135,6 +2335,7 @@ def main() -> int:
         phase_alternate(counters, root)
         phase_evaluate(counters, root)
         phase_debug_flags(counters, root)
+        phase_jpeg_clip(counters, root)
     train_counters = (flash_attention.flash_mhsa,
                       flash_attention.flash_attention_dq,
                       flash_attention.flash_attention_dkv)
@@ -2147,6 +2348,14 @@ def main() -> int:
             train_counters, "--profile" in sys.argv, oracle)
     with tempfile.TemporaryDirectory() as cli_root:
         cli = phase_cli_train(all_counters, cli_root, smi)
+    with tempfile.TemporaryDirectory() as cli_root:
+        cli_jpg = phase_cli_train(all_counters, cli_root, smi, fmt="jpg")
+    log("training from disk, JPEG tree vs PNG tree: " + "; ".join(
+        f"{m} {cli_jpg[m]['steps_per_s']:.4f} vs {cli[m]['steps_per_s']:.4f} "
+        f"steps/s, loader " + ", ".join(
+            f"{w} workers {cli_jpg[m]['items_per_s'][w]:.3f} vs "
+            f"{cli[m]['items_per_s'][w]:.3f}" for w in cli[m]['items_per_s'])
+        + " items/s" for m in cli) + f"; {smi}")
     on_card = {"lafc_single": lafc_stats[True]["steps_per_s"],
                "lafc": lafc_stats[False]["steps_per_s"],
                "model": fgt_stats["steps_per_s"]}

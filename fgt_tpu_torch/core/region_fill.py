@@ -9,8 +9,11 @@ flows match it); un-masked pixels are restored exactly. The perimeter is
 a 3x3 cross dilation in numpy in place of ``cv2.dilate``.
 
 The reference's ``factor != 1`` (solve on a resized grid) needs cv2's
-float64 resize and raises here; only the inference CLI's
-``--host_diffusion`` would reach it. The card's own diffusion is
+float64 resize and raises here. No caller in the JAX package passes a
+factor: its datasets and its host ``diffusion()`` (whose scipy fallback
+calls this at factor 1) all solve at full size, and the inference CLI's
+``--host_diffusion`` runs the native multigrid solve
+(``native.diffuse_flows``). The card's own diffusion is
 ``ops/diffusion.py``.
 """
 

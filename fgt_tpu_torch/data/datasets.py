@@ -12,8 +12,9 @@ pure numpy, channel-last, no cv2 or imageio.
 
 Items are numpy dicts of [T, H, W, C] / [H, W, C] arrays under the JAX
 datasets' keys, drawn from ``random`` and ``np.random`` in their order,
-so the same seeds give equal items. Frames are PNG (the GPU machine has
-no JPEG decoder; a ``.jpg`` frame raises), resized as cv2 resizes uint8
+so the same seeds give equal items. Frames are JPEG or PNG, read as the
+JAX datasets' imageio reads them (EXIF orientation ignored), resized as
+cv2 resizes uint8
 (``image_io.resize_linear_u8``); masks by ``resize_nearest``, flows by
 ``resize_linear``, both bit-equal to cv2. A failed item is replaced by
 item 0, as the reference does (train_dataset.py:39-45).
@@ -55,11 +56,8 @@ def load_name2len(path_or_dir, frame_root: str | None = None) -> dict:
 
 
 def read_frame(path: str, height: int, width: int) -> np.ndarray:
-    """[height, width, 3] uint8 RGB of a PNG frame."""
-    if not path.lower().endswith(".png"):
-        raise ValueError(f"{path}: only PNG frames are read (no JPEG "
-                         f"decoder on the GPU machine; convert to PNG)")
-    frame = image_io.read_png(path)
+    """[height, width, 3] uint8 RGB of a JPEG or PNG frame."""
+    frame = image_io.read_image(path, orientation=False)
     if frame.ndim == 2:
         frame = np.stack([frame] * 3, axis=-1)
     return image_io.resize_linear_u8(frame[..., :3], height, width)

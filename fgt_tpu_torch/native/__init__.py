@@ -3,9 +3,10 @@
 The source is the repository's ``native/fgt_native.cpp``; this loader
 compiles its own copy with g++ into the port's git-ignored build
 directory at first use (same flags as ``native/Makefile``) and binds only
-what the object-removal path calls: ``flownn_pass``, ``flownn_sample``,
-``flownn_fuse`` (stage s4) and ``unfilled_mask`` (stage s5). There is no
-Python fallback: a missing compiler raises.
+what the inference path calls: ``flownn_pass``, ``flownn_sample``,
+``flownn_fuse`` (stage s4), ``unfilled_mask`` (stage s5) and
+``diffuse_flows`` (s2's regionfill on the host, ``--host_diffusion``).
+There is no Python fallback: a missing compiler raises.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ _lock = threading.Lock()
 _lib = None
 
 _u8 = ctypes.POINTER(ctypes.c_uint8)
+_f64 = ctypes.c_double
 _f32 = ctypes.POINTER(ctypes.c_float)
 _i32 = ctypes.POINTER(ctypes.c_int32)
 _int = ctypes.c_int
@@ -52,6 +54,9 @@ def _load() -> ctypes.CDLL:
                                         _int]
             lib.unfilled_mask.restype = None
             lib.unfilled_mask.argtypes = [_u8, _u8, _int, _int, _u8]
+            lib.diffuse_flows.restype = None
+            lib.diffuse_flows.argtypes = [_f32, _u8, _f32, _int, _int, _int,
+                                          _int, _f64, _int]
             _lib = lib
         return _lib
 
@@ -157,3 +162,23 @@ def unfilled_mask(hole: np.ndarray, gm: np.ndarray) -> np.ndarray:
     lib.unfilled_mask(_ptr(h_arr, ctypes.c_uint8), _ptr(g_arr, ctypes.c_uint8),
                       h, w, _ptr(out, ctypes.c_uint8))
     return out.astype(bool)
+
+
+def diffuse_flows(flows: np.ndarray, masks: np.ndarray, tol: float = 1e-7,
+                  max_iter: int = 20000) -> np.ndarray:
+    """Regionfill of every plane of flows [N, H, W, C] (f32) inside masks
+    [N, H, W] (nonzero = hole) by the source's multigrid Laplace solve,
+    parallel over frames: the hole is zeroed, then solved to ``tol``
+    from its border. The JAX package's host diffusion, with its
+    tolerance and iteration cap. Returns a new f32 array."""
+    lib = _load()
+    f = _c(flows, np.float32)
+    m = _c(masks, np.uint8)
+    n, h, w, c = f.shape
+    if m.shape != (n, h, w):
+        raise ValueError(f"masks {m.shape} vs flows {f.shape}")
+    out = np.empty_like(f)
+    lib.diffuse_flows(_ptr(f, ctypes.c_float), _ptr(m, ctypes.c_uint8),
+                      _ptr(out, ctypes.c_float), n, h, w, c, float(tol),
+                      int(max_iter))
+    return out

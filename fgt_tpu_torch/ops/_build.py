@@ -2,7 +2,8 @@
 
 Each CUDA source under ``csrc/`` compiles with nvcc into its own shared
 library with a plain C interface (bound with ctypes by its wrapper); the
-host flowNN/Poisson kernels compile with g++. Outputs land in the
+host libraries (flowNN/Poisson from ``native/``, the JPEG decoder in
+``csrc/jpeg_decode.cpp``) compile with g++. Outputs land in the
 git-ignored ``fgt_tpu_torch/build/`` directory, named by a hash of the
 source, the ``*.cuh`` headers beside it and the flags, so an edited
 source or header rebuilds and concurrent processes
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -34,6 +36,13 @@ CUDA_SOURCES = {
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
 }
+
+# host libraries: name -> source under csrc/; -march=native code is only
+# valid on the host that built it, so the cache name carries the host name
+HOST_SOURCES = {
+    "jpeg_decode": "jpeg_decode.cpp",
+}
+HOST_FLAGS = ["-O3", "-march=native", "-fPIC", "-shared"]
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -118,6 +127,19 @@ def load_cuda_library(name: str) -> ctypes.CDLL:
             src = os.path.join(CSRC_DIR, CUDA_SOURCES[name])
             lib = ctypes.CDLL(build_shared(name, src, nvcc_path(),
                                            NVCC_FLAGS))
+            _libs[name] = lib
+        return lib
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The ctypes handle of host library ``name``, built with g++ on
+    first use (a missing compiler raises; there is no fallback)."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            src = os.path.join(CSRC_DIR, HOST_SOURCES[name])
+            lib = ctypes.CDLL(build_shared(name, src, "g++", HOST_FLAGS,
+                                           key=platform.node()))
             _libs[name] = lib
         return lib
 

@@ -2,8 +2,8 @@
 port's counterpart of ``fgt_tpu/pipeline/batch.py``.
 
 :class:`~fgt_tpu_torch.pipeline.video_inpainting.Models` is built once
-and every video directory under ``--videos_root`` (masks under
-``--masks_root``, same names) goes through it. Results land in
+and every video directory under ``--videos_root`` (PNG or JPEG frames;
+masks under ``--masks_root``, same names) goes through it. Results land in
 ``--outroot/<video>/``, with one ``batch_summary.jsonl`` row per video
 (ok or the error, wall seconds, output path). A failing video is logged
 and the batch goes on.

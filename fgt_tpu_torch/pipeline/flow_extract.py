@@ -2,8 +2,10 @@
 counterpart of ``fgt_tpu/pipeline/flow_extract.py`` (reference
 tool/flow_extract.py:55-192). LAFC's training flows are made this way.
 
-For every video under ``--datapath`` (a directory of PNG frames, or a
-``<video>.npy`` stack [N, H, W, 3]), frames are resized to
+For every video under ``--datapath`` (a directory of ``*.png`` /
+``*.jpg`` frames, EXIF orientation ignored as the JAX tool's imageio
+reads them, or a ``<video>.npy`` stack [N, H, W, 3]), frames are resized
+to
 ``--height`` x ``--width`` (cv2 ``INTER_LINEAR`` on float frames, as the
 JAX tool), and forward and backward flows between consecutive frames are
 written as ``<outroot>/<video>/forward_flo/NNNNN.flo`` and
@@ -67,7 +69,8 @@ def extract_video(raft: raft_mod.RAFT, frames: np.ndarray, out_dir: str,
 
 
 def list_videos(datapath: str) -> list:
-    """(name, path) of every PNG directory and ``.npy`` stack, by name."""
+    """(name, path) of every frame directory and ``.npy`` stack, by
+    name."""
     out = []
     for name in sorted(os.listdir(datapath)):
         path = os.path.join(datapath, name)
@@ -81,10 +84,10 @@ def list_videos(datapath: str) -> list:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="RAFT flows of every video under --datapath. Frames are "
-                    "PNG directories or .npy stacks; JPEG is not read (the "
-                    "GPU machine has no decoder for it).")
+                    "directories of *.png / *.jpg files (baseline JPEG) or "
+                    ".npy stacks.")
     p.add_argument("--datapath", required=True,
-                   help="root of per-video PNG directories / .npy stacks")
+                   help="root of per-video frame directories / .npy stacks")
     p.add_argument("--outroot", required=True)
     p.add_argument("--height", type=int, default=240)
     p.add_argument("--width", type=int, default=432)
@@ -105,7 +108,7 @@ def main(argv=None) -> int:
     raft = load_raft(args.raft_model, args.device, args.seed)
     total, t0 = 0, time.perf_counter()
     for name, path in list_videos(args.datapath):
-        frames = image_io.read_stack(path)
+        frames = image_io.read_stack(path, orientation=False)
         if frames.ndim == 3:
             frames = np.repeat(frames[..., None], 3, axis=-1)
         if frames.shape[0] < 2:

@@ -1,10 +1,12 @@
 """Frame I/O without cv2 or imageio: 8-bit PNG decode/encode on the
-standard library's ``zlib``, and ``.npy`` stacks.
+standard library's ``zlib``, baseline JPEG decode (``core/jpeg.py``,
+bit-equal to libjpeg-turbo as cv2 and imageio run it), and ``.npy``
+stacks.
 
-The reader takes non-interlaced 8-bit grayscale, gray+alpha, RGB, RGBA
-and palette images with all five PNG row filters; that covers frames and
-masks as video tools write them. Anything else raises (JPEG included:
-the GPU machine has no decoder for it).
+The PNG reader takes non-interlaced 8-bit grayscale, gray+alpha, RGB,
+RGBA and palette images with all five PNG row filters; that covers
+frames and masks as video tools write them. :func:`read_image` picks
+PNG or JPEG by the file's signature; what neither reader takes raises.
 
 :func:`resize_linear` and :func:`resize_nearest` reproduce cv2's
 ``INTER_LINEAR`` (on float32 frames and flows) and ``INTER_NEAREST``
@@ -24,6 +26,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from fgt_tpu_torch.core import jpeg
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -112,15 +116,36 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
-def read_stack(path: str) -> np.ndarray:
-    """A ``.npy`` stack, or every ``*.png`` in a directory in name order,
-    as one uint8 array [N, H, W(, C)]."""
+def read_image(path: str, orientation: bool) -> np.ndarray:
+    """[H, W] or [H, W, C] uint8 of a PNG or JPEG file, told apart by its
+    signature. ``orientation`` applies a JPEG's EXIF orientation, as
+    ``cv2.imread`` does; imageio ignores it."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == _SIG:
+        return read_png(path)
+    if head[:2] == jpeg.SOI:
+        return jpeg.read_jpeg(path, orientation)
+    raise ValueError(f"{path}: not a PNG or JPEG")
+
+
+def read_frames(path: str, orientation: bool) -> list:
+    """The frames of a ``.npy`` stack, or of the ``*.png`` and ``*.jpg``
+    files of a directory sorted together by name (as the JAX CLI globs
+    them), as a list of uint8 arrays, each in its own shape.
+    ``orientation``: see :func:`read_image`."""
     if path.endswith(".npy"):
-        return np.load(path)
-    files = sorted(glob.glob(os.path.join(path, "*.png")))
+        return list(np.load(path))
+    files = sorted(glob.glob(os.path.join(path, "*.png"))
+                   + glob.glob(os.path.join(path, "*.jpg")))
     if not files:
-        raise FileNotFoundError(f"no .png frames in {path}")
-    return np.stack([read_png(f) for f in files])
+        raise FileNotFoundError(f"no .png or .jpg frames in {path}")
+    return [read_image(f, orientation) for f in files]
+
+
+def read_stack(path: str, orientation: bool) -> np.ndarray:
+    """:func:`read_frames` as one array [N, H, W(, C)]."""
+    return np.stack(read_frames(path, orientation))
 
 
 def write_frames(outdir: str, frames: np.ndarray) -> None:

@@ -16,7 +16,8 @@ Stages (device work on the card unless the caller asks for the CPU):
               resolution with an antialiased bilinear filter
   s1b         extrapolation only: the canvas, zero-padded flows and the
               border masks
-  s2 LAFC     device diffusion (multigrid-preconditioned CG), then the
+  s2 LAFC     device diffusion (multigrid-preconditioned CG), or the
+              host's multigrid solve under ``--host_diffusion``, then the
               P3D net over reflect-indexed windows, pivot composite
   s3 host     gradients (forward differences, hole-touching ones zeroed)
   s3b RAFT    ``--Nonlocal`` only: flows between every frame and the key
@@ -25,12 +26,14 @@ Stages (device work on the card unless the caller asks for the CPU):
   s4 host     flowNN gradient propagation (native OpenMP kernels)
   s5 host     Poisson blending (scipy splu)
   s6 FGT      batched windows, temporal attention through kernel K2,
-              ordered 50/50 composite in pivot order, trunc-cast to u8
+              ordered 50/50 composite in pivot order, trunc-cast to u8;
+              under ``--exact_windows`` one forward per window at the
+              reference's own shapes (neighbours truncated at the ends)
 
 Entry points: :func:`inpaint` (arrays in, arrays out) and
-:func:`video_inpainting` (the CLI: ``.npy`` stacks or PNG directories in,
-``result.npy``, PNGs and the synchronized stage seconds in
-``timings.json`` out). The CLI's debug flags write what the JAX CLI
+:func:`video_inpainting` (the CLI: ``.npy`` stacks or PNG / JPEG
+directories in, ``result.npy``, PNGs and the synchronized stage seconds
+in ``timings.json`` out). The CLI's debug flags write what the JAX CLI
 writes, in the same directories: ``--vis_flows`` (the s1 flows under
 ``flow/``), ``--vis_completed_flows`` (s2's under ``completed_flow/``),
 ``--vis_prop`` (the Poisson frames and the pixels left for FGT);
@@ -64,7 +67,7 @@ import scipy.ndimage
 import torch
 import torch.nn.functional as F
 
-from fgt_tpu_torch import DEFAULT_DEVICE
+from fgt_tpu_torch import DEFAULT_DEVICE, native
 from fgt_tpu_torch.convert.weights import load_state
 from fgt_tpu_torch.core import flow_io, flow_viz
 from fgt_tpu_torch.models import fgt as fgt_mod
@@ -374,14 +377,22 @@ def calculate_nonlocal_flows(models: Models, video_u8: torch.Tensor,
 
 
 def complete_flows(models: Models, flows: torch.Tensor, masks: torch.Tensor,
-                   chunk: int = 16, backoffs: Optional[list] = None):
+                   chunk: int = 16, backoffs: Optional[list] = None,
+                   host_diffusion: bool = False):
     """s2: diffusion + LAFC over reflect-indexed windows, composited at
     the pivot as out·m + flow·(1-m). flows: [T, H, W, 2] f32; masks:
-    [T, H, W] {0,1} on the device. Returns f32 [T, H, W, 2]."""
+    [T, H, W] {0,1} on the device. The diffusion runs on the device, or
+    with ``host_diffusion`` through the host's multigrid solve
+    (``native.diffuse_flows``, the JAX package's ``diffusion()``).
+    Returns f32 [T, H, W, 2]."""
     cfg = models.lafc_config
     num_flows, interval = cfg["num_flows"], cfg.get("flow_interval", 3)
     t, h, w, _ = flows.shape
-    diffused = diffuse_flows_device(flows, masks)
+    if host_diffusion:
+        diffused = torch.from_numpy(native.diffuse_flows(
+            flows.cpu().numpy(), masks.cpu().numpy() > 0)).to(flows.device)
+    else:
+        diffused = diffuse_flows_device(flows, masks)
     ids = torch.tensor([indices_gen(i, interval, num_flows, t)
                         for i in range(t)], device=flows.device)
     mf = masks.float()
@@ -452,6 +463,46 @@ def fgt_synthesis(models: Models, video_u8: torch.Tensor,
     return comp
 
 
+def fgt_synthesis_exact(models: Models, frames: np.ndarray,
+                        masks_u8: torch.Tensor, flows_f: torch.Tensor,
+                        neighbor_stride: int = 5, step: int = 10,
+                        num_ref: int = -1) -> torch.Tensor:
+    """s6 at the reference's own window shapes (``--exact_windows``): one
+    FGT forward per pivot over its neighbours, truncated at the video's
+    ends, and its global reference frames, as the JAX package's
+    ``fgt_synthesis(exact_windows=True)``. Its input is the float Poisson
+    output, not a rounded copy: FGT reads frames·2-1 (f64, cast once to
+    f32) and the composite keeps trunc(frames·255) outside the hole.
+
+    frames: [N, H, W, 3] float in [0, 1] on the host; masks_u8: [N, H, W]
+    (pixels left for FGT); flows_f: [N-1, H, W, 2] completed forward
+    flows. Returns [N, H, W, 3] u8."""
+    n, h, w, _ = frames.shape
+    dev = masks_u8.device
+    flows = norm_flows(torch.cat([flows_f, flows_f[-1:]], dim=0).float())
+    flows = flows.to(models.dtype)
+    mf = masks_u8.float()[..., None]
+    normed = torch.from_numpy((frames * 2 - 1).astype(np.float32)).to(dev)
+    valid = torch.from_numpy((frames * 255.0).astype(np.uint8)).to(dev)
+    comp = torch.zeros(n, h, w, 3, dtype=torch.float32, device=dev)
+    seen = set()
+    for f in range(0, n, neighbor_stride):
+        neighbor_ids = list(range(max(0, f - neighbor_stride),
+                                  min(n, f + neighbor_stride + 1)))
+        ids = neighbor_ids + get_ref_index(f, neighbor_ids, n, step, num_ref)
+        sel = torch.tensor(ids, device=dev)
+        m = mf[sel]
+        masked = (normed[sel] * (1 - m)).to(models.dtype)[None]
+        out = models.fgt(masked, flows[sel][None], m.to(models.dtype)[None])[0]
+        out_u8 = ((out.float() + 1.0) / 2.0 * 255.0).to(torch.uint8)
+        for k, idx in enumerate(neighbor_ids):
+            new = out_u8[k].float() * mf[idx] + valid[idx].float() * (
+                1 - mf[idx])
+            comp[idx] = 0.5 * comp[idx] + 0.5 * new if idx in seen else new
+            seen.add(idx)
+    return comp.to(torch.uint8)
+
+
 def extrapolation(video: np.ndarray, flows_f: torch.Tensor,
                   flows_b: torch.Tensor, h_scale: float, w_scale: float):
     """Canvas enlargement for outpainting (reference :291-339): the
@@ -486,7 +537,8 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
             raft_chunk: Optional[int] = None, lafc_chunk: Optional[int] = None,
             window_batch: Optional[int] = None, host_upscale: bool = False,
             timer: Optional[StageTimer] = None, vis: tuple = (),
-            vis_root: Optional[str] = None) -> np.ndarray:
+            vis_root: Optional[str] = None, exact_windows: bool = False,
+            host_diffusion: bool = False) -> np.ndarray:
     """Video inpainting on arrays. frames: [N, H, W, 3], uint8 or float in
     [0, 255] (a resized source); masks: [N, H, W] (nonzero = hole),
     unused by video extrapolation, whose hole is the canvas border.
@@ -501,7 +553,11 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
 
     ``vis`` names the debug outputs to write under ``vis_root``, as the
     JAX CLI's flags: "flows" (s1's flows), "completed_flows" (s2's),
-    "prop" (the Poisson frames and the pixels left for FGT)."""
+    "prop" (the Poisson frames and the pixels left for FGT).
+
+    ``exact_windows`` runs s6 at the reference's per-window shapes on the
+    float Poisson frames (:func:`fgt_synthesis_exact`); ``host_diffusion``
+    runs s2's regionfill on the host (:func:`complete_flows`)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if set(vis) - set(VIS) or (vis and vis_root is None):
@@ -556,9 +612,9 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
         with timer.stage("s2_lafc"):
             fm = torch.from_numpy(flow_mask.astype(np.uint8)).to(dev)
             comp_f = complete_flows(models, flows_f, fm[:-1], lafc_chunk,
-                                    backoffs)
+                                    backoffs, host_diffusion)
             comp_b = complete_flows(models, flows_b, fm[1:], lafc_chunk,
-                                    backoffs)
+                                    backoffs, host_diffusion)
             flow_f_np = comp_f.cpu().numpy()
             flow_b_np = comp_b.cpu().numpy()
         if "completed_flows" in vis:
@@ -607,12 +663,18 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
             save_prop(vis_root, blends, mask_cur)
 
         with timer.stage("s6_fgt"):
-            comp = fgt_synthesis(
-                models, torch.from_numpy(to_u8(np.stack(blends) * 255.0)
-                                         ).to(dev),
-                torch.from_numpy(mask_cur.astype(np.uint8)).to(dev),
-                comp_f, neighbor_stride, step, num_ref, window_batch,
-                backoffs)
+            if exact_windows:
+                comp = fgt_synthesis_exact(
+                    models, np.stack(blends),
+                    torch.from_numpy(mask_cur.astype(np.uint8)).to(dev),
+                    comp_f, neighbor_stride, step, num_ref)
+            else:
+                comp = fgt_synthesis(
+                    models, torch.from_numpy(to_u8(np.stack(blends) * 255.0)
+                                             ).to(dev),
+                    torch.from_numpy(mask_cur.astype(np.uint8)).to(dev),
+                    comp_f, neighbor_stride, step, num_ref, window_batch,
+                    backoffs)
             out = comp.cpu().numpy()
     if backoffs:
         logger.warning("OOM backoffs: %s", backoffs)
@@ -710,10 +772,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(only keys the parser has)")
     p.add_argument("--mode", default="object_removal", choices=MODES)
     p.add_argument("--path", default="data/frames",
-                   help=".npy stack or directory of PNG frames (no JPEG: "
-                        "the port's reader is PNG only)")
+                   help=".npy stack or directory of *.png / *.jpg frames "
+                        "(baseline JPEG; EXIF orientation applied, as "
+                        "cv2.imread does)")
     p.add_argument("--path_mask", default="data/masks",
-                   help=".npy stack or directory of PNG masks")
+                   help=".npy stack or directory of *.png / *.jpg masks")
     p.add_argument("--outroot", default="out")
     p.add_argument("--consistencyThres", type=float, default=5)
     p.add_argument("--alpha", type=float, default=0.1)
@@ -756,6 +819,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--raft_iters", type=int, default=20)
     p.add_argument("--lafc_chunk", type=int, default=None)
     p.add_argument("--window_batch", type=int, default=None)
+    p.add_argument("--exact_windows", action="store_true",
+                   help="reproduce the reference's per-window shapes "
+                        "exactly (one forward per window, on the float "
+                        "Poisson frames)")
+    p.add_argument("--host_diffusion", action="store_true",
+                   help="run the s2 regionfill diffusion on the host "
+                        "(native multigrid) instead of the device's "
+                        "preconditioned CG")
     p.add_argument("--fused_corr", choices=["auto", "on", "off"],
                    default="auto",
                    help="s1 correlation: auto/on = kernel K1 on pooled "
@@ -810,28 +881,36 @@ def build_models(args) -> Models:
 
 def load_frames(path: str, img_h: int, img_w: int,
                 premask_path: Optional[str] = None):
-    """Frames as the JAX loader makes them: RGB at the source size,
-    premasked there when ``premask_path`` is given (watermark removal),
-    then float cv2-INTER_LINEAR resized to img_h x img_w. Returns
-    (float32 [N, img_h, img_w, 3] in [0, 255], source (H, W))."""
-    frames = image_io.read_stack(path)
-    if frames.ndim == 3:
-        frames = np.repeat(frames[..., None], 3, axis=-1)
-    frames = frames[..., :3].astype(np.float32)
-    if premask_path is not None:
-        holes = image_io.read_stack(premask_path)
-        if holes.ndim == 4:
-            holes = holes[..., 0]
-        frames = frames * (1 - (holes > 0).astype(np.float32)[..., None])
-    return image_io.resize_linear(frames, img_h, img_w), frames.shape[1:3]
+    """Frames as the JAX loader makes them, one at a time: RGB at its
+    source size (PNG or JPEG, EXIF orientation applied as its
+    ``cv2.imread``), premasked there when ``premask_path`` is given
+    (watermark removal), then float cv2-INTER_LINEAR resized to
+    img_h x img_w. Returns (float32 [N, img_h, img_w, 3] in [0, 255],
+    the last frame's source (H, W))."""
+    frames = image_io.read_frames(path, orientation=True)
+    holes = (image_io.read_frames(premask_path, orientation=True)
+             if premask_path is not None else None)
+    if holes is not None and len(holes) != len(frames):
+        raise ValueError(f"{len(frames)} frames but {len(holes)} masks")
+    out = []
+    for i, frame in enumerate(frames):
+        if frame.ndim == 2:
+            frame = np.repeat(frame[..., None], 3, axis=-1)
+        frame = frame[..., :3].astype(np.float32)
+        if holes is not None:
+            hole = holes[i][..., 0] if holes[i].ndim == 3 else holes[i]
+            frame = frame * (1 - (hole > 0).astype(np.float32)[..., None])
+        out.append(image_io.resize_linear(frame[None], img_h, img_w)[0])
+    return np.stack(out), frame.shape[:2]
 
 
 def load_masks(path: str, img_h: int, img_w: int) -> np.ndarray:
-    """[N, img_h, img_w] masks (channel 0), nearest-resized."""
-    masks = image_io.read_stack(path)
-    if masks.ndim == 4:
-        masks = masks[..., 0]
-    return image_io.resize_nearest(masks, img_h, img_w)
+    """[N, img_h, img_w] masks (channel 0 of PNG or JPEG files, EXIF
+    orientation applied), each nearest-resized from its own size."""
+    return np.stack([
+        image_io.resize_nearest((m[..., 0] if m.ndim == 3 else m)[None],
+                                img_h, img_w)[0]
+        for m in image_io.read_frames(path, orientation=True)])
 
 
 def video_inpainting(args, models: Optional[Models] = None) -> str:
@@ -858,7 +937,9 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
                   lafc_chunk=args.lafc_chunk, window_batch=args.window_batch,
                   host_upscale=tuple(src_hw) != (args.imgH, args.imgW),
                   timer=timer, vis_root=args.outroot,
-                  vis=tuple(v for v in VIS if getattr(args, f"vis_{v}")))
+                  vis=tuple(v for v in VIS if getattr(args, f"vis_{v}")),
+                  exact_windows=args.exact_windows,
+                  host_diffusion=args.host_diffusion)
     with timer.stage("s7_write"):
         image_io.write_frames(args.outroot, out)
     n = out.shape[0]

@@ -39,15 +39,17 @@ def _ref_index(neighbor_ids, length, ref_length):
 
 
 def _read_window_frames(frame_dir, width, height, ids):
+    """The window's frames, ``NNNNN.jpg`` before ``NNNNN.png`` as the JAX
+    validation looks for them (EXIF orientation ignored, as its imageio
+    reads them); none when one is missing."""
     out = []
     for i in ids:
-        if os.path.exists(os.path.join(frame_dir, f"{i:05d}.jpg")):
-            raise ValueError(f"{frame_dir}: only PNG frames are read (no "
-                             f"JPEG decoder on the GPU machine)")
-        p = os.path.join(frame_dir, f"{i:05d}.png")
-        if not os.path.exists(p):
+        paths = [os.path.join(frame_dir, f"{i:05d}.{ext}")
+                 for ext in ("jpg", "png")]
+        p = next((p for p in paths if os.path.exists(p)), None)
+        if p is None:
             return []
-        f = image_io.read_png(p)
+        f = image_io.read_image(p, orientation=False)
         if f.ndim == 2:
             f = np.stack([f] * 3, axis=-1)
         out.append(image_io.resize_linear_u8(f[..., :3], height, width))
@@ -100,7 +102,8 @@ def validate_fgt(gen: torch.nn.Module, frame_root: str,
             if mask_root:
                 p = os.path.join(mask_root, video, f"{i:05d}.png")
                 if os.path.exists(p):
-                    m = (image_io.read_png(p) > 127).astype(np.uint8)
+                    m = (image_io.read_image(p, orientation=False)
+                         > 127).astype(np.uint8)
                     if m.ndim == 3:
                         m = m[..., 0]
                     m = image_io.resize_nearest(m[None], height, width)[0]

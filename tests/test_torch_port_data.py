@@ -243,10 +243,145 @@ def test_name2len_and_helpers(tree):
 
 
 def test_jpeg_frames_raise_naming_the_decoder(tmp_path):
-    path = tmp_path / "00000.jpg"
-    imageio.imwrite(path, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(ValueError, match="JPEG"):
-        tds.read_frame(str(path), 8, 8)
+    """A baseline JPEG frame reads as the JAX dataset reads it; one the
+    decoder does not take (progressive) raises, naming the file and what
+    it is."""
+    frame = (np.random.RandomState(5).rand(30, 50, 3) * 255).astype(np.uint8)
+    path = str(tmp_path / "00000.jpg")
+    cv2.imwrite(path, frame)
+    assert np.array_equal(tds.read_frame(path, 24, 40),
+                          jdata.datasets.read_frame(path, 24, 40))
+    cv2.imwrite(path, frame, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(ValueError, match="00000.jpg: progressive"):
+        tds.read_frame(path, 8, 8)
+
+
+def _jpeg_copy(src, dst, rng):
+    """The tree with every PNG frame re-encoded as ``NNNNN.jpg`` by cv2
+    (varied quality, sampling and restart interval; every third frame
+    with EXIF orientation 6, which the datasets ignore, as imageio
+    does); flows copied."""
+    import shutil
+
+    from PIL import Image
+
+    shutil.copytree(src, dst, ignore=shutil.ignore_patterns("*.png"))
+    samplings = [cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444]
+    for png in sorted(src.rglob("*.png")):
+        out = dst / png.relative_to(src).with_suffix(".jpg")
+        img = imageio.imread(png)
+        k = int(png.stem)
+        if k % 3 == 2:
+            exif = Image.Exif()
+            exif[0x0112] = 6
+            Image.fromarray(img).save(out, quality=85, exif=exif.tobytes())
+        else:
+            cv2.imwrite(str(out), img[..., ::-1], [
+                cv2.IMWRITE_JPEG_QUALITY, int(rng.randint(60, 100)),
+                cv2.IMWRITE_JPEG_SAMPLING_FACTOR, samplings[k % 3],
+                cv2.IMWRITE_JPEG_RST_INTERVAL, k % 2])
+    return dst
+
+
+@pytest.fixture(scope="module")
+def jpeg_tree(tree, tmp_path_factory):
+    return _jpeg_copy(tree, tmp_path_factory.mktemp("jpegtree") / "t",
+                      np.random.RandomState(1))
+
+
+@pytest.mark.parametrize("size", [(48, 64), (40, 56)])
+@pytest.mark.parametrize("name", sorted(DATASETS))
+def test_dataset_items_equal_jax_on_a_jpeg_tree(jpeg_tree, name, size):
+    """The JPEG tree (YouTube-VOS's layout, ``NNNNN.jpg``): three items
+    (0, 1, 0) of each dataset under the same seeds, every key equal."""
+    opt, info = DATASETS[name](*size), _info(jpeg_tree, *size)
+    assert not list(jpeg_tree.rglob("*.png"))
+    items = []
+    for pkg in (jdata, tdata):
+        random.seed(4)
+        np.random.seed(4)
+        ds = pkg.create_dataset(opt, info, "train", name)
+        items.append([ds[i] for i in (0, 1, 0)])
+    for want, got in zip(*items):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            assert np.array_equal(got[k], want[k]), k
+
+
+def test_cli_loaders_read_jpeg_as_the_jax_cli(jpeg_tree, tmp_path):
+    """The inference CLI's ``load_frames`` / ``load_masks`` on a JPEG
+    directory against the JAX CLI's (cv2.imread: EXIF orientation
+    applied): plain frames resized from 48x64, frames that all carry
+    orientation 6 (read as 64x48), JPEG masks and a watermark premask."""
+    from PIL import Image
+
+    video = jpeg_tree / "frames" / "video_a"
+    tvi_frames, src = tvi.load_frames(str(video), 40, 56)
+    jax_frames, jsrc = jvi.load_frames(str(video), 40, 56, 80, 112)
+    assert tuple(src) == tuple(jsrc) == (48, 64)
+    assert np.array_equal(tvi_frames, jax_frames)
+
+    rot, masks = tmp_path / "rot", tmp_path / "masks"
+    rot.mkdir()
+    masks.mkdir()
+    rng = np.random.RandomState(6)
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    for i in range(3):
+        img = (rng.rand(48, 64, 3) * 255).astype(np.uint8)
+        Image.fromarray(img).save(rot / f"{i:05d}.jpg", quality=90,
+                                  exif=exif.tobytes())
+        m = np.zeros((48, 64), np.uint8)
+        m[10 + 3 * i:30, 20:44 - i] = 255
+        cv2.imwrite(str(masks / f"{i:05d}.jpg"), m)
+    got, src = tvi.load_frames(str(rot), 32, 24)
+    want, jsrc = jvi.load_frames(str(rot), 32, 24, 64, 48)
+    assert tuple(src) == tuple(jsrc) == (64, 48)
+    assert np.array_equal(got, want)
+    got_m = tvi.load_masks(str(masks), 40, 56) > 0
+    assert np.array_equal(got_m, jvi.load_masks(str(masks), 40, 56, 0, 0)[0])
+    wm = tmp_path / "wm"
+    wm.mkdir()
+    for i in range(3):      # three plain frames of video_b (k % 3 != 2)
+        (wm / f"{i:05d}.jpg").write_bytes(
+            (video.parent / "video_b" / f"{3 * i:05d}.jpg").read_bytes())
+    got, _ = tvi.load_frames(str(wm), 40, 56, premask_path=str(masks))
+    want, _ = jvi.load_frames(str(wm), 40, 56, 80, 112,
+                              mask_path=str(masks), premask=True)
+    assert np.array_equal(got, want)
+
+
+def test_load_frames_resizes_each_frame_from_its_own_size(tmp_path):
+    """The JAX CLI resizes every frame (and mask) from its own size, so a
+    directory of frames of two sizes loads; the parent stacked them at
+    the source size first and raised. Source size: the last frame's."""
+    rng = np.random.RandomState(8)
+    for i, (h, w) in enumerate([(48, 64), (60, 80), (48, 64)]):
+        cv2.imwrite(str(tmp_path / f"{i:05d}.png"),
+                    (rng.rand(h, w, 3) * 255).astype(np.uint8))
+    got, src = tvi.load_frames(str(tmp_path), 40, 56)
+    want, jsrc = jvi.load_frames(str(tmp_path), 40, 56, 80, 112)
+    assert tuple(src) == tuple(jsrc) == (48, 64)
+    assert np.array_equal(got, want)
+    got_m = tvi.load_masks(str(tmp_path), 40, 56) > 0
+    assert np.array_equal(got_m, jvi.load_masks(str(tmp_path), 40, 56, 0,
+                                                0)[0])
+
+
+def test_evaluation_ground_truth_reads_jpeg_as_the_jax_tool(jpeg_tree):
+    """``evaluate.ground_truth`` on a JPEG directory: the JAX tool's
+    imageio read (orientation ignored) and cv2's uint8 resize."""
+    from fgt_tpu_torch.pipeline import evaluate
+
+    video = jpeg_tree / "frames" / "video_b"
+    got = evaluate.ground_truth(str(video), 6, 40, 56)
+    files = sorted(os.listdir(video))[:6]
+    want = np.stack([cv2.resize(imageio.imread(video / f)[..., :3], (56, 40))
+                     for f in files])
+    assert np.array_equal(got, want)
 
 
 def test_failed_item_falls_back_to_item_zero_as_jax(tree):

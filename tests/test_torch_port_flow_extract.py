@@ -96,6 +96,64 @@ def test_flow_extract_cli_matches_jax_extract_video(tmp_path):
                 np.testing.assert_allclose(got, want, atol=5e-3)
 
 
+def test_flow_extract_reads_a_jpeg_tree_as_the_jax_tool(tmp_path):
+    """A JPEG video (``NNNNN.jpg``, one frame with EXIF orientation 6,
+    which the JAX tool's imageio ignores) and a PNG frame among them,
+    sorted together: the frames the port's CLI resizes equal the JAX
+    tool's (imageio + cv2 float resize), and its flows equal
+    ``extract_video``'s on those frames within 5e-3 px."""
+    import cv2
+    from PIL import Image
+
+    frames = _video(4, 72, 80, seed=21)[0]
+    video = tmp_path / "data" / "clip"
+    video.mkdir(parents=True)
+    for i, fr in enumerate(frames):
+        path = video / f"{i:05d}.{'png' if i == 2 else 'jpg'}"
+        if i == 1:
+            exif = Image.Exif()
+            exif[0x0112] = 6
+            Image.fromarray(fr).save(path, quality=90, exif=exif.tobytes())
+        elif i == 2:
+            image_io.write_png(str(path), fr)
+        else:
+            cv2.imwrite(str(path), fr[..., ::-1])
+    import imageio.v2 as imageio
+
+    files = sorted(os.listdir(video))
+    jax_frames = np.stack([cv2.resize(
+        imageio.imread(video / f).astype(np.float32)[..., :3], (64, 64),
+        interpolation=cv2.INTER_LINEAR) for f in files])
+    port_frames = image_io.resize_linear(
+        image_io.read_stack(str(video), orientation=False), 64, 64)
+    np.testing.assert_array_equal(port_frames, jax_frames)
+
+    model = RAFT(RAFTConfig(iters=2))
+    dummy = jnp.zeros((1, 64, 64, 3))
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(
+        lambda r: model.init(r, dummy, dummy, iters=1))(jax.random.PRNGKey(3)))
+    port = traft.RAFT()
+    weights.load_state(port, weights.jax_to_torch_state(
+        variables, weights.raft_mapping()))
+    torch.save(port.state_dict(), tmp_path / "raft.pth")
+    n = flow_extract.main([
+        "--datapath", str(tmp_path / "data"), "--outroot",
+        str(tmp_path / "port"), "--height", "64", "--width", "64",
+        "--iters", "2", "--raft_model", str(tmp_path / "raft.pth"),
+        "--device", "cpu"])
+    assert n == 4
+    raft_fn = jax.jit(lambda v, a, b: model.apply(v, a, b, iters=2,
+                                                  test_mode=True)[1])
+    extract_video(raft_fn, variables, jax_frames, str(tmp_path / "jax"))
+    for sub in ("forward_flo", "backward_flo"):
+        for i in range(3):
+            got = flow_io.read_flow(str(tmp_path / "port" / "clip" / sub /
+                                        f"{i:05d}.flo"))
+            want = jflow_io.read_flow(str(tmp_path / "jax" / sub /
+                                          f"{i:05d}.flo"))
+            np.testing.assert_allclose(got, want, atol=5e-3)
+
+
 def test_run_batch_serves_two_videos_with_one_model_set(tmp_path, monkeypatch):
     """Both rows ok, one result per video, unchanged outside the hole;
     ``Models`` is built once for the batch."""

@@ -1,7 +1,8 @@
 """The PyTorch port's own rules, checked on the CPU:
 
 * no module of ``fgt_tpu_torch`` (nor ``chip_smoke.py``) imports JAX,
-  flax, the JAX package, or cv2/imageio/yaml, which the GPU machine lacks;
+  flax, the JAX package, or cv2/imageio/PIL/yaml, which the GPU machine
+  lacks;
 * entry points default to the ``cuda`` device (the evaluation driver,
   the VFID scorer, both trainers and the training CLI too);
 * the weight bridge round-trips every leaf of the RAFT (big and small),
@@ -54,7 +55,8 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "fgt_tpu_torch", "csrc")
-FORBIDDEN = {"jax", "jaxlib", "flax", "fgt_tpu", "cv2", "imageio", "yaml"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "fgt_tpu", "cv2", "imageio", "yaml",
+             "PIL"}
 
 
 def _port_sources():
@@ -87,7 +89,8 @@ def test_port_imports_no_jax_no_reference_package_no_cv2():
                    "core/raster.py", "core/masks.py", "core/region_fill.py",
                    "data/__init__.py", "data/datasets.py", "data/loader.py",
                    "train/validate.py", "train/train.py",
-                   "utils/config.py"):
+                   "utils/config.py", "core/jpeg.py", "native/__init__.py",
+                   "pipeline/image_io.py"):
         assert f"fgt_tpu_torch/{module}" in rel, module
     bad = {(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN}

@@ -201,11 +201,76 @@ def test_validate_fgt_matches_jax(val_tree, fgt_models, oracle, masks,
 
 
 def test_validation_reads_png_only(val_tree, fgt_models, tmp_path):
+    """Frames come as PNG or as the baseline JPEG the decoder takes; a
+    JPEG it does not take (progressive) raises, naming it, rather than
+    being skipped."""
+    import cv2
+
     frames = tmp_path / "frames" / "v"
     frames.mkdir(parents=True)
     for i in range(8):
-        imageio.imwrite(frames / f"{i:05d}.jpg", np.zeros((H, W, 3),
-                                                          np.uint8))
-    with pytest.raises(ValueError, match="JPEG"):
+        cv2.imwrite(str(frames / f"{i:05d}.jpg"), np.zeros((H, W, 3),
+                                                           np.uint8),
+                    [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(ValueError, match="progressive"):
         tval.validate_fgt(fgt_models[4], str(tmp_path / "frames"), None,
                           resolution=RES, mask_size=MASK)
+
+
+@pytest.fixture(scope="module")
+def jpeg_val_tree(val_tree, tmp_path_factory):
+    """The DAVIS-style tree with its frames as ``NNNNN.jpg`` (cv2, q90,
+    4:2:0; DAVIS ships JPEG frames and PNG masks), flows and masks
+    copied."""
+    import shutil
+
+    import cv2
+
+    root = tmp_path_factory.mktemp("davis_jpeg") / "t"
+    shutil.copytree(val_tree, root,
+                    ignore=lambda d, names: [n for n in names
+                                             if n.endswith(".png")
+                                             and "frames" in d])
+    for png in sorted((val_tree / "frames").rglob("*.png")):
+        out = root / png.relative_to(val_tree).with_suffix(".jpg")
+        cv2.imwrite(str(out), imageio.imread(png)[..., ::-1],
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+    return root
+
+
+@pytest.mark.parametrize("oracle", [False, True])
+def test_validate_fgt_matches_jax_on_a_jpeg_tree(jpeg_val_tree, fgt_models,
+                                                 oracle, tmp_path):
+    """``validate_fgt`` on JPEG frames with the PNG mask tree, both
+    packages, the tolerances of the PNG runs."""
+    gen, g_vars, jor, o_vars, tgen, tor = fgt_models
+    assert not list((jpeg_val_tree / "frames").rglob("*.png"))
+    kw = dict(num_videos=2, resolution=RES, mask_size=MASK, pivot=20,
+              num_frames=5)
+    want = jval.validate_fgt(
+        gen, g_vars, str(jpeg_val_tree / "frames"),
+        str(jpeg_val_tree / "flows"),
+        flow_params=o_vars if oracle else None,
+        flow_model=jor if oracle else None,
+        mask_root=str(jpeg_val_tree / "masks"),
+        save_dir=str(tmp_path / "jax"), **kw)
+    got = tval.validate_fgt(
+        tgen, str(jpeg_val_tree / "frames"), str(jpeg_val_tree / "flows"),
+        flow_model=tor if oracle else None,
+        mask_root=str(jpeg_val_tree / "masks"),
+        save_dir=str(tmp_path / "port"), **kw)
+    _assert_scores(got, want)
+    _assert_canvases(tmp_path / "port", tmp_path / "jax")
+
+
+def test_validate_lafc_matches_jax_beside_a_jpeg_tree(jpeg_val_tree,
+                                                      lafc_models, square01):
+    """``validate_lafc`` reads only flows: the JPEG tree's flows give the
+    JAX package's scores."""
+    jm, v, tm = lafc_models[False]
+    flow_root = str(jpeg_val_tree / "flows")
+    want = jval.validate_lafc(jm, v, flow_root, num_videos=2,
+                              resolution=RES, mask_size=MASK)
+    got = tval.validate_lafc(tm, flow_root, num_videos=2, resolution=RES,
+                             mask_size=MASK)
+    _assert_scores(got, want)
