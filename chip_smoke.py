@@ -113,7 +113,21 @@ Phases (any failure exits nonzero; nothing is caught):
      K2's launches inside validate_fgt equal to 2 videos x its temporal
      blocks; the on-card-batch rates are printed beside them; the same
      phase again from a JPEG tree (the same pixels as baseline 4:2:0
-     JPEG), its rates beside the PNG tree's;
+     JPEG), its rates beside the PNG tree's; then data parallelism:
+     the PNG phase again with each CLI run in a one-rank NCCL group
+     (``--coordinator 127.0.0.1:<free port> --num_processes 1
+     --process_id 0``, the group checked at every step), its steps/s
+     beside the run without a group; and each committed config (f32)
+     trained by two gloo ranks sharing cuda:0
+     (``tests/torch_port_dp_worker.py``, 12 steps on halves of 3 global
+     batches) against one process on the whole batches and against one
+     process on the batches with their halves swapped (the reference
+     spread): metrics and the trained models' outputs within the stated
+     floors or twice that spread, the replicas bit-equal, K2/K4/K5 4 a
+     FGT step on each rank; then the overfit quality gate's two
+     protocols at full size (``fgt_tpu_torch.tools.overfit_gate``, under
+     PyTorch's default TF32): each must raise its PSNR, with K1 40, K2
+     408, K4 and K5 400 launches a protocol;
   9. small inputs through the port on the card and on the CPU (plain
      versions), which must agree: object-removal runs on the K1 path, on
      the pyramid path with --Nonlocal and with RAFT --small, one SGD
@@ -2006,21 +2020,36 @@ def step_rate(rows: list) -> float:
     return len(kept) / sum(kept)
 
 
-def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png") -> dict:
+def free_address() -> str:
+    """127.0.0.1 and a port nothing listens on: the rendezvous of a
+    process group this script makes."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+
+def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png",
+                    nccl: bool = False) -> dict:
     """The three training configurations from disk through the training
     CLI (see the module doc), from a tree of ``fmt`` ("png" or "jpg")
-    frames. ``kernels``: the K1-K5 counters."""
+    frames; with ``nccl`` each run also takes ``--coordinator
+    127.0.0.1:<free port> --num_processes 1 --process_id 0``, so it trains
+    in a one-rank NCCL group (checked at every step). ``kernels``: the
+    K1-K5 counters."""
     import torch
     from fgt_tpu_torch.ops import flash_attention
     from fgt_tpu_torch.train import train as train_cli
     from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
 
     t_phase = time.perf_counter()
+    tag = f"{fmt}, one NCCL rank" if nccl else fmt
     train = write_video_tree(os.path.join(root, "train"), 4, 16, (480, 864),
                              (240, 432), seed=20, fmt=fmt)
     val = write_video_tree(os.path.join(root, "val"), 2, 24, (240, 432),
                            (240, 432), seed=21, masks=True, fmt=fmt)
-    log(f"cli train ({fmt}): trees written in "
+    log(f"cli train ({tag}): trees written in "
         f"{time.perf_counter() - t_phase:.2f} s (train 4 videos x 16 "
         f"{fmt.upper()} frames 480x864 + .flo 240x432; val 2 x 24 at "
         f"240x432 with PNG masks)")
@@ -2036,7 +2065,7 @@ def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png") -> dict:
     # instrumentation around the trainers' methods (restored below): each
     # step's entry and synchronized exit, and each validation's K2
     # launches, seconds and peak memory (the run's peak kept beside it)
-    probe = {"steps": [], "vals": []}
+    probe = {"steps": [], "vals": [], "groups": set()}
     patched = {(cls, name): getattr(cls, name)
                for cls in (LAFCTrainer, FGTTrainer)
                for name in ("_train_step", "_validate")}
@@ -2047,6 +2076,10 @@ def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png") -> dict:
             metrics = orig(self, batch)
             torch.cuda.synchronize()
             probe["steps"].append((t0, time.perf_counter()))
+            dist = torch.distributed
+            probe["groups"].add(
+                (dist.get_backend(), dist.get_world_size())
+                if dist.is_initialized() else None)
             return metrics
         return step
 
@@ -2074,12 +2107,15 @@ def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png") -> dict:
         for model, name, val_freq, extra in runs:
             cfg = cli_config(os.path.join(root, f"{name}.yaml"), name, train,
                              val_info, val_freq=val_freq, **extra)
-            probe["steps"], probe["vals"] = [], []
+            probe["steps"], probe["vals"], probe["groups"] = [], [], set()
+            argv = ["--model", model, "--opt", cfg, "--use_valid"]
+            if nccl:
+                argv += ["--coordinator", free_address(), "--num_processes",
+                         "1", "--process_id", "0"]
             reset(kernels)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            trainer = train_cli.main(["--model", model, "--opt", cfg,
-                                      "--use_valid"])
+            trainer = train_cli.main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = read(kernels)
@@ -2096,12 +2132,18 @@ def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png") -> dict:
             if vals:
                 drop = int(np.argmax(waits))
                 waits = waits[:drop] + waits[drop + 1:]
+            want_group = {("nccl", 1)} if nccl else {None}
+            if probe["groups"] != want_group or \
+                    torch.distributed.is_initialized():
+                raise AssertionError(f"cli {model} ({tag}): process groups "
+                                     f"{probe['groups']}, want {want_group}"
+                                     " during the steps and none after")
             out[model] = stats = dict(
                 steps_per_s=step_rate(rows), peak_gib=peak, wall=wall,
                 launches=launches, rows=rows, trainer=trainer,
                 wait_ms=1e3 * float(np.mean(waits)),
                 step_ms=1e3 * float(np.mean(busy)), vals=vals)
-            stats["items_per_s"] = {
+            stats["items_per_s"] = {} if nccl else {   # the loader alone
                 w: loader_rate(trainer.train_set,
                                trainer.train_loader.batch_size, w,
                                LOADER_ITEMS if w else 4)
@@ -2117,22 +2159,23 @@ def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png") -> dict:
         vals = [r for r in rows if "val/psnr" in r]
         terms = [k for k in steps[0] if k not in ("step", "time", "lr",
                                                   "it_per_s")]
-        log(f"cli {model} ({fmt}): {len(steps)} steps from disk, "
+        log(f"cli {model} ({tag}): {len(steps)} steps from disk, "
             f"{st['steps_per_s']:.4f} steps/s through the loader "
             f"(steps 3-12, the validation's interval left out; "
             f"batch {trainer.train_loader.batch_size}, "
             f"{trainer.train_loader.num_workers} workers); run wall "
             f"{st['wall']:.2f} s; loader alone "
-            + ", ".join(f"{w} workers {r:.3f} items/s"
-                        for w, r in st["items_per_s"].items())
+            + (", ".join(f"{w} workers {r:.3f} items/s"
+                         for w, r in st["items_per_s"].items())
+               or "not timed")
             + f"; peak device memory {st['peak_gib']:.3f} GiB; launches "
             f"{st['launches']}; {smi}")
         share = st["wait_ms"] / (st["wait_ms"] + st["step_ms"])
-        log(f"cli {model} ({fmt}) steps 3-12: waiting on the loader "
+        log(f"cli {model} ({tag}) steps 3-12: waiting on the loader "
             f"{st['wait_ms']:.2f} ms/step, in the step (synchronized) "
             f"{st['step_ms']:.2f} ms/step; host data share {share:.4f}")
         for v, probe_v in zip(vals, st["vals"]):
-            log(f"cli {model} ({fmt}) validation: " + json.dumps(
+            log(f"cli {model} ({tag}) validation: " + json.dumps(
                 {k: round(v[k], 6) for k in v if k.startswith("val/")})
                 + f"; {probe_v['s']:.3f} s, peak device memory "
                 f"{probe_v['peak'] / 2 ** 30:.3f} GiB (the run's peak "
@@ -2165,11 +2208,328 @@ def phase_cli_train(kernels, root: str, smi: str, fmt: str = "png") -> dict:
     if fgt["launches"] != want or k2_in_val[0] != want_val:
         raise AssertionError(f"cli model: launches {fgt['launches']}, want "
                              f"{want}")
-    log(f"cli train phase ({fmt}): {time.perf_counter() - t_phase:.2f} s")
+    log(f"cli train phase ({tag}): {time.perf_counter() - t_phase:.2f} s")
     for st in out.values():
         del st["trainer"], st["rows"], st["vals"]
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------- data parallelism: two ranks on one card ----------------
+
+DP_STEPS = 12           # steps of each two-rank run: 3 global batches x 4
+DP_METRIC_RTOL = 1e-3   # each metric of steps 1-3, of its largest |value|
+DP_METRIC_STEPS = 3
+DP_OUT_RTOL = 2e-2      # |out(2 ranks) - out(1)| / |out(1) - out(init)|
+
+
+def dp_batches(kind: str) -> list:
+    """Three global batches (numpy) for two ranks: stage 1
+    ``lafc_train_batch``'s recipe with 8 windows (4 a rank, the committed
+    batch), FGT ``synthetic_train_batch``'s with 4 (2 a rank)."""
+    out = []
+    for s in range(3):
+        if kind == "model":
+            out.append(synthetic_train_batch(b=4, seed=30 + s))
+        else:
+            out.append({k: v.cpu().numpy() for k, v in
+                        lafc_train_batch(b=8, seed=30 + s).items()})
+    return out
+
+
+def dp_probe(kind: str, models: dict, states: dict, batch: dict) -> dict:
+    """Each model's output on ``batch`` (f32, no grad) with ``states``
+    (model name -> state dict) loaded: the generator on the masked frames
+    with the batch's flows, the discriminator on the frames, LAFC(-single)
+    on the diffused flows (its pivot for the single model)."""
+    import torch
+
+    b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    out = {}
+    with torch.no_grad():
+        for name, mod in models.items():
+            mod.load_state_dict(states[name])
+            if name == "gen":
+                out[name] = mod(b["frames"] * (1 - b["masks"]),
+                                b["forward_flo"], b["masks"])
+            elif name == "disc":
+                out[name] = mod(b["frames"])
+            elif kind == "lafc_single":
+                out[name] = mod(b["diffused_flows"][:, 1],
+                                b["masks"][:, 1])[0]
+            else:
+                out[name] = mod(b["diffused_flows"], b["masks"])[0]
+    return out
+
+
+def dp_ranks(runs: dict, root: str):
+    """Two gloo ranks on cuda:0 (``tests/torch_port_dp_worker.py``, one
+    process a rank for every run): each run ``kind -> (opt, batches)``
+    on each rank's half of every global batch. Returns ({kind: (rank 0's
+    metric rows, the ranks' saved models and launch counts)}, wall
+    seconds of the two processes)."""
+    import torch
+
+    specs = []
+    for kind, (opt, batches) in runs.items():
+        npz = os.path.join(root, f"{kind}_batches.npz")
+        np.savez(npz, **{f"{s}/{k}": v for s, b in enumerate(batches)
+                         for k, v in b.items()})
+        specs.append(os.path.join(root, f"{kind}_spec.json"))
+        with open(specs[-1], "w") as f:
+            json.dump({"kind": kind, "world": 2, "address": free_address(),
+                       "device": "cuda:0", "opt": opt, "batches": npz,
+                       "out": root}, f)
+    torch.cuda.empty_cache()
+    worker = os.path.join(REPO, "tests", "torch_port_dp_worker.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, str(r), *specs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(text[-6000:])
+            raise AssertionError(f"dp gloo: rank {r} exited {p.returncode}")
+    out = {}
+    for kind, (opt, _) in runs.items():
+        with open(os.path.join(root, opt["name"], "tb",
+                               "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        out[kind] = (rows, [torch.load(os.path.join(
+            root, f"{kind}_rank{r}.pt")) for r in range(2)])
+    return out, wall
+
+
+def dp_single(kind: str, opt: dict, batches: list, kernels):
+    """One process on the global batches. Returns (metric rows, the
+    initial and the trained state dicts, the models, launches, wall)."""
+    import torch
+    from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
+
+    reset(kernels)
+    t0 = time.perf_counter()
+    trainer = (FGTTrainer if kind == "model" else LAFCTrainer)(opt)
+    models = ({"gen": trainer.gen, "disc": trainer.disc} if kind == "model"
+              else {"model": trainer.model})
+
+    def snapshot():
+        return {m: {k: t.detach().clone() for k, t in
+                    mod.state_dict().items()} for m, mod in models.items()}
+
+    init = snapshot()
+    trainer.train([{k: torch.from_numpy(v).cuda() for k, v in b.items()}
+                   for b in batches])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(kernels)
+    return read_metrics(trainer, 0), init, snapshot(), models, launches, wall
+
+
+def dp_distance(kind, rows, one_rows, states, init, trained, models,
+                batch) -> tuple:
+    """(max over the first ``DP_METRIC_STEPS`` steps and the metrics of
+    |a - b| / the metric's largest |value| in ``one_rows``, the same over
+    all steps, and per model |out(states) - out(trained)| /
+    |out(trained) - out(init)| on ``batch``)."""
+    names = [k for k in one_rows[0] if k not in ("step", "time", "lr",
+                                                 "it_per_s")]
+    errs = [max(abs(a[k] - b[k]) / max(max(abs(r[k]) for r in one_rows),
+                                        1e-6) for k in names)
+            for a, b in zip(rows, one_rows)]
+    o0, o1, o2 = (dp_probe(kind, models, sd, batch)
+                  for sd in (init, trained, states))
+    return max(errs[:DP_METRIC_STEPS]), max(errs), {
+        m: float((o2[m] - o1[m]).norm() / (o1[m] - o0[m]).norm())
+        for m in models}
+
+
+def phase_dp_gloo(kernels, root: str, smi: str) -> dict:
+    """Data parallelism with two ranks on one card: for each committed
+    config (full width, f32, TF32 off) two processes
+    (``tests/torch_port_dp_worker.py``) join a gloo group on cuda:0 (NCCL
+    refuses two ranks on one device; gloo reduces the CUDA tensors through
+    the host) and train through the trainers, which find the group
+    initialised, each on its half of 3 global batches for 12 steps; then
+    one process trains on the whole batches, and once more on the same
+    batches with their halves swapped (the same update in exact
+    arithmetic, summed in another order: the reference spread, how far
+    this training carries a reassociation by 12 steps).
+
+    Two ranks must match one process: every logged metric (the ranks'
+    mean) of the first ``DP_METRIC_STEPS`` steps within
+    ``DP_METRIC_RTOL`` of its largest magnitude over the run (the GAN's
+    terms cross zero; later steps are printed beside the spread, which
+    reaches 1e-3 by step 12 for the GAN); each trained model's output on
+    the first global batch, its distance from the one process's over the
+    distance that process's training moved it from the init's, within
+    ``max(DP_OUT_RTOL, 2 x spread)``. Outputs, not weights: Adam moves a
+    weight whose gradient is zero in exact arithmetic, as attention's key
+    bias, by about lr a step in the direction of its rounding noise,
+    which changes no output. The two replicas must be
+    equal bit for bit; K2, K4, K5 4 times a FGT step on each rank and on
+    the single process, none in stage 1. Steps/s over steps 3-12 of the
+    two ranks and of one process. ``kernels``: the K1-K5 counters."""
+    import torch
+    from fgt_tpu_torch.models import lafc_single
+    from fgt_tpu_torch.utils import checkpoint
+
+    oracle = os.path.join(root, "oracle.pth")
+    checkpoint.save(lafc_single.init_lafc_single(
+        lafc_single.Model(committed_config("fgt_train")["flow_config"]),
+        torch.Generator().manual_seed(0)).state_dict(), oracle)
+    runs = {}
+    for kind in ("lafc_single", "lafc", "model"):
+        opt = (train_opt(root, flow_checkPoint=oracle) if kind == "model"
+               else lafc_opt(root, kind == "lafc_single"))
+        opt.update(mixed_precision=0, name=f"{kind}_dp2")
+        opt["train"].update(MAX_ITERS=DP_STEPS)
+        runs[kind] = (opt, dp_batches(kind))
+    ranked, wall = dp_ranks(runs, root)
+    log(f"dp gloo: two rank processes trained all three configs in "
+        f"{wall:.2f} s (start-up included)")
+    out = {}
+    for kind, (opt, batches) in runs.items():
+        lr = float(opt["train"]["lr"])
+        rows, ranks = ranked[kind]
+        one_rows, init, trained, models, launches, one_wall = dp_single(
+            kind, dict(opt, name=f"{kind}_dp1"), batches, kernels)
+        half = len(next(iter(batches[0].values()))) // 2
+        swapped = [{k: np.concatenate([v[half:], v[:half]])
+                    for k, v in b.items()} for b in batches]
+        sw_rows, _, sw_trained, _, _, _ = dp_single(
+            kind, dict(opt, name=f"{kind}_dp1s"), swapped, kernels)
+        dp = dp_distance(kind, rows, one_rows, ranks[0]["models"], init,
+                         trained, models, batches[0])
+        spread = dp_distance(kind, sw_rows, one_rows, sw_trained, init,
+                             trained, models, batches[0])
+        o_tol = {m: max(DP_OUT_RTOL, 2 * v) for m, v in spread[2].items()}
+        p_lr = max(float((ranks[0]["models"][m][k].cuda() - t).abs().max())
+                   for m in models for k, t in trained[m].items()
+                   if t.is_floating_point()) / lr
+        equal = all(torch.equal(ranks[0]["models"][m][k],
+                                ranks[1]["models"][m][k])
+                    for m in models for k in ranks[0]["models"][m])
+        rates = [step_rate(rows), step_rate(one_rows)]
+        per_step = 4 * DP_STEPS if kind == "model" else 0
+        want = {"flash_mhsa": per_step, "flash_attention_dq": per_step,
+                "flash_attention_dkv": per_step}
+        log(f"dp gloo {kind}: 2 ranks on cuda:0 (gloo, f32) {rates[0]:.4f} "
+            f"steps/s vs one process on the global batch {rates[1]:.4f} "
+            f"(ratio {rates[0] / rates[1]:.4f}; steps 3-12, global batch "
+            f"{2 * half}); one process's wall {one_wall:.2f} s; {smi}")
+        log(f"dp gloo {kind}: metrics max err of their largest value, "
+            f"steps 1-{DP_METRIC_STEPS} {dp[0]:.3g} (swapped-halves spread "
+            f"{spread[0]:.3g}, tol {DP_METRIC_RTOL}), steps 1-{DP_STEPS} "
+            f"{dp[1]:.3g} (spread {spread[1]:.3g}); outputs |2 ranks - 1| / "
+            f"|1 - init| "
+            + ", ".join(f"{m} {v:.3g} (spread {spread[2][m]:.3g}, tol "
+                        f"{o_tol[m]:.3g})" for m, v in dp[2].items())
+            + f"; largest weight difference {p_lr:.3g} x lr; replicas "
+            f"bit-equal {equal}; launches rank 0 {ranks[0]['launches']}, "
+            f"rank 1 {ranks[1]['launches']}, one process {launches}")
+        if len(rows) != DP_STEPS or len(one_rows) != DP_STEPS:
+            raise AssertionError(f"dp gloo {kind}: {len(rows)} / "
+                                 f"{len(one_rows)} steps logged")
+        if not (dp[0] <= DP_METRIC_RTOL and equal
+                and all(v <= o_tol[m] for m, v in dp[2].items())):
+            raise AssertionError(f"dp gloo {kind}: two ranks and one "
+                                 "process disagree")
+        for got in (ranks[0]["launches"], ranks[1]["launches"]):
+            if any(got[k] != n for k, n in want.items()):
+                raise AssertionError(f"dp gloo {kind}: launches {got}, want "
+                                     f"{want} a rank")
+        expect_launches(f"dp gloo {kind} (one process)", launches,
+                        dict(want, lookup_corr_fused=0,
+                             lookup_corr_pyramid=0))
+        out[kind] = dict(rates=rates, err=dp, spread=spread)
+        del models
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp_train(kernels, root: str, smi: str, plain: dict) -> dict:
+    """Data-parallel training: the three committed configs from disk
+    through the training CLI in a one-rank NCCL group, their steps/s
+    beside ``plain`` (the same phase without a group); then two gloo
+    ranks on one card against one process (:func:`phase_dp_gloo`)."""
+    cli_root, gloo_root = (os.path.join(root, d) for d in ("cli", "gloo"))
+    os.makedirs(cli_root)
+    os.makedirs(gloo_root)
+    nccl = phase_cli_train(kernels, cli_root, smi, nccl=True)
+    log("training from disk, one NCCL rank (--coordinator) vs no group: "
+        + "; ".join(f"{m} {nccl[m]['steps_per_s']:.4f} vs "
+                    f"{plain[m]['steps_per_s']:.4f} steps/s" for m in plain)
+        + f"; {smi}")
+    return {"nccl": nccl, "gloo": phase_dp_gloo(kernels, gloo_root, smi)}
+
+
+# ---------------- the overfit quality gate ----------------
+
+def phase_overfit_gate(kernels, root: str, smi: str) -> dict:
+    """``python -m fgt_tpu_torch.tools.overfit_gate``'s ``main``, both
+    protocols at full size on the card (24 frames at 432x240, LAFC 150
+    and FGT 100 f32 steps; ``--fgt_only``: FGT 100 steps on the static
+    clip), each with the counts set to 0 before it and read after it:
+    K1 20 and K2 4 in each of its 2 inference runs, K2, K4, K5 4 a FGT
+    step, no K3. Each protocol must improve its PSNR (exit status 0).
+    Runs under PyTorch's default TF32 settings (convolutions on TF32,
+    matmuls in f32), as the tool runs on its own."""
+    import torch
+    from fgt_tpu_torch.tools import overfit_gate as gate
+
+    out = os.path.join(root, "overfit_gate_torch.json")
+    res = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for fgt_only in (False, True):
+            res["fgt_only" if fgt_only else "full"] = overfit_protocol(
+                gate, kernels, out, fgt_only, smi)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return res
+
+
+def overfit_protocol(gate, kernels, out: str, fgt_only: bool,
+                     smi: str) -> dict:
+    """One protocol of :func:`phase_overfit_gate`: the tool's ``main``
+    with the counts reset before it and read after it."""
+    label = "fgt_only" if fgt_only else "full"
+    fgt_steps = 100
+    argv = ["--out", out, "--device", "cuda", "--lafc_steps", "150",
+            "--fgt_steps", str(fgt_steps), "--frames", "24"]
+    reset(kernels)
+    t0 = time.perf_counter()
+    rc = gate.main(argv + (["--fgt_only"] if fgt_only else []))
+    wall = time.perf_counter() - t0
+    launches = read(kernels)
+    with open(out) as f:
+        rec = json.load(f)
+    rec = rec["fgt_only"] if fgt_only else rec
+    log(f"overfit gate ({label}): exit status {rc}, {wall:.2f} s; "
+        + json.dumps({k: v for k, v in rec.items() if k != "protocol"})
+        + f"; launches {launches}; {smi}")
+    expect_launches(f"overfit gate ({label})", launches, {
+        "lookup_corr_fused": 2 * 20, "lookup_corr_pyramid": 0,
+        "flash_mhsa": 2 * 4 + 4 * fgt_steps,
+        "flash_attention_dq": 4 * fgt_steps,
+        "flash_attention_dkv": 4 * fgt_steps})
+    if rc != 0 or not rec["improved"]:
+        raise AssertionError(f"overfit gate ({label}): the PSNR did not "
+                             "improve")
+    return dict(rec, wall=wall, launches=launches)
 
 
 def profile_steps(trainer, batch):
@@ -2363,6 +2723,10 @@ def main() -> int:
         "the card: " + "; ".join(
             f"{m} {cli[m]['steps_per_s']:.4f} vs {on_card[m]:.4f}"
             for m in on_card) + f"; {smi}")
+    with tempfile.TemporaryDirectory() as dp_root:
+        phase_dp_train(all_counters, dp_root, smi, cli)
+    with tempfile.TemporaryDirectory() as gate_root:
+        phase_overfit_gate(all_counters, gate_root, smi)
     phase_small_reference()
     phase_small_reference("pyramid", use_nonlocal=True)
     phase_small_reference(small=True)

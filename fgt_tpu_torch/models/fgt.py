@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 from fgt_tpu_torch.ops.attention import LN_EPS, TMHSA, FlowGuidedSWMHSA
 from fgt_tpu_torch.ops.conv_blocks import (VanillaConv, VanillaDeconv,
-                                           init_normal, leaky_relu_02)
+                                           init_normal, leaky_relu_02,
+                                           require_vanilla)
 from fgt_tpu_torch.ops.ffn import FusionFeedForward
 
 
@@ -49,23 +50,29 @@ class FGTConfig:
 
     @classmethod
     def from_dict(cls, cfg: dict) -> "FGTConfig":
+        """JAX ``FGTConfig.from_dict``'s keys and precedence: reference
+        names win over their aliases (``flow_inChannel``, ``numBlocks``,
+        ``num_head``, ``PASSMASK``), and a truthy pair key
+        (``kernel_size``, ``stride``, ``padding``) over its ``_h`` / ``_w``
+        keys. Raises on a conv_type or norm the port lacks."""
+        require_vanilla(cfg, "FGT")
         get = cfg.get
-        if str(get("conv_type", "vanilla")) != "vanilla" or \
-                str(get("norm", None)) not in ("None", "none"):
-            raise ValueError("the port implements conv_type=vanilla, norm=None")
+        ks = get("kernel_size") or (get("kernel_size_h", 7),
+                                    get("kernel_size_w", 7))
+        st = get("stride") or (get("stride_h", 3), get("stride_w", 3))
+        pd = get("padding") or (get("pad_h", 3), get("pad_w", 3))
         return cls(
             in_channel=get("in_channel", 4), cnum=get("cnum", 64),
-            flow_in_channel=get("flow_inChannel", 2),
+            flow_in_channel=get("flow_inChannel", get("flow_in_channel", 2)),
             flow_cnum=get("flow_cnum", 64),
             frame_hidden=get("frame_hidden", 512),
             flow_hidden=get("flow_hidden", 256),
-            num_blocks=get("numBlocks", 8),
-            kernel_size=(get("kernel_size_h", 7), get("kernel_size_w", 7)),
-            stride=(get("stride_h", 3), get("stride_w", 3)),
-            padding=(get("pad_h", 3), get("pad_w", 3)),
-            num_heads=get("num_head", 4), use_bias=bool(get("use_bias", 1)),
+            num_blocks=get("numBlocks", get("num_blocks", 8)),
+            kernel_size=tuple(ks), stride=tuple(st), padding=tuple(pd),
+            num_heads=get("num_head", get("num_heads", 4)),
+            use_bias=bool(get("use_bias", 1)),
             ape=bool(get("ape", 1)), mlp_ratio=get("mlp_ratio", 40),
-            pass_mask=bool(get("PASSMASK", 1)),
+            pass_mask=bool(get("PASSMASK", get("pass_mask", 1))),
             tw=get("tw", 2), sw=get("sw", 8), gd=get("gd", 4))
 
 

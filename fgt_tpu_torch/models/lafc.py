@@ -14,7 +14,22 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from fgt_tpu_torch.ops.conv_blocks import (VanillaConv, VanillaDeconv,
-                                           init_kaiming)
+                                           init_kaiming, require_vanilla)
+
+
+def lafc_keys(cfg: dict, model: str = "LAFC") -> dict:
+    """The keys of JAX ``LAFCConfig.from_dict`` that the port's LAFC and
+    LAFC-single read, the reference names winning over their aliases
+    (``PASSMASK`` over ``pass_mask``, ``resBlocks`` over
+    ``res_blocks``); raises on a conv_type or norm the port lacks."""
+    require_vanilla(cfg, model)
+    get = cfg.get
+    return {"cnum": get("cnum", 48), "in_channel": get("in_channel", 3),
+            "num_flows": get("num_flows", 3),
+            "use_bias": bool(get("use_bias", 1)),
+            "use_residual": bool(get("use_residual", 1)),
+            "pass_mask": bool(get("PASSMASK", get("pass_mask", 1))),
+            "res_blocks": get("resBlocks", get("res_blocks", 1))}
 
 
 class P3DBlock(nn.Module):
@@ -69,16 +84,14 @@ class _Pad(nn.Module):
 
 class P3DNet(nn.Module):
     """The LAFC trunk (reference lafc.py:18-105), ``conv_type: vanilla``,
-    ``use_edges: 0``."""
+    ``use_edges: 0``; ``cfg`` is read by :func:`lafc_keys`."""
 
     def __init__(self, cfg: dict):
         super().__init__()
-        nf = cfg.get("cnum", 48)
-        bias = bool(cfg.get("use_bias", 1))
-        residual = bool(cfg.get("use_residual", 1))
-        t = cfg.get("num_flows", 3)
-        cin = cfg.get("in_channel", 3)
-        self.pass_mask = bool(cfg.get("PASSMASK", 1))
+        c = lafc_keys(cfg)
+        nf, bias, residual = c["cnum"], c["use_bias"], c["use_residual"]
+        t, cin = c["num_flows"], c["in_channel"]
+        self.pass_mask = c["pass_mask"]
         self.encoder2 = nn.Sequential(
             _Pad(2),
             P3DBlock(cin, nf, 5, 1, 0, bias),
@@ -88,7 +101,7 @@ class P3DNet(nn.Module):
             P3DBlock(nf * 2, nf * 4, 3, 2, 1, bias))
         self.res_blocks = nn.Sequential(*[
             P3DBlock(nf * 4, nf * 4, 3, 1, 1, bias, True)
-            for _ in range(cfg.get("resBlocks", 1))])
+            for _ in range(c["res_blocks"])])
 
         def condense(c):
             return VanillaConv(c, c, (t, 1, 1), 1, 0, bias=bias, rank=3)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from fgt_tpu_torch.models.lafc import EdgeDetection, _Pad
+from fgt_tpu_torch.models.lafc import EdgeDetection, _Pad, lafc_keys
 from fgt_tpu_torch.ops.conv_blocks import (VanillaConv, VanillaDeconv,
                                            init_kaiming, leaky_relu_02)
 
@@ -36,14 +36,14 @@ class ResidualBlockNoBN(nn.Module):
 
 
 class P3DNetSingle(nn.Module):
-    """The LAFC-single trunk (``conv_type: vanilla``, no edge input)."""
+    """The LAFC-single trunk (``conv_type: vanilla``, no edge input);
+    ``cfg`` is read by :func:`~fgt_tpu_torch.models.lafc.lafc_keys`."""
 
     def __init__(self, cfg: dict):
         super().__init__()
-        nf = cfg.get("cnum", 48)
-        bias = bool(cfg.get("use_bias", 1))
-        cin = cfg.get("in_channel", 3)
-        self.pass_mask = bool(cfg.get("PASSMASK", 1))
+        c = lafc_keys(cfg, "LAFC-single")
+        nf, bias, cin = c["cnum"], c["use_bias"], c["in_channel"]
+        self.pass_mask = c["pass_mask"]
 
         def conv(ci, co, s=1, d=1, **kw):
             return VanillaConv(ci, co, 3, s, d, dilation=d, bias=bias, **kw)
@@ -55,7 +55,7 @@ class P3DNetSingle(nn.Module):
                                       conv(nf * 2, nf * 4, s=2))
         self.res_blocks = nn.Sequential(*[
             ResidualBlockNoBN(nf * 4)
-            for _ in range(cfg.get("resBlocks", 1))])
+            for _ in range(c["res_blocks"])])
         self.middle = nn.Sequential(*[conv(nf * 4, nf * 4, d=d)
                                       for d in (8, 4, 2, 1)])
         self.decoder2 = nn.Sequential(

@@ -30,6 +30,22 @@ def _tuple(v: IntOrSeq, n: int) -> tuple:
     return (v,) * n if isinstance(v, int) else tuple(v)
 
 
+def require_vanilla(cfg: dict, model: str) -> None:
+    """Refuse a config these blocks cannot build: a ``conv_type`` other
+    than vanilla (the JAX package's gated and partial convolutions), or a
+    ``norm`` that names a normalisation layer (any string but None /
+    none, such as BN, IN or SN). A non-string ``norm`` (None, or the
+    training CLI's integer data flag) names none."""
+    conv_type = cfg.get("conv_type", "vanilla")
+    if str(conv_type) != "vanilla":
+        raise ValueError(f"{model}: conv_type={conv_type!r} is not ported "
+                         "(only 'vanilla')")
+    norm = cfg.get("norm")
+    if isinstance(norm, str) and norm not in ("None", "none"):
+        raise ValueError(f"{model}: norm={norm!r} is not ported (only "
+                         "None)")
+
+
 class FrozenBatchNorm(nn.Module):
     """Inference batch norm on running statistics over dim 1 of an
     N C [D] H W tensor; ``state_dict`` keys are the reference's

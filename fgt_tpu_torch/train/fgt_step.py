@@ -22,6 +22,12 @@ NotImplementedError (network.py:106-107): ``fuse`` completes both and
 averages them as (fwd − bwd) / 2, ``alternate`` takes forward flows on
 even steps and backward flows on odd ones.
 
+Data parallelism (``utils/dist.py``): each rank steps on its shard of
+the global batch; the D and the G gradients are each averaged over the
+ranks before their Adam updates, so every replica takes the JAX step's
+update on the global batch. The spectral-norm u, v follow the weights
+only, so they stay equal across the ranks.
+
 Mixed precision (``train/precision.py``, as the JAX step's
 ``compute_dtype``): the generator and oracle forwards run on bf16 copies
 of their parameters and inputs and their outputs come back as f32; D,
@@ -38,6 +44,7 @@ import torch.nn as nn
 
 from fgt_tpu_torch.train import losses, precision
 from fgt_tpu_torch.train.schedules import set_lr
+from fgt_tpu_torch.utils.dist import average_grads
 
 
 @dataclasses.dataclass
@@ -132,6 +139,7 @@ class FGTTrainStep:
         self.d_opt.zero_grad(set_to_none=True)
         dis_loss, d_real, d_fake = self._d_loss(frames, comp_detached)
         dis_loss.backward()
+        average_grads(self.disc.parameters())
         if lr is not None:
             set_lr(self.d_opt, lr)
         self.d_opt.step()
@@ -147,6 +155,7 @@ class FGTTrainStep:
                                     materialize_grads=True)
         for p, g in zip(self.g_params, grads):
             p.grad = g
+        average_grads(self.g_params)
         if lr is not None:
             set_lr(self.g_opt, lr)
         self.g_opt.step()

@@ -5,7 +5,9 @@ Loss recipe: masked + valid L1 on the composited flow, first- and
 second-order smoothness, the census (ternary) loss against the warped
 shift frame, and the pos/neg-weighted edge loss
 ``edge_loss(filled) + 5 edge_loss(combined)``; optional global-norm
-gradient clipping (max_norm 10, optax's rule). Under mixed precision the
+gradient clipping (max_norm 10, optax's rule). Under data parallelism the
+gradients are averaged over the ranks before the clip and the Adam step
+(the JAX step's gradient over the global batch). Under mixed precision the
 model runs on bf16 copies (``train/precision.py``) and its outputs come
 back in the batch's dtype (f32) before the losses.
 """
@@ -20,6 +22,7 @@ import torch.nn as nn
 
 from fgt_tpu_torch.train import losses, precision
 from fgt_tpu_torch.train.schedules import clip_grad_global_norm, set_lr
+from fgt_tpu_torch.utils.dist import average_grads
 
 
 @dataclasses.dataclass
@@ -100,6 +103,7 @@ class LAFCTrainStep:
         metrics = self.losses(batch)
         self.opt.zero_grad(set_to_none=True)
         metrics["loss"].backward()
+        average_grads(self.params)
         if self.grad_clip:
             clip_grad_global_norm(self.params, self.grad_clip)
         if self.schedule is not None:

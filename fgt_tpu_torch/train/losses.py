@@ -9,6 +9,12 @@
 * pos/neg-weighted edge BCE + EdgeAcc  (bce_edge_loss.py:6-59)
 * forward-backward consistency         (flow_losses.py:315-376, 489-517)
 
+Under data parallelism every rank holds a shard of the global batch; the
+JAX step sees the whole batch, so the two mask-area normalisers below
+are means over the global batch (``utils/dist.global_mean``). Every other
+reduction is a plain mean over equal shards, which the gradient average
+over the ranks makes global.
+
 Reference quirks kept, as the JAX package keeps them:
 
 * the edge loss applies BCE-with-logits to predictions that already
@@ -26,13 +32,15 @@ import torch
 import torch.nn.functional as F
 
 from fgt_tpu_torch.core.warp import image_warp
+from fgt_tpu_torch.utils.dist import global_mean
 
 
 def l1_normalized(pred: torch.Tensor, target: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
-    """``L1(pred*m, target*m) / mean(m)``."""
+    """``L1(pred*m, target*m) / mean(m)``, ``mean(m)`` over the global
+    batch."""
     return torch.mean(torch.abs(pred * mask - target * mask)) / torch.clamp(
-        torch.mean(mask), min=1e-8)
+        global_mean(torch.mean(mask)), min=1e-8)
 
 
 def adversarial_loss(outputs: torch.Tensor, is_real: bool, is_disc: bool,
@@ -126,8 +134,9 @@ def ternary_loss(comp_flow: torch.Tensor, gt_flow: torch.Tensor,
                  shift_frame: torch.Tensor) -> torch.Tensor:
     """Census loss between the current frame and the shift frame warped
     by the completed flow, gated by a soft non-occlusion mask from the
-    GT flow (reference LAFC/networks/network.py:164-172). Flows
-    [B, H, W, 2], frames [B, H, W, 3], mask [B, H, W, 1]."""
+    GT flow (reference LAFC/networks/network.py:164-172), normalised by
+    the global batch's mean hole area. Flows [B, H, W, 2], frames
+    [B, H, W, 3], mask [B, H, W, 1]."""
     warped_gt = image_warp(shift_frame, gt_flow)
     diff = torch.sum(torch.abs(current_frame - warped_gt), dim=-1,
                      keepdim=True)
@@ -137,7 +146,7 @@ def ternary_loss(comp_flow: torch.Tensor, gt_flow: torch.Tensor,
     t21 = ternary_transform(warped_comp)
     dist = hamming_distance(t1, t21)
     return torch.mean(dist * noc_mask * mask) / torch.clamp(
-        torch.mean(mask), min=1e-8)
+        global_mean(torch.mean(mask)), min=1e-8)
 
 
 # ---------------- edge ----------------

@@ -7,10 +7,20 @@ argparse surfaces FGT/inputs.py:4-83, LAFC/flow_inputs.py:4-50):
     python -m fgt_tpu_torch.train.train --model lafc_single --opt cfg.yaml
 
 YAML keys override the flags (reference parse.py:28); ``--datadir``
-prefixes the relative paths of ``datasets.dataInfo``. Frames are PNG,
-flows ``.flo`` (``data/datasets.py``). Runs on the card unless
-``--device cpu`` is given; there is no fallback to the CPU. One card:
-``--tp``/``--sp`` above 1 and ``--coordinator`` raise (multi-GPU waits).
+prefixes the relative paths of ``datasets.dataInfo``. Frames are JPEG or
+PNG, flows ``.flo`` (``data/datasets.py``). Runs on the card unless
+``--device cpu`` is given; there is no fallback to the CPU.
+
+Data parallelism, one process per card (the JAX CLI's flags)::
+
+    python -m fgt_tpu_torch.train.train ... --coordinator HOST:PORT \
+        --num_processes N --process_id I
+
+initialises a process group (NCCL on the card, gloo with ``--device
+cpu``); process I takes ``cuda:{I % device_count}``. ``torchrun``'s
+environment, or a group the caller already made, serves as well
+(``utils/dist.py``). ``batch_size`` is per process. ``--tp``/``--sp``
+above 1 raise (not ported).
 """
 
 from __future__ import annotations
@@ -102,7 +112,7 @@ def args_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--ref_length", type=int, default=10)
     p.add_argument("--use_valid", action="store_true")
 
-    # multi-host (the JAX CLI's); refused here
+    # data parallelism (the JAX CLI's multi-host flags)
     p.add_argument("--coordinator", type=str, default="")
     p.add_argument("--num_processes", type=int, default=0)
     p.add_argument("--process_id", type=int, default=-1)
@@ -136,15 +146,27 @@ def main(argv=None):
     args = args_parser(argv)
     opt = build_opt(args)
     if int(opt.get("tp", 1) or 1) > 1 or int(opt.get("sp", 1) or 1) > 1:
-        raise NotImplementedError("--tp/--sp > 1: the port trains on one "
-                                  "card (multi-GPU is not ported)")
-    if opt.get("coordinator"):
-        raise NotImplementedError("--coordinator: multi-host training is "
-                                  "not ported")
+        raise NotImplementedError("--tp/--sp > 1: tensor and sequence "
+                                  "parallelism are not ported")
 
+    from fgt_tpu_torch.utils import dist
+
+    had_group = dist.initialized()
+    device = dist.init_from_flags(
+        str(opt.get("coordinator") or ""), int(opt.get("num_processes") or 0),
+        int(opt.get("process_id", -1)), str(opt.get("device", args.device)))
+    try:
+        trainer = _build_trainer(opt, args, device)
+        trainer.train()
+    finally:
+        if not had_group:
+            dist.shutdown()
+    return trainer
+
+
+def _build_trainer(opt: dict, args: argparse.Namespace, device: str):
     from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
 
-    device = str(opt.get("device", args.device))
     model = str(opt.get("model", args.model))
     if model in ("model", "fgt"):
         trainer = FGTTrainer(opt, device=device)
@@ -154,7 +176,6 @@ def main(argv=None):
         trainer = LAFCTrainer(opt, device=device, single=True)
     else:
         raise ValueError(f"unknown model {model}")
-    trainer.train()
     return trainer
 
 

@@ -23,8 +23,16 @@ Trainer/Network split (FGT/trainer.py:14-199, FGT/networks/network.py:
   (network.py:51-78, 225-256), plus a ``latest`` model directory for
   the inference CLI.
 
-One device, no mesh: data, tensor and sequence parallelism wait for the
-multi-GPU slice.
+Data parallelism (the JAX trainer's ``dp`` axis): when a process group
+of N ranks is initialised (``utils/dist.py``; the training CLI makes one
+from ``--coordinator``), every rank builds the same models, takes rank
+0's parameters, loads shard ``rank`` of N of the sampler with
+``batch_size`` items a step (the global batch is ``batch_size`` x N, as
+the JAX trainer's per-device batch) and steps on it; the steps average
+the gradients over the ranks. Rank 0 alone archives and writes the run
+directory, the log file, the metrics (means over the ranks), the
+checkpoints and the validation. Resume loads on every rank. Tensor and
+sequence parallelism are not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from fgt_tpu_torch.train.fgt_step import FGTLossWeights, FGTTrainStep
 from fgt_tpu_torch.train.lafc_step import LAFCLossWeights, LAFCTrainStep
 from fgt_tpu_torch.train.schedules import make_adam, warmup_step_decay
 from fgt_tpu_torch.utils import checkpoint
+from fgt_tpu_torch.utils import dist
 
 
 def setup_logger(name: str, log_dir: Optional[str] = None) -> logging.Logger:
@@ -109,18 +118,26 @@ class Trainer:
     def __init__(self, opt: dict, device: str = DEFAULT_DEVICE):
         self.opt = opt
         self.device = torch.device(device)
-        self.world_size = int(opt.get("world_size") or 1)
+        self.rank, self.num_ranks = dist.rank(), dist.world_size()
+        # the schedule's warmup rule reads world_size (the JAX trainer's)
+        self.world_size = int(opt.get("world_size") or self.num_ranks)
         name = opt.get("name", self.model_kind)
         out_root = opt.get("outputdir", opt.get("output_dir", "outputs"))
         self.run_dir = os.path.join(out_root, name)
-        if not opt.get("resume"):
-            archive_existing_dir(self.run_dir)
-        os.makedirs(self.run_dir, exist_ok=True)
-        self.logger = setup_logger("fgt_tpu_torch.train", self.run_dir)
-        with open(os.path.join(self.run_dir, "config_snapshot.json"),
-                  "w") as f:
-            json.dump({k: str(v) for k, v in opt.items()}, f, indent=2)
-        self.metrics = MetricsWriter(os.path.join(self.run_dir, "tb"))
+        self.metrics = None
+        if self.rank == 0:
+            if not opt.get("resume"):
+                archive_existing_dir(self.run_dir)
+            os.makedirs(self.run_dir, exist_ok=True)
+            self.logger = setup_logger("fgt_tpu_torch.train", self.run_dir)
+            with open(os.path.join(self.run_dir, "config_snapshot.json"),
+                      "w") as f:
+                json.dump({k: str(v) for k, v in opt.items()}, f, indent=2)
+            self.metrics = MetricsWriter(os.path.join(self.run_dir, "tb"))
+            if self.num_ranks > 1:
+                self.logger.info("data parallel: %d ranks", self.num_ranks)
+        else:
+            self.logger = setup_logger(f"fgt_tpu_torch.train.{self.rank}")
 
         seed = int(opt.get("seed", 10))
         random.seed(seed)
@@ -142,7 +159,8 @@ class Trainer:
 
     def _prepare_dataset(self) -> None:
         """The dataset, sampler and loader of ``opt['datasets']`` (JAX
-        ``Trainer._prepare_dataset`` on one device)."""
+        ``Trainer._prepare_dataset``): this rank's shard of the sampler,
+        ``batch_size`` items a step."""
         from fgt_tpu_torch.data import (ShardedSampler, create_dataloader,
                                         create_dataset)
 
@@ -155,7 +173,9 @@ class Trainer:
         ds_name = str(opt.get("datasetName_train") or self._dataset_name())
         self.train_set = create_dataset(dcfg, opt["datasets"]["dataInfo"],
                                         "train", ds_name)
-        self.sampler = ShardedSampler(len(self.train_set), shuffle=True,
+        self.sampler = ShardedSampler(len(self.train_set), shard=self.rank,
+                                      num_shards=self.num_ranks,
+                                      shuffle=True,
                                       seed=int(opt.get("seed", 10)))
         self.train_loader = create_dataloader("train", self.train_set, dcfg,
                                               opt, self.sampler)
@@ -197,7 +217,7 @@ class Trainer:
                     self.current_step += 1
                     metrics = self._train_step(batch)
                     if self.current_step % log_freq == 0:
-                        scalars = {k: float(v) for k, v in metrics.items()}
+                        scalars = dist.mean_scalars(metrics)
                         scalars["it_per_s"] = log_freq / max(
                             time.time() - t0, 1e-9)
                         if self.sched is not None:
@@ -210,7 +230,8 @@ class Trainer:
                         for k, v in scalars.items():
                             run_sum[k] = run_sum.get(k, 0.0) + v
                         means = {k: v / run_n for k, v in run_sum.items()}
-                        self.metrics.write(self.current_step, means)
+                        if self.metrics is not None:
+                            self.metrics.write(self.current_step, means)
                         self.logger.info(
                             "[epoch %d step %d] %s", epoch,
                             self.current_step,
@@ -220,7 +241,8 @@ class Trainer:
                         self.save_checkpoint(epoch)
                 if seen == 0 or self.current_step >= self.total_iterations:
                     break
-                if use_valid and (epoch + 1) % val_freq == 0:
+                if use_valid and (epoch + 1) % val_freq == 0 and \
+                        self.rank == 0:
                     self._validate(epoch)
         finally:
             if loader is not None:
@@ -288,6 +310,7 @@ class LAFCTrainer(Trainer):
         else:
             self.model = lafc.init_lafc(lafc.Model(opt), self.init_gen)
         self.model.to(self.device)
+        dist.broadcast_module(self.model)
         self.sched = warmup_step_decay(
             float(tr["lr"]), decay_interval=int(tr["UPDATE_INTERVAL"]),
             gamma=float(tr.get("lr_decay", 0.1)), warmup=tr.get("WARMUP"),
@@ -340,10 +363,12 @@ class LAFCTrainer(Trainer):
         return self.lafc_step(b)
 
     def save_checkpoint(self, epoch: int) -> dict:
-        """Write the gen / opt pair; returns its paths under the
+        """Write the gen / opt pair (rank 0); returns its paths under the
         ``opt['path']`` keys that :meth:`_resume` reads."""
         paths = {"gen_state": self._ckpt_path("gen", epoch),
                  "opt_state": self._ckpt_path("opt", epoch)}
+        if self.rank != 0:
+            return paths
         checkpoint.save(self.model.state_dict(), paths["gen_state"])
         checkpoint.save({"epoch": epoch, "iteration": self.current_step,
                          "optimizer": self.optimizer.state_dict()},
@@ -397,6 +422,8 @@ class FGTTrainer(Trainer):
             self.init_gen)
         self.gen.to(self.device)
         self.disc.to(self.device)
+        dist.broadcast_module(self.gen)
+        dist.broadcast_module(self.disc)
         self.sched = warmup_step_decay(
             float(tr["lr"]), decay_interval=int(tr["UPDATE_INTERVAL"]),
             gamma=float(tr.get("lr_decay", 0.1)), warmup=tr.get("WARMUP"),
@@ -461,11 +488,13 @@ class FGTTrainer(Trainer):
         return self.gan_step(b)
 
     def save_checkpoint(self, epoch: int) -> dict:
-        """Write the trio; returns its paths under the ``opt['path']``
-        keys that :meth:`_resume` reads."""
+        """Write the trio (rank 0); returns its paths under the
+        ``opt['path']`` keys that :meth:`_resume` reads."""
         paths = {"gen_state": self._ckpt_path("gen", epoch),
                  "dis_state": self._ckpt_path("dist", epoch),
                  "opt_state": self._ckpt_path("opt", epoch)}
+        if self.rank != 0:
+            return paths
         checkpoint.save(self.gen.state_dict(), paths["gen_state"])
         checkpoint.save(self.disc.state_dict(), paths["dis_state"])
         checkpoint.save({"epoch": epoch, "iteration": self.current_step,
