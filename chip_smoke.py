@@ -124,7 +124,18 @@ Phases (any failure exits nonzero; nothing is caught):
      process on the batches with their halves swapped (the reference
      spread): metrics and the trained models' outputs within the stated
      floors or twice that spread, the replicas bit-equal, K2/K4/K5 4 a
-     FGT step on each rank; then the overfit quality gate's two
+     FGT step on each rank; then tensor and sequence parallelism on two
+     gloo ranks sharing cuda:0 (``tests/torch_port_parallel_worker.py``,
+     cuDNN deterministic): object removal at full width under --tp 2,
+     --sp 2 and --dp --window_batch 4, in f32 and bf16, against one
+     process (f32 within 1 u8 level and equal to the input outside the
+     hole, bf16 within twice one process's own bf16-vs-f32 deviation,
+     the ranks equal, K1 and K2 launches and K2's N a rank asserted), and
+     configs/fgt_train.yaml (f32) under tp 2 and sp 2 against one process
+     (the data-parallel rule; replicated leaves and the discriminator
+     bit-equal; K2/K4/K5 4 a step at N 16 a rank), printing per-rank
+     parameter bytes, tp_param_fraction, peak memory and the time-sliced
+     rates beside one process's; then the overfit quality gate's two
      protocols at full size (``fgt_tpu_torch.tools.overfit_gate``, under
      PyTorch's default TF32): each must raise its PSNR, with K1 40, K2
      408, K4 and K5 400 launches a protocol;
@@ -2472,6 +2483,304 @@ def phase_dp_train(kernels, root: str, smi: str, plain: dict) -> dict:
     return {"nccl": nccl, "gloo": phase_dp_gloo(kernels, gloo_root, smi)}
 
 
+# ---------------- tensor and sequence parallelism: two ranks, one card ----
+
+PAR_STEPS = 6           # steps of each tp / sp training run: 3 batches x 2
+PAR_MESHES = {"--tp 2": ["--tp", "2"], "--sp 2": ["--sp", "2"],
+              "--dp": ["--dp", "--window_batch", "4"]}
+
+
+def par_ranks(specs: list, root: str) -> float:
+    """Two gloo ranks on cuda:0 (``tests/torch_port_parallel_worker.py``,
+    one process a rank running every SPEC in turn). Returns their wall
+    seconds."""
+    import torch
+
+    torch.cuda.empty_cache()
+    worker = os.path.join(REPO, "tests", "torch_port_parallel_worker.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, worker, str(r), *specs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            log(text[-6000:])
+            raise AssertionError(f"parallel: rank {r} exited {p.returncode}")
+    return time.perf_counter() - t0
+
+
+def par_spec(root: str, name: str, **kw) -> str:
+    path = os.path.join(root, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(dict(kw, name=name, world=2, tp=kw.get("tp", 1),
+                       sp=kw.get("sp", 1), address=free_address(),
+                       device="cuda:0", out=root), f)
+    return path
+
+
+def par_load(root: str, name: str) -> list:
+    import torch
+
+    return [torch.load(os.path.join(root, f"{name}_rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+
+
+def par_one_process(argv: list, passes: int) -> dict:
+    """The CLI's models and load-and-inpaint step in this process (no
+    group), ``passes`` times (cold, then warm): the last pass's output,
+    stage seconds, K1 and K2 launches, peak memory, and the FGT parameter
+    bytes."""
+    import torch
+    from fgt_tpu_torch.ops import corr_fused, flash_attention as fa
+    from fgt_tpu_torch.pipeline import video_inpainting as vi
+
+    args = vi.build_parser().parse_args(argv)
+    models = vi.build_models(args)
+    counters = (corr_fused.lookup_corr_fused, fa.flash_mhsa)
+    for _ in range(passes):
+        reset(counters)
+        torch.cuda.reset_peak_memory_stats()
+        timer = vi.StageTimer("cuda")
+        out = vi.inpaint_from_args(args, models, timer)
+    res = dict(out=out, stages=dict(timer.times), launches=read(counters),
+               peak=torch.cuda.max_memory_allocated(),
+               fgt_bytes=sum(p.numel() * p.element_size()
+                             for p in models.fgt.parameters()))
+    del models
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_parallel(kernels, root: str, smi: str) -> dict:
+    """Tensor parallelism (``--tp 2``), sequence parallelism (``--sp 2``)
+    and the inference CLI's ``--dp`` with two gloo ranks sharing cuda:0
+    (``tests/torch_port_parallel_worker.py``; NCCL refuses two ranks on
+    one card), cuDNN's deterministic algorithms on, TF32 off.
+
+    Inference: object removal, 24 synthetic frames at 432x240 (flows at
+    864x480), full width (FGT 512 hidden, 4 heads, 8 blocks), random
+    weights from seed 0, through the CLI's ``build_models`` and
+    load-and-inpaint step, in f32 (one pass) and in bf16 (cold, then
+    warm), under each of ``--tp 2``, ``--sp 2`` and ``--dp --window_batch
+    4`` (s6 in chunks of 4 windows and 1, so the 4 are shared); each
+    against one process with the same flags but the mesh's (and
+    ``--host_diffusion``, the solve a mesh takes). In f32 the output equals the input outside the
+    hole and one process's inside it within 1 u8 level; in bf16 the mean
+    |2 ranks - 1| in the hole is within twice one process's own mean
+    |bf16 - f32| there; the two ranks' outputs are equal; K1 launches 20
+    a pass on each rank (46 pairs, 23 a rank under --dp) and K2 4 a
+    pass at N = windows x 4 cells x heads / (tp x sp) (8 under --dp:
+    N 32 for the 2 windows a rank, 16 for the replicated last one).
+
+    Training: ``configs/fgt_train.yaml`` (f32, TF32 off) through
+    ``FGTTrainer`` under ``tp 2`` and under ``sp 2`` on 3 global batches
+    of 2 made on the card, 6 steps, against one process on the same
+    batches and once more with each batch's two items swapped (the
+    reference spread): the data-parallel phase's rule (metrics of the first
+    ``DP_METRIC_STEPS`` steps within ``DP_METRIC_RTOL`` of their largest
+    value; trained outputs within ``max(DP_OUT_RTOL, 2 x spread)``), the
+    discriminator and the generator's replicated leaves bit-equal on the
+    two ranks, K2, K4, K5 4 a step on each rank at N 16 (batch 2 x 4
+    cells x 4 heads / 2), L 900.
+
+    Prints each rank's FGT parameter bytes, ``tp_param_fraction`` of the
+    full generator, peak memory, and the two ranks' frames/s and steps/s
+    beside one process's: the ranks time-slice one card, so these are
+    not a scaling measurement. ``kernels``: the K1-K5 counters."""
+    import torch
+    from fgt_tpu_torch.models import fgt as fgt_mod
+    from fgt_tpu_torch.models import lafc_single
+    from fgt_tpu_torch.parallel import partition
+    from fgt_tpu_torch.pipeline import video_inpainting as vi
+    from fgt_tpu_torch.utils import checkpoint
+
+    frames, masks = synthetic_video()
+    base = CLI_RANDOM + ["--path", write_pngs(f"{root}/frames", frames),
+                         "--path_mask", write_pngs(f"{root}/masks",
+                                                   masks * 255),
+                         "--outroot", f"{root}/out"]
+    dtypes = {"f32": ["--f32"], "bf16": []}
+    passes = {"f32": 1, "bf16": 2}
+    specs = [par_spec(root, f"inf_{m[2:4]}_{d}", job="inference",
+                      passes=passes[d], argv=base + flags + dflags)
+             for m, flags in PAR_MESHES.items()
+             for d, dflags in dtypes.items()]
+    oracle = os.path.join(root, "oracle.pth")
+    checkpoint.save(lafc_single.init_lafc_single(
+        lafc_single.Model(committed_config("fgt_train")["flow_config"]),
+        torch.Generator().manual_seed(0)).state_dict(), oracle)
+    batches = [synthetic_train_batch(b=2, seed=40 + s) for s in range(3)]
+    npz = os.path.join(root, "batches.npz")
+    np.savez(npz, **{f"{s}/{k}": v for s, b in enumerate(batches)
+                     for k, v in b.items()})
+
+    def opt(name):
+        o = train_opt(root, flow_checkPoint=oracle, mixed_precision=0,
+                      name=name)
+        o["train"].update(MAX_ITERS=PAR_STEPS)
+        return o
+
+    axes = {"tp": (2, 1), "sp": (1, 2)}
+    specs += [par_spec(root, f"train_{a}", job="train", tp=tp, sp=sp,
+                      opt=opt(f"par_{a}"), batches=npz)
+              for a, (tp, sp) in axes.items()]
+    wall = par_ranks(specs, root)
+    log(f"parallel: two rank processes ran 6 inference and 2 training "
+        f"configurations in {wall:.2f} s (start-up included)")
+
+    full = fgt_mod.Model(vi.DEFAULT_FGT_CONFIG).state_dict()
+    frac = partition.tp_param_fraction(full, 2)
+    full_bytes = sum(t.numel() * 4 for t in full.values())
+    log(f"parallel: tp_param_fraction of the full generator at tp 2 "
+        f"{frac:.4f} (the JAX audit asks > 0.6); its f32 parameters "
+        f"{full_bytes / 2 ** 20:.2f} MiB in one process")
+    if frac <= 0.6:
+        raise AssertionError(f"tp_param_fraction {frac}")
+
+    hole = masks > 0
+    out, refs = {}, {}
+    for m, flags in PAR_MESHES.items():
+        ref = {}
+        for d, dflags in dtypes.items():
+            argv = (base + flags[1:] * (m == "--dp") + dflags
+                    + ["--host_diffusion"])
+            if tuple(argv) not in refs:     # --tp 2 and --sp 2 share one
+                refs[tuple(argv)] = par_one_process(argv, passes[d])
+            ref[d] = refs[tuple(argv)]
+        for d in dtypes:
+            name = f"inf_{m[2:4]}_{d}"
+            ranks = par_load(root, name)
+            warm = [r["passes"][-1] for r in ranks]
+            got = ranks[0]["out"]
+            diff = np.abs(got.astype(np.int16) - ref[d]["out"])
+            equal = np.array_equal(got, ranks[1]["out"])
+            fps = [24 / sum(p["stages"].values()) for p in warm]
+            one_fps = 24 / sum(ref[d]["stages"].values())
+            pass_label = "warm" if passes[d] > 1 else "cold"
+            shapes = sorted(set(warm[0]["k2_shapes"]))
+            log(f"parallel {m} {d}: 2 ranks on cuda:0 (gloo, time-sliced, "
+                f"not scaling) {fps[0]:.3f} / {fps[1]:.3f} frames/s "
+                f"{pass_label} vs one process {one_fps:.3f}; FGT parameters "
+                f"a rank "
+                f"{ranks[0]['fgt_bytes'] / 2 ** 20:.2f} / "
+                f"{ranks[1]['fgt_bytes'] / 2 ** 20:.2f} MiB vs "
+                f"{ref[d]['fgt_bytes'] / 2 ** 20:.2f}; peak "
+                f"{warm[0]['peak'] / 2 ** 30:.2f} / "
+                f"{warm[1]['peak'] / 2 ** 30:.2f} GiB vs "
+                f"{ref[d]['peak'] / 2 ** 30:.2f}; launches a rank "
+                f"{warm[0]['launches']} / {warm[1]['launches']} vs "
+                f"{ref[d]['launches']}; K2 (N, L) {shapes}; |2 ranks - 1| "
+                f"max {int(diff.max())}, {int((diff > 0).sum())} values "
+                f"differ; ranks equal {equal}; {smi}")
+            if got.shape != (24, 240, 432, 3) or got.dtype != np.uint8 \
+                    or not equal:
+                raise AssertionError(f"parallel {m} {d}: output {got.shape}"
+                                     f" {got.dtype}, ranks equal {equal}")
+            if d == "f32" and (diff.max() > 1 or not np.array_equal(
+                    got[~hole], frames[~hole])):
+                raise AssertionError(f"parallel {m} f32: max |2 ranks - 1| "
+                                     f"{diff.max()} or the input changed "
+                                     "outside the hole")
+            heads = 4 // (2 if m != "--dp" else 1)
+            want_n = ([5 * 4 * heads] * 4 if m != "--dp"
+                      else [2 * 4 * 4] * 4 + [4 * 4] * 4)
+            for p in warm:
+                n_seen = sorted(n for n, _ in p["k2_shapes"])
+                if p["launches"] != {"lookup_corr_fused": 20,
+                                     "flash_mhsa": len(want_n)} \
+                        or n_seen != sorted(want_n):
+                    raise AssertionError(f"parallel {m} {d}: launches "
+                                         f"{p['launches']}, K2 N {n_seen}; "
+                                         f"want 20 K1, K2 N {want_n}")
+        spread = np.abs(ref["bf16"]["out"].astype(np.float64)
+                        - ref["f32"]["out"])[hole].mean()
+        dev = np.abs(par_load(root, f"inf_{m[2:4]}_bf16")[0]["out"]
+                     .astype(np.float64) - ref["bf16"]["out"])[hole].mean()
+        log(f"parallel {m} bf16: mean |2 ranks - 1| in the hole {dev:.4f} "
+            f"u8 levels, one process's own mean |bf16 - f32| {spread:.4f}")
+        if dev > 2 * spread:
+            raise AssertionError(f"parallel {m} bf16: {dev} > 2 x {spread}")
+        out[m] = dict(spread=spread, dev=dev)
+
+    # one process on the batches, and on them with their items swapped
+    one_rows, init, trained, models, launches, _ = dp_single(
+        "model", opt("par_1"), batches, kernels)
+    swapped = [{k: v[::-1].copy() for k, v in b.items()} for b in batches]
+    sw_rows, _, sw_trained, _, _, _ = dp_single(
+        "model", opt("par_1s"), swapped, kernels)
+    for a, (tp, sp) in axes.items():
+        ranks = par_load(root, f"train_{a}")
+        with open(os.path.join(ranks[0]["run_dir"], "tb",
+                               "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        states = {"gen": ranks[0]["gen"], "disc": ranks[0]["own"]["disc"]}
+        err = dp_distance("model", rows, one_rows, states, init, trained,
+                          models, batches[0])
+        spread = dp_distance("model", sw_rows, one_rows, sw_trained, init,
+                             trained, models, batches[0])
+        o_tol = {m: max(DP_OUT_RTOL, 2 * v) for m, v in spread[2].items()}
+        specs_full = partition.partition_specs(init["gen"], tp)
+        replicated_equal = all(
+            torch.equal(ranks[0]["own"]["gen"][k], ranks[1]["own"]["gen"][k])
+            for k in ranks[0]["own"]["gen"] if specs_full[k] is None)
+        disc_equal = all(torch.equal(ranks[0]["own"]["disc"][k],
+                                     ranks[1]["own"]["disc"][k])
+                         for k in ranks[0]["own"]["disc"])
+        rates = [step_rate(rows), step_rate(one_rows)]
+        log(f"parallel training {a} 2: 2 ranks on cuda:0 (gloo, f32, "
+            f"time-sliced, not scaling) {rates[0]:.4f} steps/s vs one "
+            f"process {rates[1]:.4f}; generator parameters a rank "
+            f"{ranks[0]['param_bytes']['gen'] / 2 ** 20:.2f} / "
+            f"{ranks[1]['param_bytes']['gen'] / 2 ** 20:.2f} MiB vs "
+            f"{full_bytes / 2 ** 20:.2f}; peak {ranks[0]['peak'] / 2 ** 30:.2f}"
+            f" / {ranks[1]['peak'] / 2 ** 30:.2f} GiB; {smi}")
+        log(f"parallel training {a} 2: metrics max err of their largest "
+            f"value, steps 1-{DP_METRIC_STEPS} {err[0]:.3g} (swapped spread "
+            f"{spread[0]:.3g}, tol {DP_METRIC_RTOL}), steps 1-{PAR_STEPS} "
+            f"{err[1]:.3g} (spread {spread[1]:.3g}); outputs |2 ranks - 1| "
+            f"/ |1 - init| " + ", ".join(
+                f"{m} {v:.3g} (spread {spread[2][m]:.3g}, tol "
+                f"{o_tol[m]:.3g})" for m, v in err[2].items())
+            + f"; replicated generator leaves equal {replicated_equal}, "
+            f"discriminator equal {disc_equal}; launches rank 0 "
+            f"{ranks[0]['launches']}, rank 1 {ranks[1]['launches']}, one "
+            f"process {launches}")
+        if len(rows) != PAR_STEPS or len(one_rows) != PAR_STEPS:
+            raise AssertionError(f"parallel training {a}: {len(rows)} / "
+                                 f"{len(one_rows)} steps logged")
+        if not (err[0] <= DP_METRIC_RTOL and replicated_equal and disc_equal
+                and all(v <= o_tol[m] for m, v in err[2].items())):
+            raise AssertionError(f"parallel training {a}: two ranks and "
+                                 "one process disagree")
+        want = {n: 4 * PAR_STEPS for n in ("flash_mhsa", "flash_attention_dq",
+                                           "flash_attention_dkv")}
+        # batch 2 x 4 cells x 4 heads / 2 ranks; 5 frames x 180 tokens
+        want_shapes = [(e, 16, 900) for e in (
+            "flash_attention_dkv", "flash_attention_dq",
+            "flash_attention_forward")]
+        log(f"parallel training {a} 2: flash (entry, N, L) a rank "
+            f"{ranks[0]['flash_shapes']} / {ranks[1]['flash_shapes']}")
+        for r in ranks:
+            if any(r["launches"][k] != n for k, n in want.items()) \
+                    or [tuple(x) for x in r["flash_shapes"]] != want_shapes:
+                raise AssertionError(f"parallel training {a}: launches "
+                                     f"{r['launches']}, shapes "
+                                     f"{r['flash_shapes']}; want {want} "
+                                     f"at {want_shapes} a rank")
+        out[a] = dict(rates=rates, err=err, spread=spread)
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------- the overfit quality gate ----------------
 
 def phase_overfit_gate(kernels, root: str, smi: str) -> dict:
@@ -2725,6 +3034,8 @@ def main() -> int:
             for m in on_card) + f"; {smi}")
     with tempfile.TemporaryDirectory() as dp_root:
         phase_dp_train(all_counters, dp_root, smi, cli)
+    with tempfile.TemporaryDirectory() as par_root:
+        phase_parallel(all_counters, par_root, smi)
     with tempfile.TemporaryDirectory() as gate_root:
         phase_overfit_gate(all_counters, gate_root, smi)
     phase_small_reference()

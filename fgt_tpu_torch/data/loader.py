@@ -11,7 +11,6 @@ from __future__ import annotations
 import collections
 import concurrent.futures as cf
 import multiprocessing
-import os
 import random
 from typing import Callable, Iterator, Optional, Sequence
 
@@ -58,24 +57,28 @@ def default_collate(items: Sequence[dict]) -> dict:
 _WORKER_DATASET = None
 
 
-def _worker_init(dataset, base_seed: int):
+def _worker_init(dataset):
     global _WORKER_DATASET
     _WORKER_DATASET = dataset
-    seed = (base_seed + os.getpid()) % (2 ** 31)
+
+
+def _worker_load(idx: int, seed: int):
     random.seed(seed)
     np.random.seed(seed)
-
-
-def _worker_load(idx: int):
     return _WORKER_DATASET[idx]
 
 
 class DataLoader:
     """Batches of an indexable dataset. ``num_workers=0`` loads inline;
     otherwise a process pool loads items in parallel with
-    ``prefetch_batches`` batches in flight. Each worker seeds ``random``
-    and ``np.random`` with (seed + its pid), as the JAX loader does. A
-    worker's exception is raised where its batch is collated. Call
+    ``prefetch_batches`` batches in flight. A worker seeds ``random``
+    and ``np.random`` before each item from a stream the loader draws
+    from (seed, epoch), so two loaders of one seed and one sampler yield
+    the same items whichever worker loads each (the JAX loader seeds a
+    worker once, with seed + its pid, so its items differ from run to
+    run; the tensor- and sequence-parallel ranks of one dp group must
+    load the same). A worker's exception is raised where its batch is
+    collated. Call
     :meth:`close` (or use the loader as a context manager) to stop the
     workers."""
 
@@ -121,7 +124,16 @@ class DataLoader:
             self._pool = cf.ProcessPoolExecutor(
                 max_workers=self.num_workers,
                 mp_context=multiprocessing.get_context("spawn"),
-                initializer=_worker_init, initargs=(self.dataset, self.seed))
+                initializer=_worker_init, initargs=(self.dataset,))
+        # a plain list of indices serves as a sampler too (one epoch)
+        epoch = getattr(self.sampler, "epoch", 0)
+        seeds = np.random.RandomState((self.seed + 7919 * epoch) % (2 ** 31))
+
+        def submit(batch):
+            return [self._pool.submit(_worker_load, i,
+                                      int(seeds.randint(2 ** 31)))
+                    for i in batch]
+
         pending: collections.deque = collections.deque()
         gen = self._batches()
         try:
@@ -129,14 +141,12 @@ class DataLoader:
                 batch = next(gen, None)
                 if batch is None:
                     break
-                pending.append([self._pool.submit(_worker_load, i)
-                                for i in batch])
+                pending.append(submit(batch))
             while pending:
                 futures = pending.popleft()
                 batch = next(gen, None)
                 if batch is not None:
-                    pending.append([self._pool.submit(_worker_load, i)
-                                    for i in batch])
+                    pending.append(submit(batch))
                 yield self.collate([f.result() for f in futures])
         finally:
             for futures in pending:

@@ -7,22 +7,34 @@ Module names follow the reference tree (``net.frame_endoder.layers``,
 convolutions are NCHW with the (b, t) axes folded into the batch; tokens
 are [B·T, N, C]. :class:`Model` takes and returns the JAX package's
 ``[B, T, H, W, C]`` layouts.
+
+Multi-GPU (``parallel/partition.shard_module`` gives the generator its
+mesh): tensor parallelism lives in the attention and FFN modules; with
+``FGTConfig.seq_axis`` naming a mesh axis of more than one rank
+(Ulysses, JAX ``FGTConfig.seq_axis``), the folded b·t frames are split
+over that axis's ranks at the trunk's entry (contiguous shares, uneven
+where the ranks do not divide b·t), every per-frame stage runs on this
+rank's frames, TMHSA re-scatters by heads, and the output is gathered
+back to every rank at the exit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fgt_tpu_torch.ops.attention import LN_EPS, TMHSA, FlowGuidedSWMHSA
+from fgt_tpu_torch.ops.attention import (LN_EPS, TMHSA, FlowGuidedSWMHSA,
+                                         FrameShard)
 from fgt_tpu_torch.ops.conv_blocks import (VanillaConv, VanillaDeconv,
                                            init_normal, leaky_relu_02,
                                            require_vanilla)
 from fgt_tpu_torch.ops.ffn import FusionFeedForward
+from fgt_tpu_torch.parallel.collectives import (frame_splits, gather_frames,
+                                                group_rank)
 
 
 @dataclasses.dataclass
@@ -47,6 +59,7 @@ class FGTConfig:
     tw: int = 2
     sw: int = 8
     gd: int = 4
+    seq_axis: Optional[str] = None   # mesh axis of Ulysses frame sharding
 
     @classmethod
     def from_dict(cls, cfg: dict) -> "FGTConfig":
@@ -73,7 +86,8 @@ class FGTConfig:
             use_bias=bool(get("use_bias", 1)),
             ape=bool(get("ape", 1)), mlp_ratio=get("mlp_ratio", 40),
             pass_mask=bool(get("PASSMASK", get("pass_mask", 1))),
-            tw=get("tw", 2), sw=get("sw", 8), gd=get("gd", 4))
+            tw=get("tw", 2), sw=get("sw", 8), gd=get("gd", 4),
+            seq_axis=get("seq_axis", None))
 
 
 class Encoder(nn.Module):
@@ -154,8 +168,8 @@ class TemporalTransformer(nn.Module):
         self.ffn = FusionFeedForward(cfg.frame_hidden, cfg.mlp_ratio,
                                      cfg.kernel_size, cfg.stride, cfg.padding)
 
-    def forward(self, x, t, h, w, output_size):
-        x = x + self.attention(self.norm1(x), t, h, w)
+    def forward(self, x, t, h, w, output_size, shard=None):
+        x = x + self.attention(self.norm1(x), t, h, w, shard)
         return x + self.ffn(self.norm2(x), output_size)
 
 
@@ -223,6 +237,21 @@ class FGT(nn.Module):
         self.vec2patch = Vec2Patch(2 * c.cnum, c.frame_hidden, c.kernel_size,
                                    c.stride, c.padding)
         self.decoder = Decoder(c)
+        self.mesh = None          # set by parallel.partition.shard_module
+
+    def _frame_shard(self, bt: int) -> Optional[FrameShard]:
+        """This rank's share of the b·t frames when ``seq_axis`` names a
+        mesh axis of more than one rank, else None."""
+        axis = self.cfg.seq_axis
+        if axis is None or self.mesh is None or self.mesh.size(axis) == 1:
+            return None
+        sp = self.mesh.size(axis)
+        heads = self.first_t_transformer.attention.local_heads
+        if heads % sp or bt < sp:
+            raise ValueError(f"sequence parallelism over {sp} ranks needs "
+                             f"whole heads ({heads} a tp rank) and a frame "
+                             f"a rank ({bt} frames)")
+        return FrameShard(frame_splits(bt, sp), self.mesh.group(axis))
 
     def forward(self, masked_frames, flows, masks):
         """[B, T, H, W, 3] frames in [-1, 1], [B, T, H, W, 2] flows,
@@ -236,6 +265,12 @@ class FGT(nn.Module):
             inputs = torch.cat([masked_frames, masks], dim=-1)
         x = inputs.reshape(b * t, h, w, -1).permute(0, 3, 1, 2).to(dt)
         f = flows.reshape(b * t, h, w, -1).permute(0, 3, 1, 2).to(dt)
+        shard = self._frame_shard(b * t)
+        if shard is not None:
+            i = group_rank(shard.group)
+            start = sum(shard.splits[:i])
+            x = x[start:start + shard.splits[i]]
+            f = f[start:start + shard.splits[i]]
 
         enc_feats = self.frame_endoder(x)
         flow_feats = self.flow_encoder(f)
@@ -244,17 +279,20 @@ class FGT(nn.Module):
         trans = trans.flatten(2).transpose(1, 2)           # [bt, N, hidden]
         flow_patch = self.f_patch2vec(flow_feats).flatten(2).transpose(1, 2)
 
-        trans = self.first_t_transformer(trans, t, th, tw, out_spatial)
+        trans = self.first_t_transformer(trans, t, th, tw, out_spatial,
+                                         shard)
         if c.ape:
             trans = self.add_pos_emb(trans, th, tw)
         trans = self.first_s_transformer(trans, flow_patch, th, tw,
                                          out_spatial)
         for blk in self.transformer:
-            trans = blk.t_transformer(trans, t, th, tw, out_spatial)
+            trans = blk.t_transformer(trans, t, th, tw, out_spatial, shard)
             trans = blk.s_transformer(trans, flow_patch, th, tw, out_spatial)
 
         enc_feats = enc_feats + self.vec2patch(trans, out_spatial)
         out = torch.tanh(self.decoder(enc_feats))
+        if shard is not None:
+            out = gather_frames(out, shard.splits, shard.group)
         return out.permute(0, 2, 3, 1).reshape(b, t, h, w, 3)
 
 

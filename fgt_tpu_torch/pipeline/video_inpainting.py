@@ -40,6 +40,20 @@ writes, in the same directories: ``--vis_flows`` (the s1 flows under
 ``--opt`` overrides flags from a YAML file, ``--profile`` writes a
 ``torch.profiler`` trace.
 
+Multi-GPU serving (the JAX CLI's ``--dp``, ``--tp``, ``--sp``; one
+process per card, e.g. ``torchrun --nproc_per_node 2 -m
+fgt_tpu_torch.pipeline.video_inpainting ... --tp 2``, or a group the
+caller initialised): with more than one rank, the ranks form a (dp, tp,
+sp) mesh (``parallel/mesh.py``). Each dp rank runs its share of every
+batched chunk, the pairs of s1 and s3b (K1 or K3), the windows of s2 and
+of s6 (K2), and the shares are all-gathered; a chunk that dp does not
+divide runs replicated, with one warning per size. The chunk sizes are
+at least dp. Under tp the FGT generator is Megatron-sharded and under sp
+its frames are (``parallel/partition.py``, ``models/fgt.py``). s2's
+diffusion takes the host solve, as the JAX CLI's does under a mesh. The
+host stages give the same result on every rank; only rank 0 writes
+``outroot``. The kernels run under the mesh as without it.
+
 Frames stay float from the resize on, as in the JAX pipeline: RAFT reads
 them rounded to u8, the gradients and Poisson read them /255, and FGT's
 input and the composite read them rounded again.
@@ -74,12 +88,16 @@ from fgt_tpu_torch.models import fgt as fgt_mod
 from fgt_tpu_torch.models import lafc as lafc_mod
 from fgt_tpu_torch.models import raft as raft_mod
 from fgt_tpu_torch.ops.diffusion import diffuse_flows_device
+from fgt_tpu_torch.parallel.collectives import gather_frames
+from fgt_tpu_torch.parallel.mesh import make_mesh
+from fgt_tpu_torch.parallel.partition import shard_module, tp_param_fraction
 from fgt_tpu_torch.pipeline import image_io
 from fgt_tpu_torch.pipeline.poisson import poisson_blend
 from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
                                                 get_flownn_gradient,
                                                 get_flownn_gradient_frames,
                                                 key_frames)
+from fgt_tpu_torch.utils import dist
 from fgt_tpu_torch.utils.checkpoint import load_state_dict
 from fgt_tpu_torch.utils.config import apply_yaml_over_args, read_flat_yaml
 from fgt_tpu_torch.utils.profiling import maybe_trace
@@ -249,14 +267,21 @@ class Models:
     from ``seed`` (a ``torch.Generator``) unless state dicts are given.
     ``small`` takes RAFT's small variant. ``corr`` is s1's correlation
     path ("fused": K1, "alternate": K1 in f32, "pyramid": K3); the
-    pyramid is stored in bf16 under bf16 compute unless ``corr_f32``."""
+    pyramid is stored in bf16 under bf16 compute unless ``corr_f32``.
+
+    ``mesh`` (``parallel.mesh.make_mesh``) serves on several ranks: the
+    batched chunks are shared over its dp ranks (:meth:`dp_share`), the
+    FGT generator is built from the full init and weights, then sharded
+    over tp and, with sp > 1, over its frames."""
+
+    mesh = None      # one process unless __init__ is given a mesh
 
     def __init__(self, device: str = DEFAULT_DEVICE, bf16: bool = True,
                  raft_iters: int = 20, lafc_config: Optional[dict] = None,
                  fgt_config: Optional[dict] = None, seed: int = 0,
                  raft_state=None, lafc_state=None, fgt_state=None,
                  corr: str = "fused", corr_f32: bool = False,
-                 small: bool = False):
+                 small: bool = False, mesh=None):
         if corr not in raft_mod.CORRS:
             raise ValueError(f"unknown correlation path {corr!r}")
         self.device = torch.device(device)
@@ -266,6 +291,10 @@ class Models:
         self.raft_iters = raft_iters
         self.lafc_config = dict(lafc_config or DEFAULT_LAFC_CONFIG)
         self.fgt_config = dict(fgt_config or DEFAULT_FGT_CONFIG)
+        self.mesh = mesh
+        self._dp_warned: set = set()
+        if mesh is not None and mesh.sp > 1:
+            self.fgt_config["seq_axis"] = "sp"
         gen = torch.Generator().manual_seed(seed)
         self.raft = raft_mod.init_raft(raft_mod.RAFT(small), gen)
         self.lafc = lafc_mod.init_lafc(lafc_mod.Model(self.lafc_config), gen)
@@ -275,10 +304,45 @@ class Models:
                               (self.fgt, fgt_state)):
             if state is not None:
                 load_state(module, state)
+            if module is self.fgt and mesh is not None and (
+                    mesh.tp > 1 or mesh.sp > 1):
+                logger.info("dp=%d x tp=%d x sp=%d inference mesh; %.3f of "
+                            "FGT params tp-sharded", mesh.dp, mesh.tp,
+                            mesh.sp, tp_param_fraction(module.state_dict(),
+                                                       mesh.tp))
+                shard_module(module, mesh)
             module.to(device=self.device, dtype=self.dtype).eval()
         for p in (*self.raft.parameters(), *self.lafc.parameters(),
                   *self.fgt.parameters()):
             p.requires_grad_(False)
+
+    @property
+    def dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.dp
+
+    def dp_share(self, n: int, stage: str) -> Optional[slice]:
+        """This rank's rows of a batched chunk of ``n`` under a mesh of
+        dp > 1 ranks (gather the results with :meth:`dp_gather`); None
+        when the chunk runs whole here: no such mesh, or dp does not
+        divide ``n`` (replicated, warned once per stage and size, as the
+        JAX CLI's ``shard_chunk``)."""
+        dp = self.dp
+        if dp == 1:
+            return None
+        if n % dp:
+            if (stage, n) not in self._dp_warned:
+                self._dp_warned.add((stage, n))
+                logger.warning("--dp: %s chunk of %d does not divide the %d "
+                               "dp ranks; running REPLICATED (no dp speedup) "
+                               "for this shape", stage, n, dp)
+            return None
+        i = self.mesh.index("dp")
+        return slice(i * n // dp, (i + 1) * n // dp)
+
+    def dp_gather(self, part: torch.Tensor) -> torch.Tensor:
+        """Every dp rank's share of a chunk, in rank order."""
+        return gather_frames(part, [part.shape[0]] * self.dp,
+                             self.mesh.group("dp"))
 
 
 # ---------------- stages ----------------
@@ -326,10 +390,14 @@ def refine_pairs(models: Models, feats, src: torch.Tensor, dst: torch.Tensor,
         outs = []
         for s in range(0, src.shape[0], c):
             i, j = src[s:s + c], dst[s:s + c]
+            share = models.dp_share(i.shape[0], stage)
+            if share is not None:
+                i, j = i[share], j[share]
             _, up = models.raft.refine(fmap[i], fmap[j], net[i], inp[i],
                                        models.raft_iters, corr=corr,
                                        corr_dtype=models.corr_dtype)
-            outs.append(resize_flows(up.float(), out_h, out_w))
+            fl = resize_flows(up.float(), out_h, out_w)
+            outs.append(fl if share is None else models.dp_gather(fl))
         return torch.cat(outs, dim=0)
 
     flows, _ = chunk_backoff(dispatch, chunk or src.shape[0], stage, backoffs)
@@ -401,13 +469,17 @@ def complete_flows(models: Models, flows: torch.Tensor, masks: torch.Tensor,
         outs = []
         for s in range(0, t, c):
             ib = ids[s:s + c]
-            b = ib.shape[0]
-            wf = diffused[ib.reshape(-1)].reshape(b, num_flows, h, w, 2)
-            wm = mf[ib.reshape(-1)].reshape(b, num_flows, h, w, 1)
+            share = models.dp_share(ib.shape[0], "s2_lafc")
+            mine = ib if share is None else ib[share]
+            b = mine.shape[0]
+            wf = diffused[mine.reshape(-1)].reshape(b, num_flows, h, w, 2)
+            wm = mf[mine.reshape(-1)].reshape(b, num_flows, h, w, 1)
             out, _ = models.lafc(wf, wm, with_edge=False)
+            out = out.float() if share is None else \
+                models.dp_gather(out.float())
             piv = ib[:, num_flows // 2]
             pm = mf[piv][..., None]
-            outs.append(out.float() * pm + flows[piv] * (1 - pm))
+            outs.append(out * pm + flows[piv] * (1 - pm))
         return torch.cat(outs, dim=0)
 
     out, _ = chunk_backoff(dispatch, chunk, "s2_lafc", backoffs)
@@ -441,15 +513,19 @@ def fgt_synthesis(models: Models, video_u8: torch.Tensor,
         seen = torch.zeros(n, dtype=torch.bool, device=video_u8.device)
         for s in range(0, w_total, wb):
             ib = ids_all[s:s + wb]
-            b = ib.shape[0]
-            flat = ib.reshape(-1)
+            share = models.dp_share(ib.shape[0], "s6_fgt")
+            mine = ib if share is None else ib[share]
+            b = mine.shape[0]
+            flat = mine.reshape(-1)
             fr = video_u8[flat].to(models.dtype).reshape(b, t, h, w, 3) / 255.0
             fr = fr * 2.0 - 1.0
             m = masks_u8[flat].to(models.dtype).reshape(b, t, h, w, 1)
             fl = flows[flat].reshape(b, t, h, w, 2)
             out = models.fgt(fr * (1 - m), fl, m)
             out_u8 = ((out.float() + 1.0) / 2.0 * 255.0).to(torch.uint8)
-            for j in range(b):
+            if share is not None:
+                out_u8 = models.dp_gather(out_u8)
+            for j in range(ib.shape[0]):
                 nb = ib[j, :t_n]
                 mj = mf[nb]
                 new = out_u8[j, :t_n].float() * mj + vf[nb] * (1 - mj)
@@ -560,6 +636,12 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
     runs s2's regionfill on the host (:func:`complete_flows`)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    if models.mesh is not None:
+        # as the JAX CLI under a mesh: the host solve, the debug outputs
+        # written once, chunks of at least dp
+        host_diffusion = True
+        vis = vis if dist.rank() == 0 else ()
+        raft_chunk = raft_chunk and max(raft_chunk, models.dp)
     if set(vis) - set(VIS) or (vis and vis_root is None):
         raise ValueError(f"vis {vis!r} needs names of {VIS} and a vis_root")
     dev = models.device
@@ -606,8 +688,10 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
             mask_dilated = np.stack([gradient_mask(m) for m in mask])
         # batch sizes tuned at 240x432, scaled with the canvas pixel count
         pixel_scale = (240 * 432) / float(img_h * img_w)
-        lafc_chunk = lafc_chunk or max(1, int(16 * pixel_scale))
-        window_batch = window_batch or max(1, int(6 * pixel_scale))
+        lafc_chunk = max(lafc_chunk or max(1, int(16 * pixel_scale)),
+                         models.dp)
+        window_batch = max(window_batch or max(1, int(6 * pixel_scale)),
+                           models.dp)
 
         with timer.stage("s2_lafc"):
             fm = torch.from_numpy(flow_mask.astype(np.uint8)).to(dev)
@@ -854,6 +938,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile", default="",
                    help="write a torch.profiler trace (trace.json) of the "
                         "run to this directory")
+    p.add_argument("--dp", action="store_true",
+                   help="shard batched stage calls over the ranks of the "
+                        "process group (multi-GPU serving, one process a "
+                        "card: torchrun or a group the caller made)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree: Megatron-shard the FGT "
+                        "attention heads / FFN hidden over tp ranks "
+                        "(combines with --dp; ranks = dp*tp)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel degree: Ulysses-shard the FGT "
+                        "folded temporal frame axis over sp ranks "
+                        "(head-scatter all-to-alls inside TMHSA; "
+                        "ranks = dp*tp*sp)")
     p.add_argument("--device", default=DEFAULT_DEVICE)
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random init of models without weights")
@@ -874,9 +971,13 @@ def build_models(args) -> Models:
         if st is None:
             logger.warning("%s weights not found; random init (seed %d)",
                            name, args.seed)
+    tp, sp = int(getattr(args, "tp", 1) or 1), int(getattr(args, "sp", 1) or 1)
+    mesh = (make_mesh(tp=tp, sp=sp)
+            if (getattr(args, "dp", False) or tp > 1 or sp > 1)
+            and dist.world_size() > 1 else None)
     return Models(args.device, args.bf16, args.raft_iters, lafc_cfg, fgt_cfg,
                   args.seed, raft_state, lafc_state, fgt_state, corr=corr,
-                  corr_f32=args.corr_f32, small=args.small)
+                  corr_f32=args.corr_f32, small=args.small, mesh=mesh)
 
 
 def load_frames(path: str, img_h: int, img_w: int,
@@ -920,45 +1021,63 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
     with timer.stage("s0_init"):
         if models is None:
             models = build_models(args)
+    out = inpaint_from_args(args, models, timer)
+    if dist.rank() == 0:
+        with timer.stage("s7_write"):
+            image_io.write_frames(args.outroot, out)
+    n = out.shape[0]
+    total = sum(timer.times.values())
+    logger.info("stages %s; %d frames in %.2f s (%.2f frames/s)",
+                {k: round(v, 3) for k, v in timer.times.items()}, n, total,
+                n / total if total else math.inf)
+    if dist.rank() == 0:
+        with open(os.path.join(args.outroot, "timings.json"), "w") as f:
+            json.dump({"mode": args.mode, "frames": n,
+                       "shape": list(out.shape), "stages": timer.times}, f)
+    return os.path.join(args.outroot, "result.npy")
+
+
+def inpaint_from_args(args, models: Models,
+                      timer: Optional[StageTimer] = None) -> np.ndarray:
+    """The CLI's frames and masks (``--path``, ``--path_mask``) through
+    :func:`inpaint` with the CLI's options. Every rank of a mesh returns
+    the output frames; :func:`video_inpainting` writes them from rank 0."""
+    timer = timer or StageTimer(torch.device(args.device))
     with timer.stage("s0_load_frames"):
         frames, src_hw = load_frames(
             args.path, args.imgH, args.imgW,
             args.path_mask if args.mode == "watermark_removal" else None)
         masks = (None if args.mode == "video_extrapolation"
                  else load_masks(args.path_mask, args.imgH, args.imgW))
-    out = inpaint(frames, masks, models, mode=args.mode,
-                  h_scale=args.H_scale, w_scale=args.W_scale,
-                  use_nonlocal=bool(args.Nonlocal),
-                  flow_mask_dilates=args.flow_mask_dilates,
-                  frame_dilates=args.frame_dilates,
-                  consistency_thres=args.consistencyThres, alpha=args.alpha,
-                  neighbor_stride=args.neighbor_stride, step=args.step,
-                  num_ref=args.num_ref, raft_chunk=args.raft_chunk,
-                  lafc_chunk=args.lafc_chunk, window_batch=args.window_batch,
-                  host_upscale=tuple(src_hw) != (args.imgH, args.imgW),
-                  timer=timer, vis_root=args.outroot,
-                  vis=tuple(v for v in VIS if getattr(args, f"vis_{v}")),
-                  exact_windows=args.exact_windows,
-                  host_diffusion=args.host_diffusion)
-    with timer.stage("s7_write"):
-        image_io.write_frames(args.outroot, out)
-    n = out.shape[0]
-    total = sum(timer.times.values())
-    logger.info("stages %s; %d frames in %.2f s (%.2f frames/s)",
-                {k: round(v, 3) for k, v in timer.times.items()}, n, total,
-                n / total if total else math.inf)
-    with open(os.path.join(args.outroot, "timings.json"), "w") as f:
-        json.dump({"mode": args.mode, "frames": n, "shape": list(out.shape),
-                   "stages": timer.times}, f)
-    return os.path.join(args.outroot, "result.npy")
+    return inpaint(frames, masks, models, mode=args.mode,
+                   h_scale=args.H_scale, w_scale=args.W_scale,
+                   use_nonlocal=bool(args.Nonlocal),
+                   flow_mask_dilates=args.flow_mask_dilates,
+                   frame_dilates=args.frame_dilates,
+                   consistency_thres=args.consistencyThres, alpha=args.alpha,
+                   neighbor_stride=args.neighbor_stride, step=args.step,
+                   num_ref=args.num_ref, raft_chunk=args.raft_chunk,
+                   lafc_chunk=args.lafc_chunk, window_batch=args.window_batch,
+                   host_upscale=tuple(src_hw) != (args.imgH, args.imgW),
+                   timer=timer, vis_root=args.outroot,
+                   vis=tuple(v for v in VIS if getattr(args, f"vis_{v}")),
+                   exact_windows=args.exact_windows,
+                   host_diffusion=args.host_diffusion)
 
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
     args = apply_yaml_over_args(args, args.opt)
-    with maybe_trace(args.profile, torch.device(args.device)):
-        return video_inpainting(args)
+    had_group = dist.initialized()
+    args.device = dist.init_from_flags(device=args.device)
+    try:
+        profile = args.profile if dist.rank() == 0 else ""
+        with maybe_trace(profile, torch.device(args.device)):
+            return video_inpainting(args)
+    finally:
+        if not had_group:
+            dist.shutdown()
 
 
 if __name__ == "__main__":

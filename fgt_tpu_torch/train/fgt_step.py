@@ -24,9 +24,19 @@ even steps and backward flows on odd ones.
 
 Data parallelism (``utils/dist.py``): each rank steps on its shard of
 the global batch; the D and the G gradients are each averaged over the
-ranks before their Adam updates, so every replica takes the JAX step's
-update on the global batch. The spectral-norm u, v follow the weights
-only, so they stay equal across the ranks.
+ranks of ``group`` (the dp group; the world by default) before their
+Adam updates, so every replica takes the JAX step's update on the global
+batch. The spectral-norm u, v follow the weights only, so they stay
+equal across the ranks.
+
+Tensor and sequence parallelism (``parallel/``): the ranks of one tp and
+sp group step on the same batch. A tensor-parallel generator holds its
+slices of the sharded leaves; its replicated leaves get whole, equal
+gradients through Megatron's *f* and are not reduced over tp. Under
+sequence parallelism each rank back-propagates only its frames, so the
+generator's gradients are first summed over ``sp_group``. The
+discriminator and the losses run on the gathered output, the same on
+every rank of a dp group.
 
 Mixed precision (``train/precision.py``, as the JAX step's
 ``compute_dtype``): the generator and oracle forwards run on bf16 copies
@@ -44,7 +54,7 @@ import torch.nn as nn
 
 from fgt_tpu_torch.train import losses, precision
 from fgt_tpu_torch.train.schedules import set_lr
-from fgt_tpu_torch.utils.dist import average_grads
+from fgt_tpu_torch.utils.dist import average_grads, sum_grads
 
 
 @dataclasses.dataclass
@@ -84,7 +94,7 @@ class FGTTrainStep:
                  schedule: Optional[Callable[[int], float]] = None,
                  weights: FGTLossWeights = FGTLossWeights(),
                  bi_mode: Optional[str] = None,
-                 mixed_precision: bool = False):
+                 mixed_precision: bool = False, group=None, sp_group=None):
         if bi_mode not in (None, "fuse", "alternate"):
             raise ValueError(f"unknown bi_mode: {bi_mode!r}")
         self.gen, self.disc, self.flow_model = gen, disc, flow_model
@@ -93,6 +103,7 @@ class FGTTrainStep:
         self.weights = weights
         self.bi_mode = bi_mode
         self.mixed_precision = mixed_precision
+        self.group, self.sp_group = group, sp_group
         self.g_params = [p for p in gen.parameters() if p.requires_grad]
         self.step = 0
 
@@ -139,7 +150,7 @@ class FGTTrainStep:
         self.d_opt.zero_grad(set_to_none=True)
         dis_loss, d_real, d_fake = self._d_loss(frames, comp_detached)
         dis_loss.backward()
-        average_grads(self.disc.parameters())
+        average_grads(self.disc.parameters(), self.group)
         if lr is not None:
             set_lr(self.d_opt, lr)
         self.d_opt.step()
@@ -147,15 +158,17 @@ class FGTTrainStep:
         comp = filled * masks + frames * (1 - masks)
         gan = losses.adversarial_loss(self.disc(comp, sn_update=False),
                                       True, False, w.gan_kind)
-        l1_valid = losses.l1_normalized(filled, frames, 1 - masks)
-        l1_masked = losses.l1_normalized(filled, frames, masks)
+        l1_valid = losses.l1_normalized(filled, frames, 1 - masks, self.group)
+        l1_masked = losses.l1_normalized(filled, frames, masks, self.group)
         # the reference swaps L1M/L1V between the terms (module docstring)
         gen_loss = l1_valid * w.L1M + l1_masked * w.L1V + gan * w.adv
         grads = torch.autograd.grad(gen_loss, self.g_params,
                                     materialize_grads=True)
         for p, g in zip(self.g_params, grads):
             p.grad = g
-        average_grads(self.g_params)
+        if self.sp_group is not None:
+            sum_grads(self.g_params, self.sp_group)
+        average_grads(self.g_params, self.group)
         if lr is not None:
             set_lr(self.g_opt, lr)
         self.g_opt.step()

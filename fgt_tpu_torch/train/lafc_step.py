@@ -52,8 +52,10 @@ class LAFCTrainStep:
                  schedule: Optional[Callable[[int], float]] = None,
                  weights: LAFCLossWeights = LAFCLossWeights(),
                  grad_clip: Optional[float] = None,
-                 mixed_precision: bool = False, single: bool = False):
+                 mixed_precision: bool = False, single: bool = False,
+                 group=None):
         self.model, self.opt = model, opt
+        self.group = group       # data-parallel ranks (None: the world)
         self.schedule = schedule
         self.weights = weights
         self.grad_clip = grad_clip
@@ -86,14 +88,14 @@ class LAFCTrainStep:
         e_loss = (losses.edge_loss(filled_edge, target_edge)
                   + 5.0 * losses.edge_loss(combined_edge, target_edge))
         l1_masked = losses.l1_normalized(combined_flow, target_flow,
-                                         target_mask)
+                                         target_mask, self.group)
         l1_valid = losses.l1_normalized(filled_flow, target_flow,
-                                        1 - target_mask)
+                                        1 - target_mask, self.group)
         sm1 = losses.smoothness_loss(combined_flow, target_mask)
         sm2 = losses.second_order_loss(combined_flow, target_mask)
         tern = losses.ternary_loss(combined_flow, target_flow, target_mask,
                                    batch["current_frame"],
-                                   batch["shift_frame"])
+                                   batch["shift_frame"], self.group)
         total = ((l1_masked + l1_valid) * w.L1M + sm1 * w.sm + sm2 * w.sm2
                  + tern * w.ternary + e_loss * w.edge)
         return {"loss": total, "l1_masked": l1_masked, "l1_valid": l1_valid,
@@ -103,7 +105,7 @@ class LAFCTrainStep:
         metrics = self.losses(batch)
         self.opt.zero_grad(set_to_none=True)
         metrics["loss"].backward()
-        average_grads(self.params)
+        average_grads(self.params, self.group)
         if self.grad_clip:
             clip_grad_global_norm(self.params, self.grad_clip)
         if self.schedule is not None:

@@ -11,7 +11,8 @@
 
 Under data parallelism every rank holds a shard of the global batch; the
 JAX step sees the whole batch, so the two mask-area normalisers below
-are means over the global batch (``utils/dist.global_mean``). Every other
+are means over the global batch (``utils/dist.global_mean`` over the
+dp group the step passes as ``group``; the world by default). Every other
 reduction is a plain mean over equal shards, which the gradient average
 over the ranks makes global.
 
@@ -36,11 +37,11 @@ from fgt_tpu_torch.utils.dist import global_mean
 
 
 def l1_normalized(pred: torch.Tensor, target: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
+                  mask: torch.Tensor, group=None) -> torch.Tensor:
     """``L1(pred*m, target*m) / mean(m)``, ``mean(m)`` over the global
-    batch."""
+    batch (the ranks of ``group``)."""
     return torch.mean(torch.abs(pred * mask - target * mask)) / torch.clamp(
-        global_mean(torch.mean(mask)), min=1e-8)
+        global_mean(torch.mean(mask), group), min=1e-8)
 
 
 def adversarial_loss(outputs: torch.Tensor, is_real: bool, is_disc: bool,
@@ -131,7 +132,7 @@ def hamming_distance(t1: torch.Tensor, t2: torch.Tensor) -> torch.Tensor:
 
 def ternary_loss(comp_flow: torch.Tensor, gt_flow: torch.Tensor,
                  mask: torch.Tensor, current_frame: torch.Tensor,
-                 shift_frame: torch.Tensor) -> torch.Tensor:
+                 shift_frame: torch.Tensor, group=None) -> torch.Tensor:
     """Census loss between the current frame and the shift frame warped
     by the completed flow, gated by a soft non-occlusion mask from the
     GT flow (reference LAFC/networks/network.py:164-172), normalised by
@@ -146,7 +147,7 @@ def ternary_loss(comp_flow: torch.Tensor, gt_flow: torch.Tensor,
     t21 = ternary_transform(warped_comp)
     dist = hamming_distance(t1, t21)
     return torch.mean(dist * noc_mask * mask) / torch.clamp(
-        global_mean(torch.mean(mask)), min=1e-8)
+        global_mean(torch.mean(mask), group), min=1e-8)
 
 
 # ---------------- edge ----------------

@@ -19,8 +19,15 @@ Data parallelism, one process per card (the JAX CLI's flags)::
 initialises a process group (NCCL on the card, gloo with ``--device
 cpu``); process I takes ``cuda:{I % device_count}``. ``torchrun``'s
 environment, or a group the caller already made, serves as well
-(``utils/dist.py``). ``batch_size`` is per process. ``--tp``/``--sp``
-above 1 raise (not ported).
+(``utils/dist.py``). ``batch_size`` is per process.
+
+Tensor and sequence parallelism of the FGT generator (``--tp N``,
+``--sp N``; ``parallel/``): the ranks form a (dp, tp, sp) grid with dp =
+ranks / (tp·sp), e.g. ``torchrun --nproc_per_node 4 -m
+fgt_tpu_torch.train.train --model model --opt cfg.yaml --tp 2 --sp 2``.
+``batch_size`` is then per dp rank. LAFC and LAFC-single replicate
+across tp and sp. A tp·sp that does not divide the ranks raises before
+the rendezvous.
 """
 
 from __future__ import annotations
@@ -51,9 +58,13 @@ def args_parser(argv=None) -> argparse.Namespace:
     p.add_argument("--dataMode", type=str, default="resize")
     p.add_argument("--seed", type=int, default=10)
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (1 only: one card)")
+                   help="Megatron tensor-parallel degree for the FGT "
+                        "generator (attention heads / FFN hidden and their "
+                        "Adam state split over tp ranks)")
     p.add_argument("--sp", type=int, default=1,
-                   help="sequence-parallel degree (1 only: one card)")
+                   help="Ulysses sequence-parallel degree: the FGT folded "
+                        "frame axis split over sp ranks (ranks = "
+                        "dp*tp*sp)")
     p.add_argument("--device", type=str, default=DEFAULT_DEVICE,
                    help="torch device (default cuda; cpu for the CPU)")
 
@@ -145,12 +156,15 @@ def build_opt(args: argparse.Namespace) -> dict:
 def main(argv=None):
     args = args_parser(argv)
     opt = build_opt(args)
-    if int(opt.get("tp", 1) or 1) > 1 or int(opt.get("sp", 1) or 1) > 1:
-        raise NotImplementedError("--tp/--sp > 1: tensor and sequence "
-                                  "parallelism are not ported")
 
     from fgt_tpu_torch.utils import dist
 
+    ranks = dist.ranks_from_flags(str(opt.get("coordinator") or ""),
+                                  int(opt.get("num_processes") or 0))
+    tp, sp = int(opt.get("tp", 1) or 1), int(opt.get("sp", 1) or 1)
+    if ranks % (tp * sp):
+        raise ValueError(f"--tp {tp} x --sp {sp} does not divide the "
+                         f"{ranks} ranks")
     had_group = dist.initialized()
     device = dist.init_from_flags(
         str(opt.get("coordinator") or ""), int(opt.get("num_processes") or 0),

@@ -31,8 +31,19 @@ from ``--coordinator``), every rank builds the same models, takes rank
 the JAX trainer's per-device batch) and steps on it; the steps average
 the gradients over the ranks. Rank 0 alone archives and writes the run
 directory, the log file, the metrics (means over the ranks), the
-checkpoints and the validation. Resume loads on every rank. Tensor and
-sequence parallelism are not ported.
+checkpoints and the validation. Resume loads on every rank.
+
+Tensor and sequence parallelism (the JAX trainer's ``tp`` and ``sp``
+mesh axes; ``opt['tp']``, ``opt['sp']``): the ranks form a (dp, tp, sp)
+grid (``parallel/mesh.py``). The sampler shards by the dp coordinate,
+and the data's random draws are seeded by it, so every tp and sp rank of
+one dp group loads the same items and masks. ``FGTTrainer`` builds the
+generator from the full init on every rank, then shards it and its Adam
+state over tp and its frames over sp (``parallel/partition.py``); the
+losses' normalisers, the gradient average and the metrics use the dp
+group. LAFC, LAFC-single and the discriminator are replicated across tp
+and sp. Checkpoints hold the full state dicts (the files one process
+writes), gathered from the tp ranks; resume shards them again.
 """
 
 from __future__ import annotations
@@ -54,6 +65,8 @@ from fgt_tpu_torch.models import fgt as fgt_mod
 from fgt_tpu_torch.models import lafc, lafc_single
 from fgt_tpu_torch.models.discriminator import (TemporalPatchGAN,
                                                 init_discriminator)
+from fgt_tpu_torch.parallel import partition
+from fgt_tpu_torch.parallel.mesh import make_mesh
 from fgt_tpu_torch.train.fgt_step import FGTLossWeights, FGTTrainStep
 from fgt_tpu_torch.train.lafc_step import LAFCLossWeights, LAFCTrainStep
 from fgt_tpu_torch.train.schedules import make_adam, warmup_step_decay
@@ -119,6 +132,10 @@ class Trainer:
         self.opt = opt
         self.device = torch.device(device)
         self.rank, self.num_ranks = dist.rank(), dist.world_size()
+        self.mesh = make_mesh(tp=int(opt.get("tp", 1) or 1),
+                              sp=int(opt.get("sp", 1) or 1))
+        self.dp_index, self.dp_group = (self.mesh.index("dp"),
+                                        self.mesh.group("dp"))
         # the schedule's warmup rule reads world_size (the JAX trainer's)
         self.world_size = int(opt.get("world_size") or self.num_ranks)
         name = opt.get("name", self.model_kind)
@@ -135,13 +152,16 @@ class Trainer:
                 json.dump({k: str(v) for k, v in opt.items()}, f, indent=2)
             self.metrics = MetricsWriter(os.path.join(self.run_dir, "tb"))
             if self.num_ranks > 1:
-                self.logger.info("data parallel: %d ranks", self.num_ranks)
+                self.logger.info("%d ranks: dp %d x tp %d x sp %d",
+                                 self.num_ranks, self.mesh.dp, self.mesh.tp,
+                                 self.mesh.sp)
         else:
             self.logger = setup_logger(f"fgt_tpu_torch.train.{self.rank}")
 
         seed = int(opt.get("seed", 10))
-        random.seed(seed)
-        np.random.seed(seed)
+        # the data's draws follow the dp coordinate; the init does not
+        random.seed(seed + self.dp_index)
+        np.random.seed(seed + self.dp_index)
         self.init_gen = torch.Generator().manual_seed(seed)
         self.val_info = opt.get("datasets", {}).get("valInfo")
         self.train_loader = None
@@ -159,8 +179,9 @@ class Trainer:
 
     def _prepare_dataset(self) -> None:
         """The dataset, sampler and loader of ``opt['datasets']`` (JAX
-        ``Trainer._prepare_dataset``): this rank's shard of the sampler,
-        ``batch_size`` items a step."""
+        ``Trainer._prepare_dataset``): the shard of this rank's dp
+        coordinate, ``batch_size`` items a step, the items' draws seeded
+        by the coordinate."""
         from fgt_tpu_torch.data import (ShardedSampler, create_dataloader,
                                         create_dataset)
 
@@ -173,12 +194,14 @@ class Trainer:
         ds_name = str(opt.get("datasetName_train") or self._dataset_name())
         self.train_set = create_dataset(dcfg, opt["datasets"]["dataInfo"],
                                         "train", ds_name)
-        self.sampler = ShardedSampler(len(self.train_set), shard=self.rank,
-                                      num_shards=self.num_ranks,
-                                      shuffle=True,
-                                      seed=int(opt.get("seed", 10)))
-        self.train_loader = create_dataloader("train", self.train_set, dcfg,
-                                              opt, self.sampler)
+        seed = int(opt.get("seed", 10))
+        self.sampler = ShardedSampler(len(self.train_set),
+                                      shard=self.dp_index,
+                                      num_shards=self.mesh.dp, shuffle=True,
+                                      seed=seed)
+        self.train_loader = create_dataloader(
+            "train", self.train_set, dcfg,
+            dict(opt, seed=seed + self.dp_index), self.sampler)
         self.logger.info("videos: %d, iters/epoch: %d, batch: %d, "
                          "workers: %d", len(self.train_set),
                          len(self.train_loader),
@@ -217,7 +240,7 @@ class Trainer:
                     self.current_step += 1
                     metrics = self._train_step(batch)
                     if self.current_step % log_freq == 0:
-                        scalars = dist.mean_scalars(metrics)
+                        scalars = dist.mean_scalars(metrics, self.dp_group)
                         scalars["it_per_s"] = log_freq / max(
                             time.time() - t0, 1e-9)
                         if self.sched is not None:
@@ -241,8 +264,7 @@ class Trainer:
                         self.save_checkpoint(epoch)
                 if seen == 0 or self.current_step >= self.total_iterations:
                     break
-                if use_valid and (epoch + 1) % val_freq == 0 and \
-                        self.rank == 0:
+                if use_valid and (epoch + 1) % val_freq == 0:
                     self._validate(epoch)
         finally:
             if loader is not None:
@@ -273,6 +295,7 @@ class Trainer:
         raise NotImplementedError
 
     def _validate(self, epoch: int) -> None:
+        """Called on every rank; rank 0 validates and writes."""
         raise NotImplementedError
 
     def _ckpt_path(self, tag: str, epoch: int) -> str:
@@ -327,7 +350,7 @@ class LAFCTrainer(Trainer):
             self.model, self.optimizer, self.sched, weights,
             grad_clip=10.0 if opt.get("gc") else None,
             mixed_precision=bool(int(opt.get("mixed_precision", 0))),
-            single=self.single)
+            single=self.single, group=self.dp_group)
         if opt.get("path", {}).get("gen_state"):
             self._resume(opt["path"])
 
@@ -339,6 +362,8 @@ class LAFCTrainer(Trainer):
         """Flow-domain validation (reference LAFC network.py:271-373)."""
         from fgt_tpu_torch.train.validate import validate_lafc
 
+        if self.rank != 0:
+            return
         vi = self.val_info or {}
         flow_root = vi.get("flow_root", vi.get("flow_path"))
         if not flow_root or not os.path.isdir(flow_root):
@@ -416,7 +441,10 @@ class FGTTrainer(Trainer):
                         else None)
         super().__init__(opt, device)
         tr = opt["train"]
-        self.gen = fgt_mod.init_fgt(fgt_mod.Model(opt), self.init_gen)
+        sp = self.mesh.sp > 1
+        self.gen = fgt_mod.init_fgt(
+            fgt_mod.Model(dict(opt, seq_axis="sp") if sp else opt),
+            self.init_gen)
         self.disc = init_discriminator(
             TemporalPatchGAN(3, int(opt.get("dist_cnum", 32))),
             self.init_gen)
@@ -424,6 +452,13 @@ class FGTTrainer(Trainer):
         self.disc.to(self.device)
         dist.broadcast_module(self.gen)
         dist.broadcast_module(self.disc)
+        # full-shape specs of the generator's leaves (None: not sharded)
+        self.gen_specs = None
+        if self.mesh.tp > 1 or sp:
+            self.logger.info("generator: %.3f of its parameters tp-sharded",
+                             partition.tp_param_fraction(
+                                 self.gen.state_dict(), self.mesh.tp))
+            self.gen_specs = partition.shard_module(self.gen, self.mesh)
         self.sched = warmup_step_decay(
             float(tr["lr"]), decay_interval=int(tr["UPDATE_INTERVAL"]),
             gamma=float(tr.get("lr_decay", 0.1)), warmup=tr.get("WARMUP"),
@@ -446,7 +481,9 @@ class FGTTrainer(Trainer):
         self.gan_step = FGTTrainStep(
             self.gen, self.disc, self.flow_model, self.g_opt, self.d_opt,
             self.sched, weights, bi_mode=self.bi_mode,
-            mixed_precision=bool(int(opt.get("mixed_precision", 0))))
+            mixed_precision=bool(int(opt.get("mixed_precision", 0))),
+            group=self.dp_group,
+            sp_group=self.mesh.group("sp") if sp else None)
         if opt.get("path", {}).get("gen_state"):
             self._resume(opt["path"])
 
@@ -460,6 +497,9 @@ class FGTTrainer(Trainer):
         always validates on the centered square)."""
         from fgt_tpu_torch.train.validate import validate_fgt
 
+        gen = self.full_generator()
+        if self.rank != 0:
+            return
         vi = self.val_info or {}
         frame_root = vi.get("frame_root", vi.get("frame_path"))
         if not frame_root or not os.path.isdir(frame_root):
@@ -467,7 +507,7 @@ class FGTTrainer(Trainer):
                              frame_root)
             return
         self._write_val(epoch, validate_fgt(
-            self.gen, frame_root, vi.get("flow_root", vi.get("flow_path")),
+            gen, frame_root, vi.get("flow_root", vi.get("flow_path")),
             flow_model=self.flow_model, mask_root=vi.get("mask_root"),
             num_videos=int(vi.get("num_videos", 10)),
             resolution=self._val_resolution(),
@@ -493,25 +533,54 @@ class FGTTrainer(Trainer):
         paths = {"gen_state": self._ckpt_path("gen", epoch),
                  "dis_state": self._ckpt_path("dist", epoch),
                  "opt_state": self._ckpt_path("opt", epoch)}
+        gen_state, g_opt_state = self.full_state()
         if self.rank != 0:
             return paths
-        checkpoint.save(self.gen.state_dict(), paths["gen_state"])
+        checkpoint.save(gen_state, paths["gen_state"])
         checkpoint.save(self.disc.state_dict(), paths["dis_state"])
         checkpoint.save({"epoch": epoch, "iteration": self.current_step,
-                         "g_opt": self.g_opt.state_dict(),
+                         "g_opt": g_opt_state,
                          "d_opt": self.d_opt.state_dict()},
                         paths["opt_state"])
         cfg = {k: v for k, v in self.opt.items()
                if isinstance(v, (int, float, str, bool, list, tuple))}
         cfg["model"] = "model"
-        checkpoint.save_model_dir(self.gen.state_dict(), cfg,
+        checkpoint.save_model_dir(gen_state, cfg,
                                   os.path.join(self.run_dir, "latest"))
         self.logger.info("checkpoint trio saved at step %d",
                          self.current_step)
         return paths
 
+    def _sharded(self) -> bool:
+        return self.gen_specs is not None and self.mesh.tp > 1
+
+    def full_state(self) -> tuple:
+        """(the generator's state dict, its Adam state dict) at full
+        shapes: gathered from the tp ranks when the generator is
+        sharded (every rank must call it then)."""
+        gen, g_opt = self.gen.state_dict(), self.g_opt.state_dict()
+        if self._sharded():
+            gen = partition.gather_state(gen, self.mesh, self.gen_specs)
+            g_opt = partition.gather_optimizer_state(
+                g_opt, [n for n, _ in self.gen.named_parameters()],
+                self.mesh, self.gen_specs)
+        return gen, g_opt
+
+    def full_generator(self) -> torch.nn.Module:
+        """The generator, or under tensor or sequence parallelism an
+        unsharded copy of it on this rank's device (every rank must
+        call it then)."""
+        if self.gen_specs is None:
+            return self.gen
+        gen = fgt_mod.Model(self.opt)
+        load_state(gen, self.full_state()[0])
+        return gen.to(self.device)
+
     def _resume(self, paths: dict) -> None:
-        load_state(self.gen, checkpoint.load_state_dict(paths["gen_state"]))
+        state = checkpoint.load_state_dict(paths["gen_state"])
+        if self._sharded():
+            state = partition.shard_state(state, self.mesh, self.gen_specs)
+        load_state(self.gen, state)
         if paths.get("dis_state"):
             load_state(self.disc,
                        checkpoint.load_state_dict(paths["dis_state"]))
@@ -519,7 +588,12 @@ class FGTTrainer(Trainer):
             st = checkpoint.load(paths["opt_state"])
             self.start_epoch = int(st["epoch"])
             self.current_step = int(st["iteration"])
-            self.g_opt.load_state_dict(st["g_opt"])
+            g_opt = st["g_opt"]
+            if self._sharded():
+                g_opt = partition.shard_optimizer_state(
+                    g_opt, [n for n, _ in self.gen.named_parameters()],
+                    self.mesh, self.gen_specs)
+            self.g_opt.load_state_dict(g_opt)
             self.d_opt.load_state_dict(st["d_opt"])
         self.gan_step.step = self.current_step
         self.logger.info("resumed from %s (finetune=%s)", paths["gen_state"],

@@ -16,8 +16,13 @@ global. Here each process computes on its shard, and:
   parameters and buffers;
 * :func:`mean_scalars` gives the metrics' means over the ranks.
 
-Without a process group each is the identity and issues no collective;
-in a group, of one rank too, each issues its collective. The rendezvous
+Each takes a ``group`` (default: the world, plain data parallelism):
+under tensor and sequence parallelism (``parallel/mesh.py``) the trainer
+passes its dp group, and :func:`sum_grads` sums the generator's
+gradients over the sp group first, each sp rank having back-propagated
+only its frames. Without a process group each is the identity and
+issues no collective; in a group, of one rank too, each issues its
+collective. The rendezvous
 (:func:`init_from_flags`) takes the JAX CLI's ``--coordinator
 host:port --num_processes N --process_id i``, ``torchrun``'s ``RANK`` /
 ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``, or a group the
@@ -76,37 +81,62 @@ def init_from_flags(coordinator: str = "", num_processes: int = 0,
     return str(local)
 
 
+def ranks_from_flags(coordinator: str = "", num_processes: int = 0) -> int:
+    """The number of ranks :func:`init_from_flags` would join (or the
+    group's, when one exists), known before any rendezvous."""
+    if initialized():
+        return world_size()
+    if coordinator and num_processes > 0:
+        return num_processes
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    return 1
+
+
 def shutdown() -> None:
     if initialized():
         dist.destroy_process_group()
 
 
-def global_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean over the ranks of a scalar that carries no gradient (a
-    mean over this rank's shard: over equal shards, the global batch's
-    mean); ``x`` itself without a group."""
+def global_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean over the ranks of ``group`` of a scalar that carries no
+    gradient (a mean over this rank's shard: over equal shards, the
+    global batch's mean); ``x`` itself without a process group."""
     if not initialized():
         return x
     y = x.detach().clone()
-    dist.all_reduce(y)
-    return y / dist.get_world_size()
+    dist.all_reduce(y, group=group)
+    return y / dist.get_world_size(group)
 
 
-def average_grads(params: Iterable[torch.nn.Parameter]) -> None:
-    """Replace each gradient by its mean over the ranks (one all-reduce
-    of the flattened gradients): the gradient of the global batch's
-    loss when each rank's loss is its shard's share."""
+def _reduce_grads(params: Iterable[torch.nn.Parameter], group,
+                  mean: bool) -> None:
     if not initialized():
         return
     grads = [p.grad for p in params if p.grad is not None]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    flat /= dist.get_world_size()
+    dist.all_reduce(flat, group=group)
+    if mean:
+        flat /= dist.get_world_size(group)
     offset = 0
     for g in grads:
         n = g.numel()
         g.copy_(flat[offset:offset + n].view_as(g))
         offset += n
+
+
+def average_grads(params: Iterable[torch.nn.Parameter], group=None) -> None:
+    """Replace each gradient by its mean over the ranks of ``group`` (one
+    all-reduce of the flattened gradients): the gradient of the global
+    batch's loss when each rank's loss is its shard's share."""
+    _reduce_grads(params, group, mean=True)
+
+
+def sum_grads(params: Iterable[torch.nn.Parameter], group) -> None:
+    """Replace each gradient by its sum over the ranks of ``group``: the
+    whole gradient when each rank back-propagated its part of the
+    batch (sequence parallelism's frames)."""
+    _reduce_grads(params, group, mean=False)
 
 
 def broadcast_module(module: torch.nn.Module) -> None:
@@ -119,13 +149,13 @@ def broadcast_module(module: torch.nn.Module) -> None:
             dist.broadcast(t.data, 0)
 
 
-def mean_scalars(metrics: dict) -> dict:
-    """{name: float}, each the mean over the ranks of this rank's value
-    (one all-reduce on the metrics' device)."""
+def mean_scalars(metrics: dict, group=None) -> dict:
+    """{name: float}, each the mean over the ranks of ``group`` of this
+    rank's value (one all-reduce on the metrics' device)."""
     if not initialized():
         return {k: float(v) for k, v in metrics.items()}
     vals = torch.stack([torch.as_tensor(v).detach().float().reshape(())
                         for v in metrics.values()])
-    dist.all_reduce(vals)
-    vals = vals / dist.get_world_size()
+    dist.all_reduce(vals, group=group)
+    vals = vals / dist.get_world_size(group)
     return {k: float(v) for k, v in zip(metrics, vals.tolist())}

@@ -12,8 +12,9 @@
   a DAVIS-style tree writes ``val/*`` to ``metrics.jsonl``, and FGT takes
   the LAFC-single run's ``latest/model.pth`` as its oracle;
 * the CLI runs on the card unless told otherwise and does not fall back
-  to the CPU; ``--tp``/``--sp`` above 1 raise, also beside the
-  data-parallel flags.
+  to the CPU; ``--tp``/``--sp`` whose product does not divide the ranks
+  raise before any rendezvous, also beside the data-parallel flags
+  (``tests/test_torch_port_parallel.py`` trains under them).
 """
 
 import json
@@ -222,12 +223,14 @@ def test_cli_defaults_to_the_card_and_does_not_fall_back(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [["--tp", "2"], ["--sp", "2"],
-                                   ["--sp", "2", "--coordinator",
-                                    "localhost:1234", "--num_processes", "2",
+                                   ["--tp", "2", "--sp", "2",
+                                    "--coordinator", "localhost:1234",
+                                    "--num_processes", "2",
                                     "--process_id", "0"]])
 def test_multi_device_flags_raise(flags):
-    """Tensor and sequence parallelism are not ported; they raise before
-    a data-parallel group is made (``tests/test_torch_port_dp.py`` runs
-    ``--coordinator``)."""
-    with pytest.raises(NotImplementedError):
+    """A tensor- and sequence-parallel grid larger than the ranks raises
+    before a group is made (no rendezvous is attempted:
+    ``tests/test_torch_port_parallel.py`` trains under ``--tp``/``--sp``
+    in a group that has the ranks)."""
+    with pytest.raises(ValueError, match="does not divide"):
         ttrain.main(["--model", "lafc", "--device", "cpu"] + flags)
