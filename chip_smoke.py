@@ -1449,6 +1449,238 @@ def phase_jpeg_clip(counters, root: str) -> dict:
     return stats
 
 
+MSGPACK_FIXTURES = os.path.join(REPO, "tests", "data", "msgpack")
+
+
+def check_msgpack_fixtures(root: str = MSGPACK_FIXTURES) -> dict:
+    """The committed flax-written fixtures (``tests/data/msgpack``, made by
+    ``tests/test_torch_port_msgpack.py``) read by the port's
+    ``load_pytree``: every leaf of ``manifest.json`` at its shape and
+    dtype with the stored sha256 of its bytes and its sum (bfloat16 by
+    its bits). Returns {file: leaves checked}; raises on any mismatch."""
+    import hashlib
+
+    import torch
+    from fgt_tpu_torch.utils import checkpoint
+
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    checked = {}
+    for name, leaves in sorted(manifest.items()):
+        tree = checkpoint.load_pytree(os.path.join(root, name))
+        for path, want in leaves.items():
+            leaf = tree
+            for key in path.split("/"):
+                leaf = leaf[key]
+            if "value" in want:
+                if leaf != want["value"] or type(leaf) is not type(
+                        want["value"]):
+                    raise AssertionError(f"{name}:{path}: {leaf!r}, want "
+                                         f"{want['value']!r}")
+                continue
+            if isinstance(leaf, torch.Tensor):
+                dtype, raw = str(leaf.dtype).split(".")[-1], \
+                    leaf.view(torch.int16).numpy()
+                values = leaf.float().numpy()
+            else:
+                leaf = np.asarray(leaf)
+                dtype, raw, values = leaf.dtype.name, leaf, leaf
+            got = {"shape": list(values.shape), "dtype": dtype,
+                   "sha256": hashlib.sha256(
+                       np.ascontiguousarray(raw).tobytes()).hexdigest()}
+            total = float(values.astype(np.float64).sum())
+            if got != {k: want[k] for k in got} or abs(
+                    total - want["sum"]) > 1e-12 * max(1.0, abs(want["sum"])):
+                raise AssertionError(f"{name}:{path}: {got} sum {total}, "
+                                     f"want {want}")
+        checked[name] = len(leaves)
+    return checked
+
+
+def block_yaml(config: dict) -> str:
+    """``config`` as ``yaml.safe_dump`` lays it out (sorted keys, lists
+    as block sequences), for a checkpoint directory the JAX package would
+    write; scalars as JSON, which YAML reads the same."""
+    out = []
+    for k in sorted(config):
+        v = config[k]
+        if isinstance(v, (list, tuple)):
+            out.append(f"{k}:\n" + "".join(f"- {json.dumps(x)}\n" for x in v))
+        else:
+            out.append(f"{k}: {json.dumps(v)}\n")
+    return "".join(out)
+
+
+def write_jax_layout(state: dict, mapping: dict, path: str) -> int:
+    """A port ``state_dict`` as the JAX package's ``.msgpack`` variable
+    tree (flax layouts through ``weights.torch_to_jax_leaves``, packed as
+    flax packs it). Returns the file's bytes."""
+    from fgt_tpu_torch.convert import weights
+    from fgt_tpu_torch.utils import checkpoint
+
+    tree: dict = {}
+    for fpath, arr in weights.torch_to_jax_leaves(state, mapping).items():
+        node = tree
+        for key in fpath[:-1]:
+            node = node.setdefault(key, {})
+        node[fpath[-1]] = np.ascontiguousarray(arr, np.float32)
+    checkpoint.save_pytree(tree, path)
+    return os.path.getsize(path)
+
+
+def phase_checkpoints(counters, root: str, smi: str) -> dict:
+    """The JAX package's checkpoints and ``result.mp4`` (ROADMAP A.4, A.5):
+    the committed flax fixtures against their manifest; the object-removal
+    models (full width, seeded as ``phase_main_path`` seeds them) written
+    as JAX-layout directories (``lafc.msgpack`` / ``fgt.msgpack`` beside a
+    block-style ``config.yaml`` carrying a list, ``raft.msgpack``) and as
+    ``.pth``; the full-width FGT's load time from each; the CLI on the
+    24-frame 432x240 clip on the K1 path from each (cuDNN deterministic):
+    outputs bit-equal, K1 20 and K2 4 launches; the run's ``result.mp4``
+    read back (planes equal to ``result.npy``'s, RGB PSNR, bytes) and
+    ``s7_write`` with and without it; then the demo with no arguments
+    (a readable 12-frame ``result.mp4``)."""
+    import torch
+    from fgt_tpu_torch.convert import weights
+    from fgt_tpu_torch.core import video_io
+    from fgt_tpu_torch.pipeline import image_io
+    from fgt_tpu_torch.pipeline import video_inpainting as vi
+    from fgt_tpu_torch.tools import demo
+    from fgt_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    checked = check_msgpack_fixtures()
+    log(f"checkpoints: committed flax fixtures read and equal to their "
+        f"manifest: {checked} leaves")
+
+    models = vi.Models("cpu", bf16=False, seed=0)     # phase_main_path's
+    lafc_cfg = dict(vi.DEFAULT_LAFC_CONFIG, input_resolution=[240, 432])
+    fgt_cfg = dict(vi.DEFAULT_FGT_CONFIG, input_resolution=[240, 432],
+                   kernel_size=[7, 7])
+    sizes = {}
+    for kind, module, cfg, mapping in (
+            ("lafc", models.lafc, lafc_cfg, weights.lafc_mapping(1)),
+            ("fgt", models.fgt, fgt_cfg, weights.fgt_mapping(8))):
+        for sub in (kind, f"{kind}_pth"):
+            os.makedirs(f"{root}/ck/{sub}")
+            with open(f"{root}/ck/{sub}/config.yaml", "w") as f:
+                f.write(block_yaml(cfg))
+        sizes[kind] = write_jax_layout(module.state_dict(), mapping,
+                                       f"{root}/ck/{kind}/{kind}.msgpack")
+        checkpoint.save(module.state_dict(), f"{root}/ck/{kind}_pth/model.pth")
+    sizes["raft"] = write_jax_layout(models.raft.state_dict(),
+                                     weights.raft_mapping(),
+                                     f"{root}/ck/raft.msgpack")
+    checkpoint.save(models.raft.state_dict(), f"{root}/ck/raft.pth")
+    del models
+    read_cfg = vi._load_ckpt_dir(f"{root}/ck/fgt", vi.DEFAULT_FGT_CONFIG)[0]
+    if read_cfg["input_resolution"] != [240, 432]:
+        raise AssertionError(f"config.yaml's list read as "
+                             f"{read_cfg['input_resolution']}")
+    load_s = {"msgpack": [], "pth": []}
+    for _ in range(3):
+        for fmt, load in (
+                ("msgpack", lambda: weights.load_weights(
+                    f"{root}/ck/fgt/fgt.msgpack", "fgt", read_cfg)),
+                ("pth", lambda: checkpoint.load_state_dict(
+                    f"{root}/ck/fgt_pth/model.pth"))):
+            t0 = time.perf_counter()
+            state = load()
+            load_s[fmt].append(time.perf_counter() - t0)
+    mib = sum(v.numel() * 4 for v in state.values()) / 2 ** 20
+    log(f"checkpoints: full-width FGT ({mib:.1f} MiB f32; msgpack files "
+        + ", ".join(f"{k} {v / 2 ** 20:.1f} MiB" for k, v in sizes.items())
+        + ") loaded in " + "; ".join(
+            f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " s"
+            for k, v in load_s.items()) + f"; {smi}")
+
+    frames, masks = synthetic_video()
+    np.save(f"{root}/ck/frames.npy", frames)
+    np.save(f"{root}/ck/masks.npy", masks)
+    outs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fmt, lafc, fgt, raft in (
+                ("msgpack", "lafc", "fgt", "raft.msgpack"),
+                ("pth", "lafc_pth", "fgt_pth", "raft.pth")):
+            outs[fmt], _, _ = run_cli(f"checkpoints ({fmt})", counters, [
+                "--path", f"{root}/ck/frames.npy", "--path_mask",
+                f"{root}/ck/masks.npy", "--outroot", f"{root}/ck/out_{fmt}",
+                "--lafc_ckpts", f"{root}/ck/{lafc}", "--fgt_ckpts",
+                f"{root}/ck/{fgt}", "--raft_model", f"{root}/ck/{raft}"],
+                {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
+                 "flash_mhsa": 4})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if not np.array_equal(outs["msgpack"], outs["pth"]):
+        raise AssertionError("the run from JAX-layout msgpack directories "
+                             "differs from the run from .pth")
+    out = outs["msgpack"]
+    keep = masks == 0
+    if out.shape != frames.shape or not np.array_equal(out[keep],
+                                                       frames[keep]):
+        raise AssertionError("checkpoints run: output wrong outside the hole")
+    log("checkpoints: the CLI from JAX-layout msgpack directories is "
+        "bit-equal to the run from .pth")
+
+    mp4 = f"{root}/ck/out_msgpack/result.mp4"
+    planes = video_io.read_planes(mp4)
+    if len(planes) != len(out) or not all(
+            np.array_equal(a, b) for fr, pl in zip(out, planes)
+            for a, b in zip(pl, video_io.rgb_to_yuv420(fr))):
+        raise AssertionError("result.mp4's planes differ from result.npy's")
+    rgb = np.stack(video_io.read_video(mp4)).astype(np.float64)
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean((rgb - out) ** 2))
+    with open(f"{root}/ck/out_msgpack/timings.json") as f:
+        s7 = json.load(f)["stages"]["s7_write"]
+    write_s = {"png_npy": [], "mp4": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        image_io.write_frames(f"{root}/ck/s7", out)
+        t1 = time.perf_counter()
+        video_io.write_video(f"{root}/ck/s7/result.mp4", out, fps=30)
+        write_s["png_npy"].append(t1 - t0)
+        write_s["mp4"].append(time.perf_counter() - t1)
+    log(f"result.mp4: {os.path.getsize(mp4)} bytes for {len(out)} frames "
+        f"{out.shape[2]}x{out.shape[1]}, Y/Cb/Cr planes equal to "
+        f"result.npy's, RGB PSNR {psnr:.3f} dB against result.npy; s7_write "
+        f"{s7:.4f} s in the run (npy + PNGs + MP4); alone: npy + PNGs "
+        + " / ".join(f"{t:.4f}" for t in write_s["png_npy"]) + " s, MP4 "
+        + " / ".join(f"{t:.4f}" for t in write_s["mp4"]) + f" s; {smi}")
+
+    cwd = os.getcwd()
+    os.makedirs(f"{root}/demo")
+    os.chdir(f"{root}/demo")
+    try:
+        reset(counters)
+        t0 = time.perf_counter()
+        path = demo.main([])
+        torch.cuda.synchronize()
+        demo_s = time.perf_counter() - t0
+        launches = read(counters)
+        path = os.path.abspath(path)
+        result = np.load(os.path.join(os.path.dirname(path), "result.npy"))
+    finally:
+        os.chdir(cwd)
+    shown = video_io.read_video(path)
+    planes = video_io.read_planes(path)
+    if len(shown) != 12 or shown[0].shape != (240, 432, 3) or not all(
+            np.array_equal(a, b) for fr, pl in zip(result, planes)
+            for a, b in zip(pl, video_io.rgb_to_yuv420(fr))):
+        raise AssertionError(f"demo: {path} holds {len(shown)} frames, "
+                             f"want 12 of result.npy's planes")
+    expect_launches("demo", launches, {"lookup_corr_fused": 20,
+                                       "flash_mhsa": None})
+    log(f"demo (python -m fgt_tpu_torch.tools.demo, no arguments): "
+        f"{demo_s:.2f} s wall (scene written, models built, 12 frames "
+        f"inpainted, result.mp4 written); {path} readable, 12 frames; "
+        f"launches {launches}; {smi}")
+    log(f"checkpoints and MP4 phase: {time.perf_counter() - t_phase:.2f} s")
+    return {"load_s": load_s, "s7": s7, "write_s": write_s, "psnr": psnr,
+            "mp4_bytes": os.path.getsize(mp4), "demo_s": demo_s}
+
+
 def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
                           small: bool = False):
     """6 frames at 64x64, full-width RAFT (big, or small) and LAFC, FGT at
@@ -3005,6 +3237,7 @@ def main() -> int:
         phase_evaluate(counters, root)
         phase_debug_flags(counters, root)
         phase_jpeg_clip(counters, root)
+        phase_checkpoints(counters, root, smi)
     train_counters = (flash_attention.flash_mhsa,
                       flash_attention.flash_attention_dq,
                       flash_attention.flash_attention_dkv)

@@ -423,6 +423,128 @@ def torch_to_jax_discriminator_leaves(state: Dict[str, Any]
     return out
 
 
+# --------------------------------------------------------------------------
+# the JAX package's weight files
+# --------------------------------------------------------------------------
+
+KINDS = ("raft", "raft_small", "lafc", "lafc_single", "fgt", "i3d")
+
+
+def _meta_module(kind: str, config: dict) -> torch.nn.Module:
+    """The port's module of ``kind`` on the meta device (shapes only)."""
+    from fgt_tpu_torch.core import vfid
+    from fgt_tpu_torch.models import fgt, lafc, lafc_single, raft
+
+    with torch.device("meta"):
+        if kind in ("raft", "raft_small"):
+            return raft.RAFT(small=kind == "raft_small")
+        if kind == "lafc":
+            return lafc.Model(config)
+        if kind == "lafc_single":
+            return lafc_single.Model(config)
+        if kind == "fgt":
+            return fgt.Model(config)
+        return vfid.I3D()
+
+
+def mapping_for(kind: str, config: dict) -> Mapping:
+    """The table the JAX package's converter picks for ``kind``
+    (``tools/convert_weights.py``): RAFT big or small, LAFC and
+    LAFC-single at the config's ``resBlocks`` and FGT at its
+    ``numBlocks`` (the JAX ``from_dict`` precedence over ``res_blocks`` /
+    ``num_blocks``), I3D."""
+    from fgt_tpu_torch.models.fgt import FGTConfig
+    from fgt_tpu_torch.models.lafc import lafc_keys
+
+    if kind == "raft":
+        return raft_mapping()
+    if kind == "raft_small":
+        return raft_small_mapping()
+    if kind in ("lafc", "lafc_single"):
+        res = int(lafc_keys(config)["res_blocks"])
+        return lafc_mapping(res) if kind == "lafc" \
+            else lafc_single_mapping(res)
+    if kind == "fgt":
+        return fgt_mapping(int(FGTConfig.from_dict(config).num_blocks))
+    if kind == "i3d":
+        return i3d_mapping()
+    raise ValueError(f"unknown model kind {kind!r}; one of {KINDS}")
+
+
+def _flatten(tree, prefix=()) -> dict:
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, prefix + (k,)))
+    return out
+
+
+def state_from_variables(kind: str, tree: dict,
+                         config: dict | None = None
+                         ) -> Dict[str, torch.Tensor]:
+    """A flax variable tree of the JAX package (as
+    ``utils/checkpoint.load_pytree`` reads a ``.msgpack``) -> the port's
+    ``state_dict`` of model ``kind`` (one of :data:`KINDS`) built from
+    ``config``. A bare params dict (no top-level ``params``) is wrapped.
+    Every leaf of the table must be there at the shape the port's module
+    takes, and the tree must hold nothing else: anything missing, extra
+    or misshapen raises ``ValueError`` naming its path, so no tree loads
+    in part."""
+    config = dict(config or {})
+    mapping = mapping_for(kind, config)
+    if not isinstance(tree, dict):
+        raise ValueError(f"{kind}: a variable tree is a dict, not "
+                         f"{type(tree).__name__}")
+    if "params" not in tree:
+        tree = {"params": tree}
+    leaves = _flatten(tree)
+    want = _meta_module(kind, config).state_dict()
+    name = "/".join
+    missing = [name(p) for p in mapping if p not in leaves]
+    extra = [name(p) for p in leaves if p not in mapping]
+    bad = []
+    for path, (key, how) in mapping.items():
+        if path not in leaves:
+            continue
+        leaf = leaves[path]
+        if isinstance(leaf, torch.Tensor):       # bfloat16 leaves
+            leaf = leaves[path] = leaf.float().numpy()
+        leaf, shape = np.asarray(leaf), tuple(want[key].shape)
+        if leaf.ndim != len(shape) or \
+                jax_to_torch_array(how, leaf).shape != shape:
+            bad.append(f"{name(path)} {leaf.shape} (the port's {key} is "
+                       f"{shape})")
+    if missing or extra or bad:
+        raise ValueError(
+            f"{kind}: the variable tree does not match the model"
+            + "".join(f"; {what} ({len(paths)}): {paths[:8]}"
+                      for what, paths in (("missing", missing),
+                                          ("not in the model", extra),
+                                          ("wrong shape", bad)) if paths))
+    tree_np = {}
+    for path, leaf in leaves.items():
+        node = tree_np
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = leaf
+    return jax_to_torch_state(tree_np, mapping)
+
+
+def load_weights(path: str, kind: str, config: dict | None = None
+                 ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of model ``kind`` in the weights file at
+    ``path``: a JAX package ``*.msgpack`` through
+    :func:`state_from_variables`, anything else a ``torch.load`` state
+    dict (``utils/checkpoint.load_state_dict``)."""
+    from fgt_tpu_torch.utils import checkpoint
+
+    if path.endswith(".msgpack"):
+        return state_from_variables(kind, checkpoint.load_pytree(path),
+                                    config)
+    return checkpoint.load_state_dict(path)
+
+
 def load_state(module: torch.nn.Module, state: Dict[str, torch.Tensor]):
     """Strict load that keeps each parameter's dtype and device."""
     own = module.state_dict()

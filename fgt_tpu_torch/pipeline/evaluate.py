@@ -4,7 +4,8 @@
     python -m fgt_tpu_torch.pipeline.evaluate --frames F --masks M \\
         [--outroot out_eval] [--num_videos N] [--imgH 240 --imgW 432] \\
         [--lafc_ckpts D --fgt_ckpts D --raft_model P] \\
-        [--vfid_ckpt rgb_imagenet.pt] [--raft_iters 20] [--device cuda]
+        [--vfid_ckpt rgb_imagenet.pt | i3d.msgpack] [--raft_iters 20] \\
+        [--device cuda]
 
 Layout: ``F/<video>/`` and ``M/<video>/`` PNG directories (or
 ``<video>.npy`` stacks under both roots); holes are the masks' nonzero
@@ -14,10 +15,11 @@ and its lossless ``result.npy`` is scored on the whole frame against the
 source frames resized as the JAX tool resizes them (``cv2.resize`` on
 uint8: :func:`~fgt_tpu_torch.pipeline.image_io.resize_linear_u8`).
 ``--vfid_ckpt`` is a pytorch-i3d ``InceptionI3d`` state dict (``.pt`` /
-``.pth``); without it VFID is skipped, as random I3D features say
-nothing. I3D runs in float32 without TF32 (``core.vfid.F32_PRECISION``).
-Writes ``<outroot>/eval.json`` (summary and per-video numbers) and prints
-the summary as one JSON line.
+``.pth``) or the JAX package's converted I3D (``i3d.msgpack``, written
+by ``tools/convert_weights.py i3d``); without it VFID is skipped, as
+random I3D features say nothing. I3D runs in float32 without TF32
+(``core.vfid.F32_PRECISION``). Writes ``<outroot>/eval.json`` (summary
+and per-video numbers) and prints the summary as one JSON line.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from fgt_tpu_torch.core import metrics as M
 from fgt_tpu_torch.core.vfid import F32_PRECISION, VFIDScorer
 from fgt_tpu_torch.pipeline import image_io
 from fgt_tpu_torch.pipeline import video_inpainting as vi
-from fgt_tpu_torch.utils.checkpoint import load_state_dict
+from fgt_tpu_torch.convert.weights import load_weights
 
 logger = logging.getLogger("fgt_tpu_torch")
 
@@ -52,8 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fgt_ckpts", default="checkpoints/fgt")
     ap.add_argument("--raft_model", default="checkpoints/raft/raft.pth")
     ap.add_argument("--vfid_ckpt", default="",
-                    help="pytorch-i3d state dict (.pt/.pth); VFID is "
-                         "skipped without it")
+                    help="pytorch-i3d state dict (.pt/.pth) or the JAX "
+                         "package's i3d.msgpack; VFID is skipped without "
+                         "it")
     ap.add_argument("--raft_iters", type=int, default=20)
     ap.add_argument("--device", default=DEFAULT_DEVICE)
     return ap
@@ -93,7 +96,7 @@ def main(argv=None) -> dict:
     models = vi.build_models(pipe_args)
     scorer = None
     if args.vfid_ckpt:
-        scorer = VFIDScorer(load_state_dict(args.vfid_ckpt),
+        scorer = VFIDScorer(load_weights(args.vfid_ckpt, "i3d"),
                             device=args.device)
         logger.info("VFID: I3D from %s, %s", args.vfid_ckpt, F32_PRECISION)
 

@@ -14,7 +14,7 @@ the all-pairs pyramid path (kernel K3 on the card), ``--chunk`` pairs per
 call.
 
     python -m fgt_tpu_torch.pipeline.flow_extract --datapath frames \\
-        --outroot flows [--raft_model raft.pth] [--device cpu]
+        --outroot flows [--raft_model raft.pth | raft.msgpack] [--device cpu]
 """
 
 from __future__ import annotations
@@ -28,22 +28,22 @@ import numpy as np
 import torch
 
 from fgt_tpu_torch import DEFAULT_DEVICE
-from fgt_tpu_torch.convert.weights import load_state
+from fgt_tpu_torch.convert.weights import load_state, load_weights
 from fgt_tpu_torch.core import flow_io
 from fgt_tpu_torch.models import raft as raft_mod
 from fgt_tpu_torch.pipeline import image_io
-from fgt_tpu_torch.utils.checkpoint import load_state_dict
 
 logger = logging.getLogger("fgt_tpu_torch")
 
 
 def load_raft(path: str, device: str = DEFAULT_DEVICE,
               seed: int = 0) -> raft_mod.RAFT:
-    """f32 RAFT from a reference state dict, or seeded random weights."""
+    """f32 RAFT from a reference state dict or the JAX package's
+    ``raft.msgpack``, or seeded random weights."""
     model = raft_mod.init_raft(raft_mod.RAFT(),
                                torch.Generator().manual_seed(seed))
     if os.path.exists(path):
-        load_state(model, load_state_dict(path))
+        load_state(model, load_weights(path, "raft"))
     else:
         logger.warning("RAFT weights not found at %s; random init (seed %d)",
                        path, seed)
@@ -92,7 +92,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--height", type=int, default=240)
     p.add_argument("--width", type=int, default=432)
     p.add_argument("--raft_model", default="checkpoints/raft/raft.pth",
-                   help="reference RAFT state dict (random init if absent)")
+                   help="reference RAFT state dict or the JAX package's "
+                        "raft.msgpack (random init if absent)")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--chunk", type=int, default=4,
                    help="frame pairs per RAFT call")

@@ -32,8 +32,9 @@ Stages (device work on the card unless the caller asks for the CPU):
 
 Entry points: :func:`inpaint` (arrays in, arrays out) and
 :func:`video_inpainting` (the CLI: ``.npy`` stacks or PNG / JPEG
-directories in, ``result.npy``, PNGs and the synchronized stage seconds
-in ``timings.json`` out). The CLI's debug flags write what the JAX CLI
+directories in, ``result.npy``, ``result.mp4`` (H.264 I_PCM at 30 fps,
+``core/video_io.py``), PNGs and the synchronized stage seconds in
+``timings.json`` out). The CLI's debug flags write what the JAX CLI
 writes, in the same directories: ``--vis_flows`` (the s1 flows under
 ``flow/``), ``--vis_completed_flows`` (s2's under ``completed_flow/``),
 ``--vis_prop`` (the Poisson frames and the pixels left for FGT);
@@ -82,8 +83,8 @@ import torch
 import torch.nn.functional as F
 
 from fgt_tpu_torch import DEFAULT_DEVICE, native
-from fgt_tpu_torch.convert.weights import load_state
-from fgt_tpu_torch.core import flow_io, flow_viz
+from fgt_tpu_torch.convert.weights import load_state, load_weights
+from fgt_tpu_torch.core import flow_io, flow_viz, video_io
 from fgt_tpu_torch.models import fgt as fgt_mod
 from fgt_tpu_torch.models import lafc as lafc_mod
 from fgt_tpu_torch.models import raft as raft_mod
@@ -98,7 +99,6 @@ from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
                                                 get_flownn_gradient_frames,
                                                 key_frames)
 from fgt_tpu_torch.utils import dist
-from fgt_tpu_torch.utils.checkpoint import load_state_dict
 from fgt_tpu_torch.utils.config import apply_yaml_over_args, read_flat_yaml
 from fgt_tpu_torch.utils.profiling import maybe_trace
 
@@ -826,13 +826,18 @@ WEIGHT_SUFFIXES = (".pth", ".pth.tar", ".tar")
 
 def _load_ckpt_dir(path: Optional[str], default_cfg: dict):
     """(config, state) from a checkpoint directory, defaults when it is
-    absent. The directory is laid out as the reference ships one (one
-    weights file such as ``fgt.pth.tar`` and the ``.yaml`` training
+    absent; ``default_cfg`` (:data:`DEFAULT_LAFC_CONFIG` or
+    :data:`DEFAULT_FGT_CONFIG`) says which model, LAFC or FGT. The
+    directory is laid out as the JAX package writes one (``<kind>.msgpack`` or
+    ``model.msgpack`` and a ``config.yaml``), as the reference ships one
+    (one weights file such as ``fgt.pth.tar`` and the ``.yaml`` training
     config it came from) or as the port writes one (``model.pth`` and
-    ``config.json``): weights are the ``*.pth``, ``*.pth.tar`` or
-    ``*.tar`` state dict (reference key names); the config is the
-    directory's ``*.yaml``, read as the JAX CLI reads it (it wins over a
-    ``config.json`` beside it), else ``config.json``."""
+    ``config.json``). Weights are the ``*.msgpack`` flax tree (it wins, as
+    the JAX CLI's ``find_model_pair`` takes it first; a tree that does
+    not match the configured model raises), else the ``*.pth``,
+    ``*.pth.tar`` or ``*.tar`` state dict (reference key names); the
+    config is the directory's ``*.yaml``, read as the JAX CLI reads it
+    (it wins over a ``config.json`` beside it), else ``config.json``."""
     config, state = dict(default_cfg), None
     if path and os.path.isdir(path):
         names = sorted(os.listdir(path))
@@ -842,9 +847,12 @@ def _load_ckpt_dir(path: Optional[str], default_cfg: dict):
         elif "config.json" in names:
             with open(os.path.join(path, "config.json")) as f:
                 config.update(json.load(f))
+        packed = [f for f in names if f.endswith(".msgpack")]
         weights = [f for f in names if f.endswith(WEIGHT_SUFFIXES)]
-        if weights:
-            state = load_state_dict(os.path.join(path, weights[-1]))
+        if packed or weights:
+            kind = "fgt" if default_cfg["model"] == "model" else "lafc"
+            state = load_weights(os.path.join(
+                path, packed[0] if packed else weights[-1]), kind, config)
     return config, state
 
 
@@ -871,7 +879,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(type=bool): any nonempty value, 'False' too, "
                         "turns it on")
     p.add_argument("--raft_model", default="checkpoints/raft/raft.pth",
-                   help="reference RAFT state dict (random init if absent)")
+                   help="reference RAFT state dict, or the JAX package's "
+                        "raft.msgpack (--small: RAFT small's); random init "
+                        "if absent")
     p.add_argument("--small", action="store_true",
                    help="RAFT's small variant (hidden 96, context 64, "
                         "radius 3)")
@@ -883,11 +893,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "AlternateCorrBlock: kernel K1 in f32 on pooled "
                         "features (wins over --fused_corr)")
     p.add_argument("--lafc_ckpts", default="checkpoints/lafc",
-                   help="directory with a .pth/.pth.tar state dict and a "
-                        ".yaml or config.json config")
+                   help="directory with a .msgpack (the JAX package's) or "
+                        ".pth/.pth.tar weights file and a .yaml or "
+                        "config.json config")
     p.add_argument("--fgt_ckpts", default="checkpoints/fgt",
-                   help="directory with a .pth/.pth.tar state dict and a "
-                        ".yaml or config.json config")
+                   help="directory with a .msgpack (the JAX package's) or "
+                        ".pth/.pth.tar weights file and a .yaml or "
+                        "config.json config")
     p.add_argument("--H_scale", type=float, default=2,
                    help="video extrapolation: canvas height / frame height")
     p.add_argument("--W_scale", type=float, default=2,
@@ -962,7 +974,8 @@ def build_models(args) -> Models:
     ``--seed`` for any model without weights)."""
     lafc_cfg, lafc_state = _load_ckpt_dir(args.lafc_ckpts, DEFAULT_LAFC_CONFIG)
     fgt_cfg, fgt_state = _load_ckpt_dir(args.fgt_ckpts, DEFAULT_FGT_CONFIG)
-    raft_state = (load_state_dict(args.raft_model)
+    raft_state = (load_weights(args.raft_model,
+                               "raft_small" if args.small else "raft")
                   if os.path.exists(args.raft_model) else None)
     corr = ("alternate" if args.alternate_corr else
             "pyramid" if args.fused_corr == "off" else "fused")
@@ -1015,7 +1028,9 @@ def load_masks(path: str, img_h: int, img_w: int) -> np.ndarray:
 
 
 def video_inpainting(args, models: Optional[Models] = None) -> str:
-    """Run the CLI pipeline; returns the path of ``result.npy``. Pass a
+    """Run the CLI pipeline; returns the path of ``result.npy``, written
+    beside ``result.mp4`` (H.264 I_PCM at 30 fps, ``core/video_io.py``,
+    where the JAX CLI writes its own) and the PNG frames. Pass a
     resident ``models`` to serve many videos (the batch driver)."""
     timer = StageTimer(torch.device(args.device))
     with timer.stage("s0_init"):
@@ -1025,6 +1040,8 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
     if dist.rank() == 0:
         with timer.stage("s7_write"):
             image_io.write_frames(args.outroot, out)
+            video_io.write_video(os.path.join(args.outroot, "result.mp4"),
+                                 out, fps=30)
     n = out.shape[0]
     total = sum(timer.times.values())
     logger.info("stages %s; %d frames in %.2f s (%.2f frames/s)",

@@ -22,6 +22,10 @@ Trainer/Network split (FGT/trainer.py:14-199, FGT/networks/network.py:
   reference's name pattern and resume / finetune semantics
   (network.py:51-78, 225-256), plus a ``latest`` model directory for
   the inference CLI.
+* Stage 2's frozen flow oracle (``flow_checkPoint``, built from
+  ``flow_config``): a LAFC-single ``state_dict`` file (a port run's
+  ``latest/model.pth``) or the JAX package's ``model.msgpack`` (a JAX
+  run's ``latest/``, as ``configs/fgt_train.yaml`` names it).
 
 Data parallelism (the JAX trainer's ``dp`` axis): when a process group
 of N ranks is initialised (``utils/dist.py``; the training CLI makes one
@@ -60,7 +64,7 @@ import numpy as np
 import torch
 
 from fgt_tpu_torch import DEFAULT_DEVICE
-from fgt_tpu_torch.convert.weights import load_state
+from fgt_tpu_torch.convert.weights import load_state, load_weights
 from fgt_tpu_torch.models import fgt as fgt_mod
 from fgt_tpu_torch.models import lafc, lafc_single
 from fgt_tpu_torch.models.discriminator import (TemporalPatchGAN,
@@ -469,9 +473,10 @@ class FGTTrainer(Trainer):
 
         self.flow_model = None
         if opt.get("flow_checkPoint"):
-            self.flow_model = lafc_single.Model(opt.get("flow_config", {}))
-            load_state(self.flow_model,
-                       checkpoint.load_state_dict(opt["flow_checkPoint"]))
+            flow_config = opt.get("flow_config", {})
+            self.flow_model = lafc_single.Model(flow_config)
+            load_state(self.flow_model, load_weights(
+                opt["flow_checkPoint"], "lafc_single", flow_config))
             self.flow_model.to(self.device).eval().requires_grad_(False)
 
         weights = FGTLossWeights(

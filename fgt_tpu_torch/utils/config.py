@@ -1,18 +1,24 @@
 """YAML configs without PyYAML, and the training CLI's config helpers.
 
 The GPU machine has no PyYAML. Two readers give PyYAML's ``safe_load``
-meaning to the subset this repository's files use:
+meaning to the subset this repository's files use, which covers every
+config the JAX package writes (``yaml.safe_dump`` writes lists as block
+sequences):
 
 * :func:`read_yaml` reads a whole config: block mappings nested by
   indentation (spaces), flow maps ``{a: 1, b: x}`` and flow lists
-  ``[240, 432]`` (nested, and spanning lines), and the scalars below.
-  Anything else (block sequences, anchors, tags, block scalars, tabs,
-  multi-document files) raises ``ValueError``;
-* :func:`read_flat_yaml` reads only the top-level scalar and flow-list
-  keys of a file and skips nested blocks and flow maps: the reference
-  ships its checkpoints with the training config they came from
-  (``config.yaml``), whose nested ``datasets:`` / ``train:`` blocks no
-  model constructor reads.
+  ``[240, 432]`` (nested, and spanning lines), block sequences (a key
+  followed by ``- item`` lines, at its own indentation or deeper) whose
+  items are scalars, flow lists or block sequences themselves
+  (``- - 1``), and the scalars below. Anything else (mappings inside a
+  sequence, anchors, tags, block scalars, tabs, multi-document files)
+  raises ``ValueError``;
+* :func:`read_flat_yaml` reads only the top-level scalar, flow-list and
+  block-sequence keys of a file and skips nested blocks and flow maps:
+  the reference ships its checkpoints with the training config they
+  came from (``config.yaml``), whose nested ``datasets:`` / ``train:``
+  blocks no model constructor reads. Its top-level flow lists hold
+  scalars only.
 
 Scalars: an int, a float (with a dot, as YAML 1.1 resolves it),
 ``true``/``false`` (and YAML 1.1's ``yes``/``no``/``on``/``off``),
@@ -121,9 +127,22 @@ def read_flat_yaml(path: str) -> dict:
             raise ValueError(f"read_flat_yaml: cannot read {line!r}")
         key, value = m.group(1), (m.group(2) or "").strip()
         if not value:
-            nxt = next((ln for ln in lines[i:] if ln.strip()
-                        and not ln.strip().startswith("#")), "")
-            if nxt[:1] not in (" ", "\t", "-"):
+            rest = [(n, _strip_comment(ln)) for n, ln in
+                    enumerate(lines[i:], i) if _strip_comment(ln).strip()]
+            nxt = rest[0][1] if rest else ""
+            if _is_item(nxt.strip()):
+                body = []
+                for n, ln in rest:          # the sequence's lines
+                    if ln[0] not in " \t-":
+                        break
+                    body.append(ln)
+                    i = n + 1
+                items, end = _read_sequence(body, 0, "read_flat_yaml")
+                if end != len(body):
+                    raise ValueError(f"read_flat_yaml: cannot read "
+                                     f"{body[end]!r}")
+                out[key] = items
+            elif nxt[:1] not in (" ", "\t"):
                 out[key] = None            # an empty value is null
             continue                       # else a nested block
         if value.startswith("{"):
@@ -248,6 +267,54 @@ def _indent(line: str) -> int:
     return len(line) - len(body)
 
 
+def _is_item(body: str) -> bool:
+    """Whether a stripped line is a block-sequence item."""
+    return body == "-" or body.startswith("- ")
+
+
+def _read_sequence(lines: list, pos: int, who: str):
+    """The block sequence whose first item is ``lines[pos]`` (lines
+    stripped of comments, none blank): (its items, the index of the
+    first line after it). An item is a scalar, a flow list (which may
+    span lines) or a nested sequence (``- - 1``, its later items at the
+    inner dash's column); a mapping, an empty item or anything
+    ``_scalar`` refuses raises."""
+    def fail(line, why="cannot read"):
+        raise ValueError(f"{who}: {why} {line!r}")
+
+    indent = _indent(lines[pos])
+    out = []
+    while pos < len(lines):
+        line = lines[pos]
+        body = line.strip()
+        if _indent(line) != indent or not _is_item(body):
+            if _indent(line) > indent:
+                fail(line, "unexpected indentation at")
+            break
+        rest = body[1:].lstrip(" ")
+        if not rest:
+            fail(line, "an empty or nested block item at")
+        if _is_item(rest):                 # "- - x": a nested sequence
+            lines = list(lines)
+            lines[pos] = " " * (len(line) - len(rest)) + rest
+            item, pos = _read_sequence(lines, pos, who)
+            out.append(item)
+            continue
+        pos += 1
+        if rest[0] == "[":
+            while not _closed(rest) and pos < len(lines):
+                rest += " " + lines[pos].strip()
+                pos += 1
+            if not _closed(rest):
+                fail(line, "unclosed flow collection at")
+            out.append(_Flow(rest, line).parse())
+        elif rest[0] == "{" or _KEY.match(rest):
+            fail(line, "a mapping inside a sequence at")
+        else:
+            out.append(_scalar(rest, line))
+    return out, pos
+
+
 def read_yaml(path: str) -> dict:
     """The YAML file at ``path`` as ``yaml.safe_load`` reads it, for the
     subset in the module doc; an empty file reads as ``{}``."""
@@ -278,8 +345,8 @@ def read_yaml(path: str) -> dict:
             if ind > indent:
                 _fail(line, "unexpected indentation at")
             body = line.strip()
-            if body.startswith("- ") or body == "-":
-                _fail(line, "block sequences are not read:")
+            if _is_item(body):
+                _fail(line, "a sequence item where a key belongs at")
             m = _KEY.match(body)
             if m is None:
                 _fail(line)
@@ -287,8 +354,11 @@ def read_yaml(path: str) -> dict:
             pos += 1
             if not value:
                 nxt = lines[pos] if pos < len(lines) else ""
-                out[key] = block(_indent(nxt)) if nxt and \
-                    _indent(nxt) > indent else None
+                if nxt and _is_item(nxt.strip()) and _indent(nxt) >= indent:
+                    out[key], pos = _read_sequence(lines, pos, "read_yaml")
+                else:
+                    out[key] = block(_indent(nxt)) if nxt and \
+                        _indent(nxt) > indent else None
             elif value[0] in "[{":
                 while not _closed(value) and pos < len(lines):
                     value += " " + lines[pos].strip()

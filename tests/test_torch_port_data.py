@@ -140,7 +140,7 @@ def test_read_yaml_equals_pyyaml_on_configs(name, tmp_path):
 
 
 @pytest.mark.parametrize("text", [
-    "a:\n  - 1\n  - 2\n",                 # block sequence
+    "a:\n  - b: 1\n",                     # a mapping in a sequence
     "a: &x 1\nb: *x\n",                   # anchor / alias
     "a: !!str 1\n",                       # tag
     "a: |\n  text\n",                     # block scalar

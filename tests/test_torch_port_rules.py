@@ -56,7 +56,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "fgt_tpu_torch", "csrc")
 FORBIDDEN = {"jax", "jaxlib", "flax", "fgt_tpu", "cv2", "imageio", "yaml",
-             "PIL"}
+             "PIL", "msgpack"}
 
 
 def _port_sources():
@@ -90,7 +90,8 @@ def test_port_imports_no_jax_no_reference_package_no_cv2():
                    "data/__init__.py", "data/datasets.py", "data/loader.py",
                    "train/validate.py", "train/train.py",
                    "utils/config.py", "core/jpeg.py", "native/__init__.py",
-                   "pipeline/image_io.py"):
+                   "pipeline/image_io.py", "utils/msgpack.py",
+                   "core/video_io.py", "tools/demo.py"):
         assert f"fgt_tpu_torch/{module}" in rel, module
     bad = {(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN}
