@@ -139,6 +139,19 @@ Phases (any failure exits nonzero; nothing is caught):
      protocols at full size (``fgt_tpu_torch.tools.overfit_gate``, under
      PyTorch's default TF32): each must raise its PSNR, with K1 40, K2
      408, K4 and K5 400 launches a protocol;
+     then the conv-block library (``phase_conv_types``): gated LAFC and
+     FGT under norm None, BN, IN and SN at phase 9's small size, card
+     against CPU; gated BN object removal at full width (LAFC cnum 48,
+     FGT 512 hidden / 8 blocks / 4 heads, bf16, the K1 path) from
+     JAX-layout ``.msgpack`` directories the port writes from seeded
+     weights and reads back strictly, cold then warm (output shape and
+     bytes outside the hole, K1 20 and K2 4), its warm stage seconds and
+     frames/s beside phase 6's vanilla warm pass; 6 steps each of gated
+     configs/lafc_single_train.yaml and lafc_train.yaml, then 6 GAN steps
+     of configs/fgt_train.yaml gated under norm SN and again under BN on
+     the gated LAFC-single's checkpoint (losses finite, K2/K4/K5 4 a
+     step, the decoder's BN statistics moved, SN's u and v unchanged),
+     steps/s beside this run's vanilla rates;
   9. small inputs through the port on the card and on the CPU (plain
      versions), which must agree: object-removal runs on the K1 path, on
      the pyramid path with --Nonlocal and with RAFT --small, one SGD
@@ -1681,12 +1694,40 @@ def phase_checkpoints(counters, root: str, smi: str) -> dict:
             "mp4_bytes": os.path.getsize(mp4), "demo_s": demo_s}
 
 
+def warm_spectral(module, iters: int = 3) -> None:
+    """``iters`` power iterations on every spectral-norm conv's u, v, in
+    f64 on the host, so two devices get the same vectors. The init's
+    random pair can make sigma = u·W·v nearly cancel; a card-vs-CPU
+    comparison would then measure that cancellation (with the random
+    pair an H100's output and the CPU's differed by 4.9 levels on
+    average under SN)."""
+    import torch
+    from fgt_tpu_torch.ops.conv_blocks import SNConv
+
+    for m in module.modules():
+        if isinstance(m, SNConv):
+            w = m.weight_orig.detach().cpu().double()
+            mat = w.reshape(w.shape[0], -1)
+            u = m.weight_u.cpu().double()
+            for _ in range(iters):
+                v = mat.t() @ u
+                v = v / (v.norm() + 1e-12)
+                u = mat @ v
+                u = u / (u.norm() + 1e-12)
+            with torch.no_grad():
+                m.weight_u.copy_(u.to(m.weight_u))
+                m.weight_v.copy_(v.to(m.weight_v))
+
+
 def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
-                          small: bool = False):
+                          small: bool = False, conv_type: str = "vanilla",
+                          norm=None):
     """6 frames at 64x64, full-width RAFT (big, or small) and LAFC, FGT at
     512 hidden / 4 heads (head dim 128 for K2) with 2 blocks, f32: the
     port on the card (kernels) against the port on the CPU (plain
-    versions), on the ``corr`` path of s1 (and with --Nonlocal). Outside
+    versions), on the ``corr`` path of s1 (and with --Nonlocal), LAFC and
+    FGT in ``conv_type`` (FGT's flow encoder and decoder also in
+    ``norm``; SN's u, v power-iterated, :func:`warm_spectral`). Outside
     the hole the bytes
     must match; inside, flowNN's thresholded decisions can amplify f32
     reassociation, so the bound is on the mean."""
@@ -1694,12 +1735,15 @@ def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
     from fgt_tpu_torch.pipeline import video_inpainting as vi
 
     fgt_cfg = dict(vi.DEFAULT_FGT_CONFIG, numBlocks=2, mlp_ratio=4,
-                   res_h=64, res_w=64)
+                   res_h=64, res_w=64, conv_type=conv_type, norm=norm)
+    lafc_cfg = dict(vi.DEFAULT_LAFC_CONFIG, conv_type=conv_type)
     frames, masks = synthetic_video(n=6, h=64, w=64, hole=16, y0=24, x0=16)
     outs = []
     for dev in ("cuda", "cpu"):
         models = vi.Models(dev, bf16=False, raft_iters=4, fgt_config=fgt_cfg,
-                           seed=3, corr=corr, small=small)
+                           lafc_config=lafc_cfg, seed=3, corr=corr,
+                           small=small)
+        warm_spectral(models.fgt)
         outs.append(vi.inpaint(frames, masks, models, flow_mask_dilates=2,
                                neighbor_stride=3, step=4,
                                use_nonlocal=use_nonlocal))
@@ -1707,7 +1751,9 @@ def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
     hole = masks > 0
     d = np.abs(gpu - cpu)[hole]
     log(f"small reference ({corr}{', --Nonlocal' if use_nonlocal else ''}"
-        f"{', --small' if small else ''}): "
+        f"{', --small' if small else ''}"
+        f"{f', {conv_type} norm {norm}' if conv_type != 'vanilla' else ''}"
+        "): "
         f"card vs CPU byte-equal: {np.array_equal(gpu, cpu)}; inside the "
         f"hole: mean |diff| {d.mean():.4f}, max {d.max()}, share > 8 levels "
         f"{(d > 8).mean():.4f}")
@@ -3112,6 +3158,185 @@ def profile_steps(trainer, batch):
             f"x{e.count // 2:5d}  {e.key[:110]}")
 
 
+def conv_types_removal(counters, root: str, smi: str, vanilla_s: dict):
+    """Object removal with gated LAFC (cnum 48) and gated BN FGT (512
+    hidden, 8 blocks, 4 heads), bf16, on the K1 path, from JAX-layout
+    ``.msgpack`` directories the port writes (seeded weights, BN's running
+    statistics perturbed) and its CLI reads back strictly; cold, then
+    warm. Returns the warm stage seconds."""
+    import torch
+    from fgt_tpu_torch.convert import weights
+    from fgt_tpu_torch.pipeline import video_inpainting as vi
+    from fgt_tpu_torch.utils import checkpoint
+
+    lafc_cfg = dict(vi.DEFAULT_LAFC_CONFIG, conv_type="gated",
+                    input_resolution=[240, 432])
+    fgt_cfg = dict(vi.DEFAULT_FGT_CONFIG, conv_type="gated", norm="BN",
+                   input_resolution=[240, 432], kernel_size=[7, 7])
+    models = vi.Models("cpu", bf16=False, seed=0, lafc_config=lafc_cfg,
+                       fgt_config=fgt_cfg)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in models.fgt.named_parameters():
+            if name.endswith("running_mean"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif name.endswith("running_var"):
+                p.copy_(0.8 + 0.4 * torch.rand(p.shape, generator=gen))
+    ck = f"{root}/gated"
+    for kind, module, cfg in (("lafc", models.lafc, lafc_cfg),
+                              ("fgt", models.fgt, fgt_cfg)):
+        os.makedirs(f"{ck}/{kind}")
+        with open(f"{ck}/{kind}/config.yaml", "w") as f:
+            f.write(block_yaml(cfg))
+        write_jax_layout(module.state_dict(), weights.mapping_for(kind, cfg),
+                         f"{ck}/{kind}/{kind}.msgpack")
+        back = vi._load_ckpt_dir(f"{ck}/{kind}", vi.DEFAULT_FGT_CONFIG
+                                 if kind == "fgt" else
+                                 vi.DEFAULT_LAFC_CONFIG)[1]
+        own = module.state_dict()
+        if set(back) != set(own) or not all(
+                torch.equal(back[k], own[k]) for k in own):
+            raise AssertionError(f"gated {kind}: the msgpack read back "
+                                 "differs from the weights written")
+    write_jax_layout(models.raft.state_dict(), weights.raft_mapping(),
+                     f"{ck}/raft.msgpack")
+    n_gate = sum(p.numel() for n, p in models.fgt.named_parameters()
+                 if "gatingConv" in n)
+    del models
+    frames, masks = synthetic_video()
+    np.save(f"{ck}/frames.npy", frames)
+    np.save(f"{ck}/masks.npy", masks)
+    for label in ("cold", "warm"):
+        out, _, _ = run_cli(f"gated BN object removal {label}", counters, [
+            "--path", f"{ck}/frames.npy", "--path_mask", f"{ck}/masks.npy",
+            "--outroot", f"{ck}/out_{label}", "--lafc_ckpts", f"{ck}/lafc",
+            "--fgt_ckpts", f"{ck}/fgt", "--raft_model", f"{ck}/raft.msgpack"],
+            {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
+             "flash_mhsa": 4})
+        if out.shape != (24, 240, 432, 3) or out.dtype != np.uint8:
+            raise AssertionError(f"gated run: output {out.shape} {out.dtype}")
+        keep = masks == 0
+        if not np.array_equal(out[keep], frames[keep]):
+            raise AssertionError("gated run: output differs from the input "
+                                 "outside the hole")
+    with open(f"{ck}/out_warm/timings.json") as f:
+        stages = json.load(f)["stages"]
+    work = {k: v for k, v in stages.items() if k[:2] in ("s1", "s2", "s3",
+                                                          "s4", "s5", "s6")}
+    log(f"gated BN vs vanilla, warm, same run: s2_lafc "
+        f"{work['s2_lafc']:.4f} vs {vanilla_s['s2_lafc']:.4f} s, s6_fgt "
+        f"{work['s6_fgt']:.4f} vs {vanilla_s['s6_fgt']:.4f} s, s1-s6 "
+        f"{24 / sum(work.values()):.3f} vs "
+        f"{24 / sum(vanilla_s.values()):.3f} frames/s (the vanilla pass "
+        f"resident, the gated one through the CLI's loader); FGT gate "
+        f"convs {n_gate / 1e6:.3f} M parameters; {smi}")
+    return work
+
+
+def conv_types_train(counters, root: str, smi: str, vanilla: dict) -> dict:
+    """bf16 training with gated blocks: 6 stage-1 steps of
+    configs/lafc_single_train.yaml and lafc_train.yaml with ``conv_type:
+    gated``; then 6 GAN steps of configs/fgt_train.yaml with ``conv_type:
+    gated`` under ``norm: SN`` and again under ``norm: BN``, the gated
+    LAFC-single's checkpoint as the flow oracle (2 cold + 4 timed steps
+    each): losses finite, K2, K4 and K5 4 a GAN step, BN's running
+    statistics moved (Adam moves them, as the JAX step), SN's u and v
+    unchanged; the flow encoder's statistics take gradients at the
+    rounding level, so only the decoder's must move. steps/s beside
+    ``vanilla``'s (this run's on-card rates)."""
+    import torch
+    from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
+
+    rates, oracle = {}, None
+    for single in (True, False):
+        label = "lafc_single" if single else "lafc"
+        batch = lafc_train_batch()
+        if single:
+            for k in ("flows", "diffused_flows", "masks"):
+                batch[k] = batch[k][:, 1]
+        trainer = LAFCTrainer(lafc_opt(f"{root}/{label}", single,
+                                       conv_type="gated"))
+        if not any("gatingConv" in n for n, _ in
+                   trainer.model.named_parameters()):
+            raise AssertionError(f"gated {label}: no gate")
+        trainer.total_iterations = 2
+        trainer.train([batch])
+        trainer.total_iterations = 6
+        trainer.train([batch])
+        rows = read_metrics(trainer, 2)
+        if not all(np.isfinite(r[k]) for r in rows for k in LAFC_METRICS):
+            raise AssertionError(f"gated {label}: a loss is not finite")
+        rates[label] = (len(rows) - 1) / (rows[-1]["time"] - rows[0]["time"])
+        if single:
+            oracle = trainer.save_checkpoint(0)["gen_state"]
+        del trainer
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in synthetic_train_batch().items()}
+    for norm in ("SN", "BN"):
+        opt = train_opt(f"{root}/fgt_{norm}", flow_checkPoint=oracle,
+                        conv_type="gated", norm=norm)
+        opt["flow_config"] = dict(opt["flow_config"], conv_type="gated")
+        trainer = FGTTrainer(opt)
+        state0 = {k: v.detach().clone() for k, v in
+                  trainer.gen.state_dict().items()
+                  if k.endswith(("running_mean", "running_var", "weight_u",
+                                 "weight_v"))}
+        if len(state0) != (16 if norm == "BN" else 32):
+            raise AssertionError(f"gated {norm}: {len(state0)} norm leaves")
+        trainer.total_iterations = 2
+        trainer.train([batch])
+        reset(counters)
+        trainer.total_iterations = 6
+        trainer.train([batch])
+        per_step = {k: v / 4 for k, v in read(counters).items()}
+        rows = read_metrics(trainer, 2)
+        keys = ("gen_loss", "dis_loss", "adv", "l1_valid", "l1_masked")
+        if not all(np.isfinite(r[k]) for r in rows for k in keys):
+            raise AssertionError(f"gated {norm}: a loss is not finite")
+        if any(v != 4 for v in per_step.values()):
+            raise AssertionError(f"gated {norm}: launches per step "
+                                 f"{per_step}")
+        now = trainer.gen.state_dict()
+        moved = [k for k, v in state0.items() if not torch.equal(now[k], v)]
+        decoder = sum("decoder" in k for k in moved)
+        if (decoder != 8) if norm == "BN" else moved:
+            raise AssertionError(f"gated {norm}: moved {moved}")
+        label = f"model_{norm}"
+        rates[label] = (len(rows) - 1) / (rows[-1]["time"] - rows[0]["time"])
+        log(f"gated {norm} GAN: {len(rows)} logged steps, launches per step "
+            f"{per_step}, {len(moved)} of {len(state0)} "
+            f"{'BN statistics' if norm == 'BN' else 'SN u/v'} moved "
+            f"({decoder} of the decoder's); "
+            f"gen_loss {rows[0]['gen_loss']:.4f} -> "
+            f"{rows[-1]['gen_loss']:.4f}")
+        del trainer
+        torch.cuda.empty_cache()
+    log("gated training, steps/s vs vanilla (same run): " + "; ".join(
+        f"{k} {v:.4f} vs {vanilla[k.split('_')[0] if k.startswith('model') else k]:.4f}"
+        for k, v in rates.items()) + f"; {smi}")
+    return rates
+
+
+def phase_conv_types(counters, train_counters, smi: str, vanilla_s: dict,
+                     vanilla_rates: dict) -> dict:
+    """The conv-block library on the card (ROADMAP A.6, A.9): gated LAFC
+    and FGT under each norm at the small reference's size, card against
+    CPU; gated BN object removal at full width from JAX-layout
+    directories; gated training (see :func:`conv_types_train`)."""
+    t0 = time.perf_counter()
+    for norm in (None, "BN", "IN", "SN"):
+        phase_small_reference(conv_type="gated", norm=norm)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        removal = conv_types_removal(counters, root, smi, vanilla_s)
+        t2 = time.perf_counter()
+        rates = conv_types_train(train_counters, root, smi, vanilla_rates)
+    log(f"conv types phase: {time.perf_counter() - t0:.2f} s (small "
+        f"references {t1 - t0:.2f} s, object removal {t2 - t1:.2f} s, "
+        f"training {time.perf_counter() - t2:.2f} s)")
+    return {"removal_s": removal, "steps_per_s": rates}
+
+
 def phase_small_train(devices=("cuda", "cpu")):
     """One SGD GAN step at 64x64, 5 frames, FGT at 512 hidden / 4 heads
     (head dim 128, the kernels' width) with 2 blocks, f32: on the card
@@ -3271,6 +3496,7 @@ def main() -> int:
         phase_parallel(all_counters, par_root, smi)
     with tempfile.TemporaryDirectory() as gate_root:
         phase_overfit_gate(all_counters, gate_root, smi)
+    phase_conv_types(counters, train_counters, smi, fused_s, on_card)
     phase_small_reference()
     phase_small_reference("pyramid", use_nonlocal=True)
     phase_small_reference(small=True)

@@ -11,9 +11,14 @@ both directions:
   dwconv2d (O,1,kh,kw) <-> (kh,kw,1,O)
   linear   (out,in) <-> (in,out)
   raw      copied as-is (biases, norms, running stats, spectral u)
+  sn_v     a spectral-norm ``v``: its entries permuted, as flax flattens
+           a kernel (k.., I) and torch (I, k..) (``_v_to_torch`` /
+           ``_v_to_jax``, given the sibling ``weight_orig``'s shape)
 
-The discriminator's spectral ``v`` also needs its entries permuted
-(``_v_to_torch`` / ``_v_to_jax``).
+The LAFC, LAFC-single and FGT tables follow the config's ``conv_type``
+and ``norm`` (:func:`_block`): a gated block's ``feature`` / ``gating``
+convs, BN's ``params`` scale / bias and ``batch_stats`` mean / var, IN's
+scale / bias, SN's ``spectral`` u / v.
 """
 
 from __future__ import annotations
@@ -56,6 +61,10 @@ def _get_in(tree, path):
     return node
 
 
+def _weight_orig_shape(state: Dict[str, Any], v_key: str) -> tuple:
+    return tuple(state[v_key[:-len("weight_v")] + "weight_orig"].shape)
+
+
 def jax_to_torch_state(variables_np: dict, mapping: Mapping,
                        strict: bool = True) -> Dict[str, torch.Tensor]:
     """Flax variable tree (numpy leaves) -> torch ``state_dict``.
@@ -75,6 +84,11 @@ def jax_to_torch_state(variables_np: dict, mapping: Mapping,
     if missing and strict:
         raise KeyError(f"flax paths missing from the tree: {missing[:10]} "
                        f"(+{max(0, len(missing) - 10)} more)")
+    for torch_key, kind in mapping.values():
+        if kind == "sn_v" and torch_key in state:
+            state[torch_key] = torch.from_numpy(np.ascontiguousarray(
+                _v_to_torch(state[torch_key].numpy(),
+                            _weight_orig_shape(state, torch_key))))
     return state
 
 
@@ -86,6 +100,8 @@ def torch_to_jax_leaves(state: Dict[str, Any], mapping: Mapping
         t = state[torch_key]
         arr = t.detach().cpu().float().numpy() if hasattr(t, "detach") \
             else np.asarray(t)
+        if kind == "sn_v":
+            arr = _v_to_jax(arr, _weight_orig_shape(state, torch_key))
         out[flax_path] = torch_to_jax_array(kind, arr)
     return out
 
@@ -222,71 +238,103 @@ def i3d_mapping() -> Mapping:
     return m
 
 
-def _vanilla(flax_prefix, torch_prefix, kind="conv2d", bias=True):
-    """A VanillaConv block: <prefix>/conv/kernel <- <prefix>.featureConv."""
-    return _conv(flax_prefix + ("conv",), torch_prefix + ".featureConv",
-                 kind, bias)
-
-
-def lafc_mapping(res_blocks: int = 1) -> Mapping:
-    P = ("params", "net")
+def _block(path, torch_prefix, conv_type="vanilla", norm=None,
+           kind="conv2d", bias=True, deconv=False) -> Mapping:
+    """One block of ``fgt_tpu.ops.conv_blocks`` whose flax path below
+    the collection is ``path`` <-> the port's block at ``torch_prefix``
+    (a deconv's block one level down, as ``conv``): the vanilla block's
+    ``conv`` or the gated block's ``feature`` / ``gating`` convs (SN:
+    ``weight_orig`` + ``spectral`` u / v), the partial block's bias-free
+    ``feature`` conv and own ``bias``, and the BN / IN layer."""
+    if deconv:
+        path, torch_prefix = path + ("conv",), torch_prefix + ".conv"
+    P, S, B = ("params",) + path, ("spectral",) + path, \
+        ("batch_stats",) + path
+    convs = {"vanilla": [("conv", "featureConv")],
+             "gated": [("feature", "featureConv"), ("gating", "gatingConv")],
+             "partial": [("feature", "featureConv")]}[conv_type]
+    sn = norm == "SN" and conv_type != "partial"
     m: Mapping = {}
-
-    def p3d(ours, theirs):
-        mm = {}
-        mm.update(_vanilla(P + (ours, "conv1"), theirs + ".conv1", "conv3d"))
-        mm.update(_vanilla(P + (ours, "conv2"), theirs + ".conv2", "conv3d"))
-        return mm
-
-    m.update(p3d("enc2_block0", "net.encoder2.1"))
-    m.update(p3d("enc2_block1", "net.encoder2.2"))
-    m.update(p3d("enc4_block0", "net.encoder4.0"))
-    m.update(p3d("enc4_block1", "net.encoder4.1"))
-    for i in range(res_blocks):
-        m.update(p3d(f"res{i}", f"net.res_blocks.{i}"))
-    for c in ("condense2", "condense4_pre", "condense4_post"):
-        m.update(_vanilla(P + (c,), f"net.{c}", "conv3d"))
-    for i in range(4):
-        m.update(_vanilla(P + (f"middle{i}",), f"net.middle.{i}"))
-    m.update(_conv(P + ("dec2_deconv", "conv", "conv"),
-                   "net.decoder2.0.conv.featureConv"))
-    m.update(_vanilla(P + ("dec2_conv0",), "net.decoder2.1"))
-    m.update(_vanilla(P + ("dec2_conv1",), "net.decoder2.2"))
-    m.update(_conv(P + ("dec_deconv", "conv", "conv"),
-                   "net.decoder.0.conv.featureConv"))
-    m.update(_vanilla(P + ("dec_conv0",), "net.decoder.1"))
-    m.update(_vanilla(P + ("dec_conv1",), "net.decoder.2"))
-    for ours, theirs in (("projection", "projection"), ("mid1", "mid_layer_1"),
-                         ("mid2", "mid_layer_2"), ("out", "out_layer")):
-        m.update(_vanilla(P + ("edge_detector", ours),
-                          f"net.edgeDetector.{theirs}"))
+    for ours, theirs in convs:
+        t = f"{torch_prefix}.{theirs}"
+        if sn:
+            m[P + (ours, "kernel")] = (f"{t}.weight_orig", kind)
+            m[S + (ours, "u")] = (f"{t}.weight_u", "raw")
+            m[S + (ours, "v")] = (f"{t}.weight_v", "sn_v")
+            if bias:
+                m[P + (ours, "bias")] = (f"{t}.bias", "raw")
+        else:
+            m.update(_conv(P + (ours,), t, kind,
+                           bias and conv_type != "partial"))
+    if conv_type == "partial" and bias:
+        m[P + ("bias",)] = (f"{torch_prefix}.bias", "raw")
+    t = f"{torch_prefix}.norm_layer"
+    if norm == "BN":
+        m.update(_batchnorm(P + ("norm_act",), B + ("norm_act",), t))
+    elif norm == "IN":
+        m.update(_layernorm(P + ("norm_act", "GroupNorm_0"), t))
     return m
 
 
-def lafc_single_mapping(res_blocks: int = 1) -> Mapping:
-    P = ("params", "net")
+def lafc_mapping(res_blocks: int = 1, conv_type: str = "vanilla") -> Mapping:
+    """LAFC at ``res_blocks`` and ``conv_type`` (its blocks take no
+    norm)."""
+    N = ("net",)
     m: Mapping = {}
-    m.update(_vanilla(P + ("enc2_conv0",), "net.encoder2.1"))
-    m.update(_vanilla(P + ("enc2_conv1",), "net.encoder2.2"))
-    m.update(_vanilla(P + ("enc4_conv0",), "net.encoder4.0"))
-    m.update(_vanilla(P + ("enc4_conv1",), "net.encoder4.1"))
+
+    def blk(ours, theirs, kind="conv2d", deconv=False):
+        m.update(_block(N + ours, theirs, conv_type, None, kind,
+                        deconv=deconv))
+
+    for ours, theirs in (("enc2_block0", "net.encoder2.1"),
+                         ("enc2_block1", "net.encoder2.2"),
+                         ("enc4_block0", "net.encoder4.0"),
+                         ("enc4_block1", "net.encoder4.1")) + tuple(
+            (f"res{i}", f"net.res_blocks.{i}") for i in range(res_blocks)):
+        blk((ours, "conv1"), theirs + ".conv1", "conv3d")
+        blk((ours, "conv2"), theirs + ".conv2", "conv3d")
+    for c in ("condense2", "condense4_pre", "condense4_post"):
+        blk((c,), f"net.{c}", "conv3d")
+    _trunk_2d(blk)
+    return m
+
+
+def _trunk_2d(blk) -> None:
+    """The 2-D middle, decoders and edge head that LAFC and LAFC-single
+    share."""
+    for i in range(4):
+        blk((f"middle{i}",), f"net.middle.{i}")
+    blk(("dec2_deconv",), "net.decoder2.0", deconv=True)
+    blk(("dec2_conv0",), "net.decoder2.1")
+    blk(("dec2_conv1",), "net.decoder2.2")
+    blk(("dec_deconv",), "net.decoder.0", deconv=True)
+    blk(("dec_conv0",), "net.decoder.1")
+    blk(("dec_conv1",), "net.decoder.2")
+    for ours, theirs in (("projection", "projection"), ("mid1", "mid_layer_1"),
+                         ("mid2", "mid_layer_2"), ("out", "out_layer")):
+        blk(("edge_detector", ours), f"net.edgeDetector.{theirs}")
+
+
+def lafc_single_mapping(res_blocks: int = 1,
+                        conv_type: str = "vanilla") -> Mapping:
+    """LAFC-single at ``res_blocks`` and ``conv_type`` (its residual
+    blocks are plain convs)."""
+    N = ("net",)
+    m: Mapping = {}
+
+    def blk(ours, theirs, kind="conv2d", deconv=False):
+        m.update(_block(N + ours, theirs, conv_type, None, kind,
+                        deconv=deconv))
+
+    blk(("enc2_conv0",), "net.encoder2.1")
+    blk(("enc2_conv1",), "net.encoder2.2")
+    blk(("enc4_conv0",), "net.encoder4.0")
+    blk(("enc4_conv1",), "net.encoder4.1")
+    P = ("params",) + N
     for i in range(res_blocks):
         m.update(_conv(P + (f"res{i}", "conv1"), f"net.res_blocks.{i}.conv1"))
         m.update(_conv(P + (f"res{i}", "conv2"), f"net.res_blocks.{i}.conv2"))
-    for i in range(4):
-        m.update(_vanilla(P + (f"middle{i}",), f"net.middle.{i}"))
-    m.update(_conv(P + ("dec2_deconv", "conv", "conv"),
-                   "net.decoder2.0.conv.featureConv"))
-    m.update(_vanilla(P + ("dec2_conv0",), "net.decoder2.1"))
-    m.update(_vanilla(P + ("dec2_conv1",), "net.decoder2.2"))
-    m.update(_conv(P + ("dec_deconv", "conv", "conv"),
-                   "net.decoder.0.conv.featureConv"))
-    m.update(_vanilla(P + ("dec_conv0",), "net.decoder.1"))
-    m.update(_vanilla(P + ("dec_conv1",), "net.decoder.2"))
-    for ours, theirs in (("projection", "projection"), ("mid1", "mid_layer_1"),
-                         ("mid2", "mid_layer_2"), ("out", "out_layer")):
-        m.update(_vanilla(P + ("edge_detector", ours),
-                          f"net.edgeDetector.{theirs}"))
+    _trunk_2d(blk)
     return m
 
 
@@ -337,15 +385,22 @@ def _transformer_s(flax_prefix, torch_prefix):
     return m
 
 
-def fgt_mapping(num_blocks: int = 8) -> Mapping:
+def fgt_mapping(num_blocks: int = 8, conv_type: str = "vanilla",
+                norm: str | None = None) -> Mapping:
+    """FGT at ``num_blocks``; the flow encoder and decoder blocks in
+    ``conv_type`` and ``norm``."""
     P = ("params", "net")
     m: Mapping = {}
+
+    def blk(ours, theirs, deconv=False):
+        m.update(_block(("net",) + ours, theirs, conv_type, norm,
+                        deconv=deconv))
+
     for i in range(9):
         m.update(_conv(P + ("frame_encoder", f"conv{i}"),
                        f"net.frame_endoder.layers.{2 * i}"))
     for i in range(4):
-        m.update(_vanilla(P + ("flow_encoder", f"block{i}"),
-                          f"net.flow_encoder.{i + 1}"))
+        blk(("flow_encoder", f"block{i}"), f"net.flow_encoder.{i + 1}")
     m.update(_conv(P + ("patch2vec",), "net.patch2vec"))
     m.update(_conv(P + ("f_patch2vec",), "net.f_patch2vec"))
     m.update(_conv(P + ("add_pos_emb", "proj"), "net.add_pos_emb.proj",
@@ -360,19 +415,16 @@ def fgt_mapping(num_blocks: int = 8) -> Mapping:
         m.update(_transformer_s(P + (f"block{i}_s",),
                                 f"net.transformer.{i}.s_transformer"))
     m.update(_linear(P + ("vec2patch", "embedding"), "net.vec2patch.embedding"))
-    m.update(_conv(P + ("decoder", "layer1", "conv", "conv"),
-                   "net.decoder.layer1.conv.featureConv"))
-    m.update(_vanilla(P + ("decoder", "layer2"), "net.decoder.layer2"))
-    m.update(_conv(P + ("decoder", "layer3", "conv", "conv"),
-                   "net.decoder.layer3.conv.featureConv"))
-    m.update(_vanilla(P + ("decoder", "final"), "net.decoder.final"))
+    for layer in ("layer1", "layer2", "layer3", "final"):
+        blk(("decoder", layer), f"net.decoder.{layer}",
+            deconv=layer in ("layer1", "layer3"))
     return m
 
 
 def discriminator_mapping() -> Mapping:
-    """T-PatchGAN: flax params + spectral ``u``; the spectral ``v`` needs
-    a permutation and goes through :func:`jax_to_torch_discriminator_state`
-    / :func:`torch_to_jax_discriminator_leaves`."""
+    """T-PatchGAN: flax params + spectral ``u`` (the JAX converter's
+    table); :func:`jax_to_torch_discriminator_state` /
+    :func:`torch_to_jax_discriminator_leaves` add the spectral ``v``."""
     P = ("params",)
     S = ("spectral",)
     m: Mapping = {}
@@ -384,43 +436,38 @@ def discriminator_mapping() -> Mapping:
 
 
 # The power iteration's v spans the flattened kernel minus its output
-# axis: torch flattens OIDHW as I·D·H·W, flax flattens DHWIO as D·H·W·I.
+# axis: torch flattens O I k.. as I·k.., flax flattens k.. I O as k..·I
+# (2-D and 3-D kernels alike).
 
-def _v_to_torch(v: np.ndarray, kernel_oidhw: tuple) -> np.ndarray:
-    _, i, d, h, w = kernel_oidhw
-    return v.reshape(d, h, w, i).transpose(3, 0, 1, 2).reshape(-1)
+def _v_to_torch(v: np.ndarray, kernel_oik: tuple) -> np.ndarray:
+    i, k = kernel_oik[1], tuple(kernel_oik[2:])
+    return np.moveaxis(v.reshape(k + (i,)), -1, 0).reshape(-1)
 
 
-def _v_to_jax(v: np.ndarray, kernel_oidhw: tuple) -> np.ndarray:
-    _, i, d, h, w = kernel_oidhw
-    return v.reshape(i, d, h, w).transpose(1, 2, 3, 0).reshape(-1)
+def _v_to_jax(v: np.ndarray, kernel_oik: tuple) -> np.ndarray:
+    i, k = kernel_oik[1], tuple(kernel_oik[2:])
+    return np.moveaxis(v.reshape((i,) + k), 0, -1).reshape(-1)
+
+
+def _discriminator_with_v() -> Mapping:
+    m = discriminator_mapping()
+    for i in range(5):
+        m[("spectral", f"conv{i}", "v")] = (f"conv.{2 * i}.weight_v", "sn_v")
+    return m
 
 
 def jax_to_torch_discriminator_state(variables_np: dict
                                      ) -> Dict[str, torch.Tensor]:
     """T-PatchGAN flax variables (params + spectral) -> torch
     ``state_dict`` with ``weight_orig``, ``weight_u`` and ``weight_v``."""
-    state = jax_to_torch_state(variables_np, discriminator_mapping())
-    for i in range(5):
-        shape = tuple(state[f"conv.{2 * i}.weight_orig"].shape)
-        v = np.asarray(variables_np["spectral"][f"conv{i}"]["v"])
-        state[f"conv.{2 * i}.weight_v"] = torch.from_numpy(
-            np.ascontiguousarray(_v_to_torch(v, shape)).astype(
-                np.float32))
-    return state
+    return jax_to_torch_state(variables_np, _discriminator_with_v())
 
 
 def torch_to_jax_discriminator_leaves(state: Dict[str, Any]
                                       ) -> Dict[Tuple[str, ...], np.ndarray]:
     """Torch T-PatchGAN ``state_dict`` -> {flax path: array}, spectral
     ``v`` included."""
-    out = torch_to_jax_leaves(state, discriminator_mapping())
-    for i in range(5):
-        w = state[f"conv.{2 * i}.weight_orig"]
-        v = state[f"conv.{2 * i}.weight_v"].detach().cpu().float().numpy()
-        out[("spectral", f"conv{i}", "v")] = _v_to_jax(
-            v, tuple(w.shape))
-    return out
+    return torch_to_jax_leaves(state, _discriminator_with_v())
 
 
 # --------------------------------------------------------------------------
@@ -452,7 +499,8 @@ def mapping_for(kind: str, config: dict) -> Mapping:
     (``tools/convert_weights.py``): RAFT big or small, LAFC and
     LAFC-single at the config's ``resBlocks`` and FGT at its
     ``numBlocks`` (the JAX ``from_dict`` precedence over ``res_blocks`` /
-    ``num_blocks``), I3D."""
+    ``num_blocks``), each in its ``conv_type`` (and FGT's ``norm``),
+    I3D."""
     from fgt_tpu_torch.models.fgt import FGTConfig
     from fgt_tpu_torch.models.lafc import lafc_keys
 
@@ -461,11 +509,12 @@ def mapping_for(kind: str, config: dict) -> Mapping:
     if kind == "raft_small":
         return raft_small_mapping()
     if kind in ("lafc", "lafc_single"):
-        res = int(lafc_keys(config)["res_blocks"])
-        return lafc_mapping(res) if kind == "lafc" \
-            else lafc_single_mapping(res)
+        keys = lafc_keys(config)
+        table = lafc_mapping if kind == "lafc" else lafc_single_mapping
+        return table(int(keys["res_blocks"]), keys["conv_type"])
     if kind == "fgt":
-        return fgt_mapping(int(FGTConfig.from_dict(config).num_blocks))
+        c = FGTConfig.from_dict(config)
+        return fgt_mapping(int(c.num_blocks), c.conv_type, c.norm)
     if kind == "i3d":
         return i3d_mapping()
     raise ValueError(f"unknown model kind {kind!r}; one of {KINDS}")

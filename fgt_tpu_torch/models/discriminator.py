@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from fgt_tpu_torch.ops.conv_blocks import (SNConv3d, init_kaiming,
+from fgt_tpu_torch.ops.conv_blocks import (SNConv, init_kaiming,
                                            leaky_relu_02)
 
 _K, _S, _P = (3, 5, 5), (1, 2, 2), (1, 2, 2)
@@ -30,7 +30,7 @@ class TemporalPatchGAN(nn.Module):
         widths = [in_channels, nf, nf * 2, nf * 4, nf * 4, nf * 4]
         layers = []
         for cin, cout in zip(widths[:-1], widths[1:]):
-            layers += [SNConv3d(cin, cout, _K, _S, _P), nn.LeakyReLU(0.2)]
+            layers += [SNConv(cin, cout, _K, _S, _P), nn.LeakyReLU(0.2)]
         layers.append(nn.Conv3d(nf * 4, nf * 4, _K, _S, _P))
         self.conv = nn.Sequential(*layers)
 

@@ -29,9 +29,9 @@ import torch.nn.functional as F
 
 from fgt_tpu_torch.ops.attention import (LN_EPS, TMHSA, FlowGuidedSWMHSA,
                                          FrameShard)
-from fgt_tpu_torch.ops.conv_blocks import (VanillaConv, VanillaDeconv,
-                                           init_normal, leaky_relu_02,
-                                           require_vanilla)
+from fgt_tpu_torch.ops.conv_blocks import (conv_classes, init_normal,
+                                           leaky_relu_02,
+                                           require_buildable)
 from fgt_tpu_torch.ops.ffn import FusionFeedForward
 from fgt_tpu_torch.parallel.collectives import (frame_splits, gather_frames,
                                                 group_rank)
@@ -52,6 +52,8 @@ class FGTConfig:
     stride: Tuple[int, int] = (3, 3)
     padding: Tuple[int, int] = (3, 3)
     num_heads: int = 4
+    conv_type: str = "vanilla"      # flow encoder and decoder blocks
+    norm: Optional[str] = None      # their norm: BN, IN, SN or None
     use_bias: bool = True
     ape: bool = True
     mlp_ratio: int = 40
@@ -67,8 +69,9 @@ class FGTConfig:
         names win over their aliases (``flow_inChannel``, ``numBlocks``,
         ``num_head``, ``PASSMASK``), and a truthy pair key
         (``kernel_size``, ``stride``, ``padding``) over its ``_h`` / ``_w``
-        keys. Raises on a conv_type or norm the port lacks."""
-        require_vanilla(cfg, "FGT")
+        keys; ``norm`` None, "None" or "none" (or a non-string) means no
+        norm. Raises where :func:`require_buildable` does."""
+        conv_type, norm = require_buildable(cfg, "FGT")
         get = cfg.get
         ks = get("kernel_size") or (get("kernel_size_h", 7),
                                     get("kernel_size_w", 7))
@@ -83,6 +86,7 @@ class FGTConfig:
             num_blocks=get("numBlocks", get("num_blocks", 8)),
             kernel_size=tuple(ks), stride=tuple(st), padding=tuple(pd),
             num_heads=get("num_head", get("num_heads", 4)),
+            conv_type=conv_type, norm=norm,
             use_bias=bool(get("use_bias", 1)),
             ape=bool(get("ape", 1)), mlp_ratio=get("mlp_ratio", 40),
             pass_mask=bool(get("PASSMASK", get("pass_mask", 1))),
@@ -198,15 +202,19 @@ class TransformerBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Deconv x2 / conv decoder back to RGB (model.py:176-193)."""
+    """Deconv x2 / conv decoder back to RGB (model.py:176-193), in the
+    config's conv_type and norm; the ``final`` conv has no activation
+    and is normalised too (the tanh follows in :class:`FGT`)."""
 
     def __init__(self, cfg: FGTConfig):
         super().__init__()
-        c, bias = cfg.cnum * 2, cfg.use_bias
-        self.layer1 = VanillaDeconv(c, c, 3, 1, 1, bias=bias)
-        self.layer2 = VanillaConv(c, c // 2, 3, 1, 1, bias=bias)
-        self.layer3 = VanillaDeconv(c // 2, c // 2, 3, 1, 1, bias=bias)
-        self.final = VanillaConv(c // 2, 3, 3, 1, 1, bias=bias, activation=None)
+        c = cfg.cnum * 2
+        conv, deconv = conv_classes[cfg.conv_type]
+        kw = dict(bias=cfg.use_bias, norm=cfg.norm)
+        self.layer1 = deconv(c, c, 3, 1, 1, **kw)
+        self.layer2 = conv(c, c // 2, 3, 1, 1, **kw)
+        self.layer3 = deconv(c // 2, c // 2, 3, 1, 1, **kw)
+        self.final = conv(c // 2, 3, 3, 1, 1, activation=None, **kw)
 
     def forward(self, x):
         return self.final(self.layer3(self.layer2(self.layer1(x))))
@@ -218,12 +226,14 @@ class FGT(nn.Module):
         self.cfg = c = cfg
         self.frame_endoder = Encoder(c.in_channel, c.cnum)  # reference typo
         fc = c.flow_cnum
+        conv = conv_classes[c.conv_type][0]
+        kw = dict(bias=c.use_bias, norm=c.norm)
         self.flow_encoder = nn.Sequential(
             nn.ReplicationPad2d(2),
-            VanillaConv(c.flow_in_channel, fc, 5, 1, 0, bias=c.use_bias),
-            VanillaConv(fc, 2 * fc, 3, 2, 1, bias=c.use_bias),
-            VanillaConv(2 * fc, 2 * fc, 3, 1, 1, bias=c.use_bias),
-            VanillaConv(2 * fc, 2 * fc, 3, 2, 1, bias=c.use_bias))
+            conv(c.flow_in_channel, fc, 5, 1, 0, **kw),
+            conv(fc, 2 * fc, 3, 2, 1, **kw),
+            conv(2 * fc, 2 * fc, 3, 1, 1, **kw),
+            conv(2 * fc, 2 * fc, 3, 2, 1, **kw))
         self.patch2vec = nn.Conv2d(2 * c.cnum, c.frame_hidden, c.kernel_size,
                                    c.stride, c.padding)
         self.f_patch2vec = nn.Conv2d(2 * fc, c.flow_hidden, c.kernel_size,

@@ -13,18 +13,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fgt_tpu_torch.ops.conv_blocks import (VanillaConv, VanillaDeconv,
-                                           init_kaiming, require_vanilla)
+from fgt_tpu_torch.ops.conv_blocks import (conv_classes, init_kaiming,
+                                           replication_pad,
+                                           require_buildable)
 
 
 def lafc_keys(cfg: dict, model: str = "LAFC") -> dict:
     """The keys of JAX ``LAFCConfig.from_dict`` that the port's LAFC and
     LAFC-single read, the reference names winning over their aliases
     (``PASSMASK`` over ``pass_mask``, ``resBlocks`` over
-    ``res_blocks``); raises on a conv_type or norm the port lacks."""
-    require_vanilla(cfg, model)
+    ``res_blocks``), and ``conv_type``. A ``norm`` is checked and
+    ignored, as ``LAFCConfig`` has none (every block gets no norm);
+    raises where :func:`require_buildable` does."""
+    conv_type, _ = require_buildable(cfg, model)
     get = cfg.get
-    return {"cnum": get("cnum", 48), "in_channel": get("in_channel", 3),
+    return {"conv_type": conv_type, "cnum": get("cnum", 48), "in_channel": get("in_channel", 3),
             "num_flows": get("num_flows", 3),
             "use_bias": bool(get("use_bias", 1)),
             "use_residual": bool(get("use_residual", 1)),
@@ -34,15 +37,17 @@ def lafc_keys(cfg: dict, model: str = "LAFC") -> dict:
 
 class P3DBlock(nn.Module):
     """(1, k, k) spatial conv then (3, 1, 1) temporal conv, both with
-    leaky ReLU, optional residual (reference lafc.py:108-125)."""
+    leaky ReLU, optional residual (reference lafc.py:108-125); ``conv``
+    is the conv_type's block class."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int, padding: int,
-                 bias: bool, use_residual: bool = False):
+                 bias: bool, use_residual: bool = False, conv=None):
         super().__init__()
-        self.conv1 = VanillaConv(cin, cout, (1, k, k), (1, stride, stride),
-                                 (0, padding, padding), bias=bias, rank=3)
-        self.conv2 = VanillaConv(cout, cout, (3, 1, 1), 1, (1, 0, 0),
-                                 bias=bias, rank=3)
+        conv = conv or conv_classes["vanilla"][0]
+        self.conv1 = conv(cin, cout, (1, k, k), (1, stride, stride),
+                          (0, padding, padding), bias=bias, rank=3)
+        self.conv2 = conv(cout, cout, (3, 1, 1), 1, (1, 0, 0), bias=bias,
+                          rank=3)
         self.use_residual = use_residual
 
     def forward(self, x):
@@ -53,12 +58,14 @@ class P3DBlock(nn.Module):
 class EdgeDetection(nn.Module):
     """Flow -> edge probability head (reference lafc.py:128-148)."""
 
-    def __init__(self, in_ch: int = 2, mid: int = 16, out_ch: int = 1):
+    def __init__(self, in_ch: int = 2, mid: int = 16, out_ch: int = 1,
+                 conv=None):
         super().__init__()
-        self.projection = VanillaConv(in_ch, mid, 3, 1, 1)
-        self.mid_layer_1 = VanillaConv(mid, mid, 3, 1, 1)
-        self.mid_layer_2 = VanillaConv(mid, mid, 3, 1, 1, activation=None)
-        self.out_layer = VanillaConv(mid, out_ch, 1, 1, 0, activation=None)
+        conv = conv or conv_classes["vanilla"][0]
+        self.projection = conv(in_ch, mid, 3, 1, 1)
+        self.mid_layer_1 = conv(mid, mid, 3, 1, 1)
+        self.mid_layer_2 = conv(mid, mid, 3, 1, 1, activation=None)
+        self.out_layer = conv(mid, out_ch, 1, 1, 0, activation=None)
 
     def forward(self, flow):
         proj = self.projection(flow)
@@ -77,50 +84,50 @@ class _Pad(nn.Module):
         self.pad = pad
 
     def forward(self, x):
-        p = self.pad
-        return F.pad(x, (p, p, p, p) + (0, 0) * (x.dim() - 4),
-                     mode="replicate")
+        return replication_pad(x, self.pad)
 
 
 class P3DNet(nn.Module):
-    """The LAFC trunk (reference lafc.py:18-105), ``conv_type: vanilla``,
-    ``use_edges: 0``; ``cfg`` is read by :func:`lafc_keys`."""
+    """The LAFC trunk (reference lafc.py:18-105) with ``use_edges: 0``;
+    every conv (P3D, condense, middle, decoders, edge head) is the
+    ``conv_type``'s block; ``cfg`` is read by :func:`lafc_keys`."""
 
     def __init__(self, cfg: dict):
         super().__init__()
         c = lafc_keys(cfg)
         nf, bias, residual = c["cnum"], c["use_bias"], c["use_residual"]
         t, cin = c["num_flows"], c["in_channel"]
+        conv, deconv = conv_classes[c["conv_type"]]
         self.pass_mask = c["pass_mask"]
         self.encoder2 = nn.Sequential(
             _Pad(2),
-            P3DBlock(cin, nf, 5, 1, 0, bias),
-            P3DBlock(nf, nf * 2, 3, 2, 1, bias))
+            P3DBlock(cin, nf, 5, 1, 0, bias, conv=conv),
+            P3DBlock(nf, nf * 2, 3, 2, 1, bias, conv=conv))
         self.encoder4 = nn.Sequential(
-            P3DBlock(nf * 2, nf * 2, 3, 1, 1, bias, residual),
-            P3DBlock(nf * 2, nf * 4, 3, 2, 1, bias))
+            P3DBlock(nf * 2, nf * 2, 3, 1, 1, bias, residual, conv),
+            P3DBlock(nf * 2, nf * 4, 3, 2, 1, bias, conv=conv))
         self.res_blocks = nn.Sequential(*[
-            P3DBlock(nf * 4, nf * 4, 3, 1, 1, bias, True)
+            P3DBlock(nf * 4, nf * 4, 3, 1, 1, bias, True, conv)
             for _ in range(c["res_blocks"])])
 
         def condense(c):
-            return VanillaConv(c, c, (t, 1, 1), 1, 0, bias=bias, rank=3)
+            return conv(c, c, (t, 1, 1), 1, 0, bias=bias, rank=3)
 
         self.condense2 = condense(nf * 2)
         self.condense4_pre = condense(nf * 4)
         self.condense4_post = condense(nf * 4)
         self.middle = nn.Sequential(*[
-            VanillaConv(nf * 4, nf * 4, 3, 1, d, dilation=d, bias=bias)
+            conv(nf * 4, nf * 4, 3, 1, d, dilation=d, bias=bias)
             for d in (8, 4, 2, 1)])
         self.decoder2 = nn.Sequential(
-            VanillaDeconv(nf * 8, nf * 2, 3, 1, 1, bias=bias),
-            VanillaConv(nf * 2, nf * 2, 3, 1, 1, bias=bias),
-            VanillaConv(nf * 2, nf * 2, 3, 1, 1, bias=bias))
+            deconv(nf * 8, nf * 2, 3, 1, 1, bias=bias),
+            conv(nf * 2, nf * 2, 3, 1, 1, bias=bias),
+            conv(nf * 2, nf * 2, 3, 1, 1, bias=bias))
         self.decoder = nn.Sequential(
-            VanillaDeconv(nf * 4, nf, 3, 1, 1, bias=bias),
-            VanillaConv(nf, nf // 2, 3, 1, 1, bias=bias),
-            VanillaConv(nf // 2, 2, 3, 1, 1, bias=bias, activation=None))
-        self.edgeDetector = EdgeDetection(2, 16, 1)
+            deconv(nf * 4, nf, 3, 1, 1, bias=bias),
+            conv(nf, nf // 2, 3, 1, 1, bias=bias),
+            conv(nf // 2, 2, 3, 1, 1, bias=bias, activation=None))
+        self.edgeDetector = EdgeDetection(2, 16, 1, conv)
 
     def forward(self, flows, masks, with_edge: bool = True):
         """flows [B, 2, T, H, W], masks [B, 1, T, H, W] -> (flow

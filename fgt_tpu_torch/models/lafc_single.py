@@ -18,8 +18,8 @@ import torch
 import torch.nn as nn
 
 from fgt_tpu_torch.models.lafc import EdgeDetection, _Pad, lafc_keys
-from fgt_tpu_torch.ops.conv_blocks import (VanillaConv, VanillaDeconv,
-                                           init_kaiming, leaky_relu_02)
+from fgt_tpu_torch.ops.conv_blocks import (conv_classes, init_kaiming,
+                                           leaky_relu_02)
 
 
 class ResidualBlockNoBN(nn.Module):
@@ -36,20 +36,22 @@ class ResidualBlockNoBN(nn.Module):
 
 
 class P3DNetSingle(nn.Module):
-    """The LAFC-single trunk (``conv_type: vanilla``, no edge input);
-    ``cfg`` is read by :func:`~fgt_tpu_torch.models.lafc.lafc_keys`."""
+    """The LAFC-single trunk (no edge input); every conv but the
+    residual blocks' is the ``conv_type``'s block; ``cfg`` is read by
+    :func:`~fgt_tpu_torch.models.lafc.lafc_keys`."""
 
     def __init__(self, cfg: dict):
         super().__init__()
         c = lafc_keys(cfg, "LAFC-single")
         nf, bias, cin = c["cnum"], c["use_bias"], c["in_channel"]
         self.pass_mask = c["pass_mask"]
+        block, deblock = conv_classes[c["conv_type"]]
 
         def conv(ci, co, s=1, d=1, **kw):
-            return VanillaConv(ci, co, 3, s, d, dilation=d, bias=bias, **kw)
+            return block(ci, co, 3, s, d, dilation=d, bias=bias, **kw)
 
         self.encoder2 = nn.Sequential(
-            _Pad(2), VanillaConv(cin, nf, 5, 1, 0, bias=bias),
+            _Pad(2), block(cin, nf, 5, 1, 0, bias=bias),
             conv(nf, nf * 2, s=2))
         self.encoder4 = nn.Sequential(conv(nf * 2, nf * 2),
                                       conv(nf * 2, nf * 4, s=2))
@@ -59,12 +61,12 @@ class P3DNetSingle(nn.Module):
         self.middle = nn.Sequential(*[conv(nf * 4, nf * 4, d=d)
                                       for d in (8, 4, 2, 1)])
         self.decoder2 = nn.Sequential(
-            VanillaDeconv(nf * 8, nf * 2, 3, 1, 1, bias=bias),
+            deblock(nf * 8, nf * 2, 3, 1, 1, bias=bias),
             conv(nf * 2, nf * 2), conv(nf * 2, nf * 2))
         self.decoder = nn.Sequential(
-            VanillaDeconv(nf * 4, nf, 3, 1, 1, bias=bias),
+            deblock(nf * 4, nf, 3, 1, 1, bias=bias),
             conv(nf, nf // 2), conv(nf // 2, 2))   # quirk: activated head
-        self.edgeDetector = EdgeDetection(2, 16, 1)
+        self.edgeDetector = EdgeDetection(2, 16, 1, block)
 
     def forward(self, flow, mask, with_edge: bool = True):
         """flow [B, 2, H, W], mask [B, 1, H, W] -> (flow [B, 2, H, W],

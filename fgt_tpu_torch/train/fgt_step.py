@@ -17,6 +17,16 @@ One step:
      ``torch.autograd.grad`` over the generator's parameters only, so D
      collects nothing from it.
 
+The generator runs as the JAX step applies it, never in train mode: a
+BN layer normalises with its running statistics, and SN's u, v never
+iterate. The JAX step hands Adam the generator's whole variable tree, so
+BN's running mean and var are optimised by their gradients like the
+weights; the port's ``ops/conv_blocks.BatchNorm`` holds them as
+Parameters, so they are among ``gen.parameters()`` here, in the
+mixed-precision cast, the gradient average and the checkpoints. SN's u,
+v get zero gradients in JAX (``stop_gradient``), so Adam leaves them;
+here they are buffers, outside the optimizer.
+
 ``bi_mode`` trains on both flow directions where the reference raises
 NotImplementedError (network.py:106-107): ``fuse`` completes both and
 averages them as (fwd − bwd) / 2, ``alternate`` takes forward flows on
