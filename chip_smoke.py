@@ -7,9 +7,13 @@ Phases (any failure exits nonzero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels
      (one nvcc per source, all at once), the host flowNN library and the
      host JPEG decoder; decode the committed JPEG fixtures
-     (tests/data/jpeg), which must equal cv2's decodes bit for bit, and
-     time an 854x480 4:2:0 decode; print every kernel's registers,
-     stack, static shared memory and spills (cuobjdump);
+     (tests/data/jpeg: baseline, progressive from Pillow and cv2 with
+     and without restarts, gray and 4:2:0, a progressive file left
+     unrefined so that block smoothing runs, 4:1:1, CMYK, YCCK, a
+     sequential file of three scans), which must equal cv2's decodes
+     bit for bit, and time an 854x480 4:2:0 decode, baseline and
+     progressive (which must decode alike); print every kernel's
+     registers, stack, static shared memory and spills (cuobjdump);
   2. kernel K1 (RAFT corner-dot correlation) against its plain PyTorch
      version at the main-path shape, in f32 and bf16 (bf16 level 0, f32
      coarser levels); in bf16 on noisy coords (the general route) and on
@@ -95,6 +99,17 @@ Phases (any failure exits nonzero; nothing is caught):
      against its plain version in f32 and bf16 and timed) and
      --host_diffusion (s2 on the host's multigrid solve), s6 and s2
      seconds side by side;
+     then dataset preparation (``phase_dataset_prep``): a 24-frame
+     432x240 folder written by the port's tools (frames through
+     ``data/readers.save_frames_to_dir``, moving-stroke masks of
+     ``core/masks`` saved by ``MaskReader``, their ``get_bboxes`` boxes
+     rasterised by ``MaskGenerator``), read back equal, and object
+     removal through the CLI on both mask folders (output [24, 240, 432,
+     3] u8, byte-identical to the input outside the hole, K1 20 and K2 4
+     launches each; frames/s and peak memory beside phase 6's warm
+     pass); the stroke run's result written as an MJPG AVI
+     (``FrameReader.write_files_to_video``) and read back by
+     ``core/video_io.read_video``: 24 frames at >= 36 dB PSNR;
      then training from disk through the training CLI
      (``fgt_tpu_torch.train.train.main``): a YouTube-VOS-style tree (4
      videos x 16 PNG frames at 480x864, .flo flows at 240x432: smooth
@@ -162,7 +177,8 @@ Phases (any failure exits nonzero; nothing is caught):
 phase 8 and prints the device time by kernel.
 
 Needs torch with CUDA, nvcc and g++; imports nothing of JAX (the JPEG
-trees are written by ``tests/torch_port_jpeg_encoder.py``, numpy only).
+trees are written by the port's ``core/jpeg_encode``, the progressive
+frame by ``tests/torch_port_jpeg_encoder.py``'s scan writer, numpy only).
 """
 
 from __future__ import annotations
@@ -961,9 +977,10 @@ def phase_main_path(counters, corr: str, want: dict):
     hole_mean = out[masks > 0].astype(np.float64).mean()
     log(f"main path ({corr}): output ok; mean value inside the hole "
         f"{hole_mean:.2f}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     del models
     torch.cuda.empty_cache()
-    return launches, dict(timer.times)
+    return launches, dict(timer.times), peak
 
 
 def write_pngs(root: str, frames: np.ndarray) -> str:
@@ -975,24 +992,27 @@ def write_pngs(root: str, frames: np.ndarray) -> str:
     return root
 
 
-def jpeg_encoder():
-    """The tests' baseline JPEG encoder (``tests/torch_port_jpeg_encoder.py``,
-    numpy only): this machine has neither cv2 nor Pillow, and the port
-    only decodes."""
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from torch_port_jpeg_encoder import encode_jpeg
+def scan_writer():
+    """The tests' JPEG scan-script writer (``write_scans`` and libjpeg's
+    ``SIMPLE_PROGRESSION`` from ``tests/torch_port_jpeg_encoder.py``,
+    numpy only): the port's own encoder writes only baseline files."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_port_jpeg_encoder import SIMPLE_PROGRESSION, write_scans
 
-    return encode_jpeg
+    return write_scans, SIMPLE_PROGRESSION
 
 
 def write_jpegs(root: str, frames: np.ndarray, quality: int = 90) -> str:
     """``NNNNN.jpg`` files, baseline 4:2:0 (as DAVIS and YouTube-VOS
-    ship their frames)."""
-    encode = jpeg_encoder()
+    ship their frames), by the port's encoder."""
+    from fgt_tpu_torch.core.jpeg_encode import encode_jpeg
+
     os.makedirs(root, exist_ok=True)
     for i, fr in enumerate(frames):
         with open(os.path.join(root, f"{i:05d}.jpg"), "wb") as f:
-            f.write(encode(fr, quality, "420"))
+            f.write(encode_jpeg(fr, quality, "420"))
     return root
 
 
@@ -1313,44 +1333,57 @@ def phase_debug_flags(counters, root: str):
 def phase_jpeg_fixtures() -> dict:
     """(a) The host JPEG decoder built here against the committed
     fixtures (``tests/data/jpeg``: cv2-, Pillow- and test-encoder-written
-    files of every supported layout, an EXIF-rotated one and one whose
-    samples saturate, each beside cv2's decode as PNG): bit-equal. Then
-    the decode time of an 854x480 4:2:0 frame (DAVIS's size, q90) beside
-    the PNG reader's on the same frame."""
+    files of every layout it reads — baseline, progressive with and
+    without restarts, a progressive file that leaves its coefficients
+    unrefined (block smoothing), 4:1:1, CMYK, YCCK, several sequential
+    scans, an EXIF-rotated one and one whose samples saturate — each
+    beside cv2's decode as PNG): bit-equal under cv2's colour semantics.
+    Then the decode time of an 854x480 4:2:0 q90 frame (DAVIS's size),
+    baseline and progressive (libjpeg's simple progression, written by
+    the tests' encoder), beside the PNG reader's on the same frame."""
     from fgt_tpu_torch.core import jpeg
     from fgt_tpu_torch.pipeline import image_io
 
     names = sorted(f for f in os.listdir(JPEG_FIXTURES) if f.endswith(".jpg"))
-    if len(names) < 8:
+    if len(names) < 18:
         raise AssertionError(f"JPEG fixtures missing: {names}")
     for name in names:
-        got = jpeg.read_jpeg(os.path.join(JPEG_FIXTURES, name),
-                             orientation=True)
-        if got.ndim == 2:
-            got = np.repeat(got[..., None], 3, axis=-1)
+        got = jpeg.read_jpeg(os.path.join(JPEG_FIXTURES, name), "color")
         want = image_io.read_png(os.path.join(JPEG_FIXTURES,
                                               name[:-4] + ".png"))
         if not np.array_equal(got, want):
             raise AssertionError(f"JPEG fixture {name}: the decode differs "
                                  f"from cv2's")
     frame = davis_clip(n=1)[0][0]
-    data = jpeg_encoder()(frame, 90, "420")
+    from fgt_tpu_torch.core.jpeg_encode import encode_jpeg, quantized_blocks
+
+    write_scans, progression = scan_writer()
+
+    data = encode_jpeg(frame, 90, "420")
+    blocks, factors, tables = quantized_blocks(frame, 90, "420")
+    prog = write_scans(blocks, factors, tables, 854, 480, progression,
+                       progressive=True)
+    if not np.array_equal(jpeg.decode_jpeg(prog), jpeg.decode_jpeg(data)):
+        raise AssertionError("the progressive frame decodes unlike the "
+                             "baseline one of the same coefficients")
     with tempfile.TemporaryDirectory() as d:
         png = os.path.join(d, "f.png")
         image_io.write_png(png, frame)
         times = {}
         for name, fn in (("jpeg", lambda: jpeg.decode_jpeg(data)),
+                         ("progressive", lambda: jpeg.decode_jpeg(prog)),
                          ("png", lambda: image_io.read_png(png))):
             fn()
-            reps = 30 if name == "jpeg" else 3
+            reps = 3 if name == "png" else 30
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             times[name] = 1e3 * (time.perf_counter() - t0) / reps
     log(f"JPEG fixtures: {len(names)} files bit-equal to cv2's decode; "
-        f"decode of an 854x480 4:2:0 q90 frame ({len(data)} bytes) "
-        f"{times['jpeg']:.3f} ms, the PNG reader on the same frame "
-        f"{times['png']:.3f} ms (host CPU, one thread)")
+        f"decode of an 854x480 4:2:0 q90 frame: baseline ({len(data)} "
+        f"bytes) {times['jpeg']:.3f} ms, progressive ({len(prog)} bytes, 10 "
+        f"scans) {times['progressive']:.3f} ms, the PNG reader on the same "
+        f"frame {times['png']:.3f} ms (host CPU, one thread)")
     return times
 
 
@@ -1460,6 +1493,109 @@ def phase_jpeg_clip(counters, root: str) -> dict:
         f"(24 JPEG frames decoded and resized) "
         f"{stats['default']['s0_load_frames']:.4f} s")
     return stats
+
+
+def psnr(a, b) -> float:
+    err = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64))
+                  ** 2)
+    return float("inf") if err == 0 else 10 * np.log10(255.0 ** 2 / err)
+
+
+def phase_dataset_prep(counters, root: str, smi: str, vanilla_s: dict,
+                       vanilla_peak: float) -> dict:
+    """(d) A benchmark folder prepared with the port's own tools, then
+    object removal on it: phase 6's 24 frames at 432x240 through
+    ``readers.save_frames_to_dir``; moving-stroke masks
+    (``core.masks.get_video_masks_by_moving_random_stroke(24, 432, 240,
+    seed=0)``) saved by ``MaskReader.save_files``; their boxes
+    (``MaskReader.get_bboxes``) rasterised into a ``MaskGenerator``
+    folder. Both folders are read back through the readers (frames and
+    masks equal to what was written), then run through the CLI at full
+    width (bf16, random weights from seed 0, the K1 path), each output
+    [24, 240, 432, 3] u8, byte-identical to the input outside the hole,
+    with K1 20 and K2 4 launches; frames/s and peak memory beside phase
+    6's warm pass. The stroke run's result goes through
+    ``FrameReader.write_files_to_video`` (an MJPG AVI) and back through
+    ``video_io.read_video``: 24 frames at >= 36 dB PSNR."""
+    import torch
+    from fgt_tpu_torch.core import masks as core_masks
+    from fgt_tpu_torch.core import video_io
+    from fgt_tpu_torch.data import readers
+
+    t0 = time.perf_counter()
+    frames, _ = synthetic_video()
+    fdir = f"{root}/prep/frames"
+    readers.save_frames_to_dir(list(frames), fdir)
+    strokes = core_masks.get_video_masks_by_moving_random_stroke(
+        24, 432, 240, seed=0)
+    writer = readers.MaskReader(None, read=False)
+    writer.set_files(strokes)
+    sdir = f"{root}/prep/masks_stroke"
+    writer.save_files(sdir)
+    stroke_reader = readers.MaskReader(sdir)
+    boxes = [stroke_reader.get_bboxes(i) for i in range(len(stroke_reader))]
+    bdir = f"{root}/prep/masks_bbox"
+    readers.MaskGenerator(bdir, (432, 240), boxes)
+    prep_s = time.perf_counter() - t0
+    back = readers.FrameReader(fdir)
+    if len(back) != 24 or not all(np.array_equal(a, b)
+                                  for a, b in zip(back, frames)):
+        raise AssertionError("prepared frames read back differ")
+    if not all(np.array_equal(a, b) for a, b in zip(stroke_reader, strokes)):
+        raise AssertionError("prepared stroke masks read back differ")
+    box_masks = readers.MaskReader(bdir).files
+    hole_share = {"stroke": float(np.mean(np.stack(strokes) > 0)),
+                  "bbox": float(np.mean(np.stack(box_masks) > 0))}
+    log(f"dataset prep: 24 frames, 24 stroke masks and 24 box masks "
+        f"({sum(len(b) for b in boxes)} boxes) written in {prep_s:.2f} s; "
+        f"hole share stroke {hole_share['stroke']:.4f}, bbox "
+        f"{hole_share['bbox']:.4f}")
+    want = {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
+            "flash_mhsa": 4}
+    stats = {}
+    for label, mdir, hole in (("stroke", sdir, np.stack(strokes) > 0),
+                              ("bbox", bdir, np.stack(box_masks) > 0)):
+        out_dir = f"{root}/prep/out_{label}"
+        out, _, wall = run_cli(f"dataset prep {label} masks", counters, [
+            "--path", fdir, "--path_mask", mdir, "--outroot", out_dir], want)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if out.shape != (24, 240, 432, 3) or out.dtype != np.uint8:
+            raise AssertionError(f"dataset prep {label}: output {out.shape} "
+                                 f"{out.dtype}")
+        if not np.array_equal(out[~hole], frames[~hole]):
+            raise AssertionError(f"dataset prep {label}: output differs "
+                                 f"from the input outside the hole")
+        with open(f"{out_dir}/timings.json") as f:
+            stages = json.load(f)["stages"]
+        work = sum(v for k, v in stages.items() if k[:2] in (
+            "s1", "s2", "s3", "s4", "s5", "s6"))
+        stats[label] = {"frames_per_s": 24 / work, "peak_gib": peak,
+                        "out": out}
+    vanilla_fps = 24 / sum(vanilla_s.values())
+    log("dataset prep vs phase 6, warm, same run: " + "; ".join(
+        f"{k} masks {v['frames_per_s']:.3f} frames/s, peak "
+        f"{v['peak_gib']:.2f} GiB" for k, v in stats.items())
+        + f"; phase 6 (56x56 moving square) {vanilla_fps:.3f} frames/s, "
+        f"peak {vanilla_peak:.2f} GiB; {smi}")
+    video = readers.FrameReader(None, read=False)
+    video.set_files(list(stats["stroke"]["out"]))
+    avi = f"{root}/prep/result.avi"
+    t0 = time.perf_counter()
+    video.write_files_to_video(avi)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read = video_io.read_video(avi)
+    read_s = time.perf_counter() - t0
+    quality = psnr(np.stack(read), stats["stroke"]["out"]) if \
+        len(read) == 24 else 0.0
+    log(f"dataset prep: result.avi {os.path.getsize(avi)} bytes, 24 frames "
+        f"written in {write_s:.3f} s, read back in {read_s:.3f} s "
+        f"({len(read)} frames), PSNR {quality:.2f} dB")
+    if len(read) != 24 or quality < 36:
+        raise AssertionError(f"dataset prep AVI: {len(read)} frames at "
+                             f"{quality:.2f} dB, want 24 at >= 36")
+    return {k: {m: v[m] for m in ("frames_per_s", "peak_gib")}
+            for k, v in stats.items()}
 
 
 MSGPACK_FIXTURES = os.path.join(REPO, "tests", "data", "msgpack")
@@ -3423,7 +3559,9 @@ def main() -> int:
     _build.load_host_library("jpeg_decode")
     log(f"build: CUDA kernels {secs:.2f} s, host flowNN library "
         f"{t1 - t0:.2f} s, host JPEG decoder {time.perf_counter() - t1:.2f} s")
+    t0 = time.perf_counter()
     phase_jpeg_fixtures()
+    log(f"phase_jpeg_fixtures: {time.perf_counter() - t0:.2f} s")
     resources = resource_usage()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3445,10 +3583,10 @@ def main() -> int:
     phase_refine_bf16()
     counters = (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
                 flash_attention.flash_mhsa)
-    launches, fused_s = phase_main_path(
+    launches, fused_s, fused_peak = phase_main_path(
         counters, "fused", {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
                             "flash_mhsa": None})
-    pyr_launches, pyr_s = phase_main_path(
+    pyr_launches, pyr_s, _ = phase_main_path(
         counters, "pyramid", {"lookup_corr_fused": 0,
                               "lookup_corr_pyramid": 20, "flash_mhsa": None})
     log(f"s1 RAFT, warm, same run: K1 path {fused_s['s1_raft']:.4f} s, "
@@ -3462,6 +3600,9 @@ def main() -> int:
         phase_evaluate(counters, root)
         phase_debug_flags(counters, root)
         phase_jpeg_clip(counters, root)
+        t0 = time.perf_counter()
+        phase_dataset_prep(counters, root, smi, fused_s, fused_peak)
+        log(f"phase_dataset_prep: {time.perf_counter() - t0:.2f} s")
         phase_checkpoints(counters, root, smi)
     train_counters = (flash_attention.flash_mhsa,
                       flash_attention.flash_attention_dq,

@@ -1,19 +1,24 @@
 """JPEG frames without cv2, imageio or PIL: the marker segments are parsed
-here, the entropy-coded scan is decoded by ``csrc/jpeg_decode.cpp`` (a
+here, the entropy-coded scans are decoded by ``csrc/jpeg_decode.cpp`` (a
 host library built with g++ at first use, bound with ctypes), bit-equal
 to libjpeg-turbo 3.1's default decompression as cv2 and Pillow run it
-(islow IDCT, fancy upsampling, fixed-point YCbCr -> RGB).
+(islow IDCT, block smoothing, fancy upsampling, fixed-point colour
+conversion).
 
-Taken: sequential Huffman-coded 8-bit JPEGs (SOF0, SOF1) with 1 or 3
-components in one scan, sampling 4:4:4, 4:2:2, 4:2:0 or 4:4:0, restart
-intervals. Anything else (progressive, arithmetic-coded, lossless,
-12-bit, CMYK/YCCK, other sampling factors, several scans) raises
-``ValueError`` naming the file and the property.
+Taken: Huffman-coded 8-bit JPEGs, sequential (SOF0, SOF1; one scan or
+several, interleaved or not) or progressive (SOF2: spectral selection
+and successive approximation, EOB runs), with 1, 3 or 4 components
+(gray, YCbCr, RGB, CMYK, YCCK), every integral sampling ratio (4:1:1
+among them) and restart intervals. Arithmetic-coded, lossless,
+hierarchical and 12-bit files, non-integral sampling ratios and
+interleaved MCUs of more than 10 blocks raise ``ValueError`` naming the
+file and the property.
 
-The reference's readers differ on EXIF orientation, so the caller
-chooses: ``cv2.imread`` applies it (the inference CLI), ``imageio.imread``
-does not (the datasets, validation, flow extraction and the evaluation
-ground truth).
+The reference's readers differ, so the caller chooses
+(:func:`decode_jpeg`'s ``mode``): ``cv2.imread`` applies the EXIF
+orientation (the inference CLI, the dataset-preparation readers),
+``imageio.imread`` does not (the datasets, validation, flow extraction
+and the evaluation ground truth); they also differ on CMYK.
 """
 
 from __future__ import annotations
@@ -39,6 +44,11 @@ _ERRORS = {-1: "a bad Huffman code", -2: "truncated entropy-coded data",
            -3: "a missing or out-of-order restart marker",
            -4: "a bad Huffman table", -5: "an unsupported layout"}
 
+
+# the nine lowest AC coefficients (zigzag 1-9), whose precision decides
+# libjpeg's block smoothing
+_SMOOTH_POS = _NATURAL[:10]
+
 _lock = threading.Lock()
 _lib = None
 
@@ -52,16 +62,19 @@ def _load() -> ctypes.CDLL:
         if _lib is None:
             lib = _build.load_host_library("jpeg_decode")
             lib.jpeg_decode_scan.restype = _int
-            lib.jpeg_decode_scan.argtypes = [
-                _p, ctypes.c_int64, _int, _int, _int, _p, _p, _p, _p, _p, _p,
-                _p, _p, _p, _p, _p, _int, _int, _p]
+            lib.jpeg_decode_scan.argtypes = [_p, ctypes.c_int64, _p, _p, _p,
+                                             _p, _p, _p]
+            lib.jpeg_decode_output.restype = _int
+            lib.jpeg_decode_output.argtypes = [_int, _p, _p, _p, _p, _int,
+                                               _int, _p, _p, ctypes.c_int64,
+                                               _p, _p, _p, _p, _p, _p]
             _lib = lib
         return _lib
 
 
 def _sof_property(marker: int):
-    """What keeps a SOFn frame from this decoder, or None for SOF0/1."""
-    if marker in (0xC0, 0xC1):
+    """What keeps a SOFn frame from this decoder, or None for SOF0/1/2."""
+    if marker in (0xC0, 0xC1, 0xC2):
         return None
     parts = []
     if marker >= 0xC9:
@@ -75,8 +88,22 @@ def _sof_property(marker: int):
     return " ".join(parts) + f" (SOF{marker - 0xC0})"
 
 
+class _Scan:
+    """One SOS: its components (frame indices), DC / AC table numbers,
+    spectral band and approximation bits, the tables and restart interval
+    in force, and where its entropy-coded bytes lie in the file."""
+
+    def __init__(self, comps, td, ta, ss, se, ah, al, restart, bits, vals,
+                 start, end):
+        self.comps, self.td, self.ta = comps, td, ta
+        self.ss, self.se, self.ah, self.al = ss, se, ah, al
+        self.restart = restart
+        self.bits, self.vals = bits, vals
+        self.start, self.end = start, end
+
+
 class _Header:
-    """The tables and layout of one sequential frame, up to its SOS."""
+    """The tables, frame and scans of one file, up to its EOI."""
 
     def __init__(self):
         self.quant = np.zeros((4, 64), np.uint16)
@@ -90,9 +117,27 @@ class _Header:
         self.jfif = False
         self.adobe_transform = None
         self.exif = None
+        self.progressive = False
         self.frame = None       # (height, width, [(id, h, v, tq)])
-        self.scan = None        # [(frame index, td, ta)]
-        self.data_start = 0
+        self.latched = {}       # frame component -> its quantisation table
+        self.scans = []
+
+
+def _scan_end(data: bytes, pos: int) -> int:
+    """Where the entropy-coded data from ``pos`` ends: at the first marker
+    other than RSTn (0xFF then a byte other than 0x00, 0xD0-0xD7 or 0xFF),
+    or at the end of the file."""
+    n = len(data)
+    while True:
+        pos = data.find(b"\xff", pos)
+        if pos < 0:
+            return n
+        end = pos
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos < n and data[pos] != 0 and not 0xD0 <= data[pos] <= 0xD7:
+            return end
+        pos += 1
 
 
 def _parse(data: bytes, path: str) -> _Header:
@@ -106,13 +151,15 @@ def _parse(data: bytes, path: str) -> _Header:
         while pos < n and data[pos] == 0xFF:
             pos += 1
         if pos >= n:
-            raise ValueError(f"{path}: no scan before the end of the file")
+            break                                # no EOI: what was read
         marker = data[pos]
         pos += 1
         if marker == 0x01 or 0xD0 <= marker <= 0xD7:
             continue
-        if marker in (0xD8, 0xD9):
-            raise ValueError(f"{path}: no scan before marker {marker:#x}")
+        if marker == 0xD9:
+            break
+        if marker == 0xD8:
+            raise ValueError(f"{path}: a second SOI marker")
         if pos + 2 > n:
             raise ValueError(f"{path}: truncated marker segment")
         length = struct.unpack(">H", data[pos:pos + 2])[0]
@@ -142,9 +189,12 @@ def _parse(data: bytes, path: str) -> _Header:
             raise ValueError(f"{path}: a DNL marker (height defined after "
                              f"the scan)")
         elif marker == 0xDA:
-            _sos(hdr, seg, path)
-            hdr.data_start = pos
-            return hdr
+            end = _scan_end(data, pos)
+            _sos(hdr, seg, path, pos, end)
+            pos = end
+    if not hdr.scans:
+        raise ValueError(f"{path}: no scan before the end of the file")
+    return hdr
 
 
 def _frame(hdr: _Header, marker: int, seg: bytes, path: str) -> None:
@@ -158,24 +208,24 @@ def _frame(hdr: _Header, marker: int, seg: bytes, path: str) -> None:
         raise ValueError(f"{path}: {precision}-bit samples")
     if height == 0:
         raise ValueError(f"{path}: a DNL-defined height")
-    if ncomp not in (1, 3):
-        raise ValueError(f"{path}: {ncomp} components (CMYK/YCCK and other "
-                         f"colour spaces are not read)")
+    if ncomp not in (1, 3, 4):
+        raise ValueError(f"{path}: {ncomp} components (1, 3 and 4 are "
+                         f"read)")
     comps = []
     for c in range(ncomp):
         cid, hv, tq = seg[6 + 3 * c:9 + 3 * c]
         comps.append((cid, hv >> 4, hv & 15, tq))
-    if ncomp == 3:
+    if ncomp > 1:
         hmax = max(c[1] for c in comps)
         vmax = max(c[2] for c in comps)
-        if any(c[1] not in (1, 2) or c[2] not in (1, 2)
-               or hmax // c[1] * c[1] != hmax or vmax // c[2] * c[2] != vmax
-               for c in comps):
+        if any(not 1 <= c[1] <= 4 or not 1 <= c[2] <= 4
+               or hmax % c[1] or vmax % c[2] for c in comps):
             raise ValueError(f"{path}: sampling factors " + ",".join(
-                f"{c[1]}x{c[2]}" for c in comps) + " (4:4:4, 4:2:2, 4:2:0 "
-                "and 4:4:0 are read)")
+                f"{c[1]}x{c[2]}" for c in comps) + " (only integral "
+                "ratios are read)")
     else:   # one component: its factors do not shape the data
         comps = [(comps[0][0], 1, 1, comps[0][3])]
+    hdr.progressive = marker == 0xC2
     hdr.frame = (height, width, comps)
 
 
@@ -212,45 +262,74 @@ def _dqt(hdr: _Header, seg: bytes, path: str) -> None:
         pos += 1 + size
 
 
-def _sos(hdr: _Header, seg: bytes, path: str) -> None:
+def _sos(hdr: _Header, seg: bytes, path: str, start: int, end: int) -> None:
     if hdr.frame is None:
         raise ValueError(f"{path}: a scan before the frame header")
     comps = hdr.frame[2]
     ns = seg[0]
-    if ns != len(comps):
+    if not 1 <= ns <= len(comps) or len(seg) < 4 + 2 * ns:
         raise ValueError(f"{path}: a scan of {ns} of {len(comps)} "
-                         f"components (multi-scan sequential)")
+                         f"components")
     ids = [c[0] for c in comps]
-    scan = []
+    idx, td, ta = [], [], []
     for s in range(ns):
         cs, tables = seg[1 + 2 * s], seg[2 + 2 * s]
-        if cs not in ids:
-            raise ValueError(f"{path}: scan component {cs} not in the frame")
-        scan.append((ids.index(cs), tables >> 4, tables & 15))
+        if cs not in ids or ids.index(cs) in idx:
+            raise ValueError(f"{path}: scan component {cs} not in the "
+                             f"frame")
+        idx.append(ids.index(cs))
+        td.append(tables >> 4)
+        ta.append(tables & 15)
+    blocks = sum(comps[c][1] * comps[c][2] for c in idx)
+    if ns > 1 and blocks > 10:
+        raise ValueError(f"{path}: an interleaved scan of {blocks} blocks "
+                         f"an MCU (at most 10)")
     ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
-        raise ValueError(f"{path}: spectral selection {ss}-{se} / "
-                         f"approximation {ahal:#x} (progressive)")
-    for idx, td, ta in scan:
-        if td > 3 or ta > 3 or not hdr.huff_ok[0][td] \
-                or not hdr.huff_ok[1][ta]:
+    ah, al = ahal >> 4, ahal & 15
+    if hdr.progressive:     # jdinput.c initial_setup / jdphuff.c checks
+        dc = ss == 0
+        if (dc and se != 0) or (not dc and (se < ss or se > 63 or ns != 1)) \
+                or ah > 13 or al > 13:
+            raise ValueError(f"{path}: bad progressive scan: spectral "
+                             f"selection {ss}-{se}, approximation "
+                             f"{ahal:#x}, {ns} components")
+        use_dc, use_ac = dc and ah == 0, not dc
+    else:
+        ss, se, ah, al = 0, 63, 0, 0
+        use_dc = use_ac = True
+    for c, d, a in zip(idx, td, ta):
+        if d > 3 or a > 3 or (use_dc and not hdr.huff_ok[0][d]) \
+                or (use_ac and not hdr.huff_ok[1][a]):
             raise ValueError(f"{path}: a scan uses an undefined Huffman "
                              f"table")
-        if not hdr.quant_ok[comps[idx][3] & 3] or comps[idx][3] > 3:
-            raise ValueError(f"{path}: a component uses an undefined "
-                             f"quantisation table")
-    hdr.scan = scan
+        if c not in hdr.latched:   # jdinput.c latch_quant_tables
+            tq = comps[c][3]
+            if tq > 3 or not hdr.quant_ok[tq]:
+                raise ValueError(f"{path}: a component uses an undefined "
+                                 f"quantisation table")
+            hdr.latched[c] = hdr.quant[tq].copy()
+    hdr.scans.append(_Scan(idx, td, ta, ss, se, ah, al, hdr.restart,
+                           {k: v.copy() for k, v in hdr.bits.items()},
+                           {k: v.copy() for k, v in hdr.vals.items()},
+                           start, end))
 
 
-def _transform(hdr: _Header) -> int:
-    """1 for YCbCr data, 0 for RGB data (jdapimin.c
-    default_decompress_parms' guess for 3 components)."""
+def _transform(hdr: _Header) -> str:
+    """The colour space of the data (jdapimin.c default_decompress_parms'
+    guess): "gray", "ycc", "rgb", "cmyk" or "ycck"."""
+    ncomp = len(hdr.frame[2])
+    if ncomp == 1:
+        return "gray"
+    if ncomp == 4:
+        if hdr.adobe_transform is None or hdr.adobe_transform == 0:
+            return "cmyk"
+        return "ycck"
     if hdr.jfif:
-        return 1
+        return "ycc"
     if hdr.adobe_transform is not None:
-        return 0 if hdr.adobe_transform == 0 else 1
+        return "rgb" if hdr.adobe_transform == 0 else "ycc"
     ids = [c[0] for c in hdr.frame[2]]
-    return 0 if ids == [82, 71, 66] else 1
+    return "rgb" if ids == [82, 71, 66] else "ycc"
 
 
 def exif_orientation(exif) -> int:
@@ -285,36 +364,175 @@ def apply_orientation(img: np.ndarray, orientation: int) -> np.ndarray:
     return np.ascontiguousarray(img)
 
 
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(_p)
+
+
+def _check(err: int, path: str) -> None:
+    if err:
+        raise ValueError(f"{path}: {_ERRORS.get(err, f'error {err}')}")
+
+
+def _one_pass(hdr: _Header) -> bool:
+    """Whether the file is one sequential scan of every component, which
+    decodes into buffers one iMCU row high, each row put out as soon as it
+    is decoded (jdcoefct.c's single-pass controller); every other file
+    decodes all its scans into a whole-image buffer first."""
+    return not hdr.progressive and len(hdr.scans) == 1 \
+        and len(hdr.scans[0].comps) == len(hdr.frame[2])
+
+
+def _buffers(hdr: _Header, one_pass: bool):
+    """The coefficient buffers: (per component [rows, pitch, 64] int16,
+    of the whole image or of one iMCU row, per component (h, v,
+    width_in_blocks, height_in_blocks), hmax, vmax)."""
+    height, width, comps = hdr.frame
+    hmax = max(c[1] for c in comps)
+    vmax = max(c[2] for c in comps)
+    mcus_x = -(-width // (8 * hmax))
+    mcus_y = -(-height // (8 * vmax))
+    shapes, bufs = [], []
+    for _, h, v, _ in comps:
+        bw = -(-(-(-width * h // hmax)) // 8)
+        bh = -(-(-(-height * v // vmax)) // 8)
+        shapes.append((h, v, bw, bh))
+        rows = v if one_pass else max(-(-bh // v) * v, mcus_y * v)
+        pitch = max(-(-bw // h) * h, mcus_x * h)
+        bufs.append(np.zeros((rows, pitch, 64), np.int16))
+    return bufs, shapes, hmax, vmax
+
+
+def _scan_args(hdr: _Header, scan: _Scan, data: np.ndarray, bufs, shapes,
+               hmax: int, vmax: int) -> list:
+    """The arguments of ``jpeg_decode_scan`` for one scan (of a one-pass
+    file, the last eight of ``jpeg_decode_output``'s)."""
+    height, width, _ = hdr.frame
+    layout = [len(scan.comps), scan.ss, scan.se, scan.ah, scan.al,
+              scan.restart, int(hdr.progressive), width, height, hmax, vmax]
+    for c, d, a in zip(scan.comps, scan.td, scan.ta):
+        layout += [*shapes[c], *bufs[c].shape[1::-1], d, a]
+    layout = np.ascontiguousarray(layout, np.int32)
+    coefs = (ctypes.c_void_p * len(scan.comps))(
+        *(bufs[c].ctypes.data for c in scan.comps))
+    return [_ptr(data[scan.start:]), scan.end - scan.start, _ptr(layout),
+            coefs, _ptr(scan.bits[0]), _ptr(scan.vals[0]),
+            _ptr(scan.bits[1]), _ptr(scan.vals[1])]
+
+
+def _smoothing(hdr: _Header, quant: np.ndarray):
+    """(whether libjpeg smooths the blocks, per component the Al of the
+    last scan of zigzag 0-9, -1 where none came): jdcoefct.c
+    smoothing_ok, on a progressive file once all of it is read."""
+    ncomp = len(hdr.frame[2])
+    bits = np.full((ncomp, 64), -1, np.int32)
+    for scan in hdr.scans:
+        for c in scan.comps:
+            bits[c, scan.ss:scan.se + 1] = scan.al
+    bits = np.ascontiguousarray(bits[:, :10])
+    ok = hdr.progressive and len(hdr.latched) == ncomp \
+        and bool((quant[:, _SMOOTH_POS] != 0).all()) \
+        and bool((bits[:, 0] >= 0).all()) and bool((bits[:, 1:] != 0).any())
+    return ok, bits
+
+
+def _cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """cv2's icvCvt_CMYK2BGR_8u_C4C3R, as RGB: each of c, m, y becomes
+    k - ((255 - x) * k >> 8)."""
+    x = cmyk.astype(np.int32)
+    k = x[..., 3:]
+    return (k - ((255 - x[..., :3]) * k >> 8)).astype(np.uint8)
+
+
+def _rgb_to_gray(rgb: np.ndarray, cv2_weights: bool) -> np.ndarray:
+    """Y of RGB samples: cv2's fixed point (14 bits, rounded) for the
+    gray read of a CMYK file, or jdcolor.c's rgb_gray_convert (16 bits)
+    for an RGB-coded one."""
+    x = rgb.astype(np.int64)
+    if cv2_weights:
+        w, shift = (4899, 9617, 1868), 14
+        y = (x[..., 0] * w[0] + x[..., 1] * w[1] + x[..., 2] * w[2]
+             + (1 << (shift - 1))) >> shift
+    else:
+        fix = [int(c * 65536 + 0.5) for c in (0.299, 0.587, 0.114)]
+        y = (x[..., 0] * fix[0] + x[..., 1] * fix[1] + x[..., 2] * fix[2]
+             + 32768) >> 16
+    return y.astype(np.uint8)
+
+
+MODES = ("unchanged", "color", "gray")
+
+
 def decode_jpeg(data: bytes, path: str = "<bytes>",
-                orientation: bool = False) -> np.ndarray:
-    """[H, W] uint8 of a one-component JPEG, [H, W, 3] RGB of a
-    three-component one; with ``orientation`` the EXIF orientation is
-    applied as ``cv2.imread`` applies it."""
+                mode: str = "unchanged") -> np.ndarray:
+    """Decode a JPEG as one of the reference's readers does:
+
+    * ``"unchanged"`` — ``imageio.imread`` (Pillow): [H, W] uint8 of a
+      one-component file, [H, W, 3] RGB of a three-component one,
+      [H, W, 4] of a CMYK or YCCK one as Pillow returns it (libjpeg's
+      CMYK, inverted: Pillow assumes Adobe's convention); EXIF
+      orientation ignored;
+    * ``"color"`` — ``cv2.imread(IMREAD_COLOR)`` as RGB: [H, W, 3]
+      always, gray repeated, CMYK converted as cv2 converts it;
+    * ``"gray"`` — ``cv2.imread(IMREAD_GRAYSCALE)``: [H, W], the Y
+      samples of a YCbCr file as libjpeg's grayscale output gives them.
+
+    The two cv2 modes apply the EXIF orientation as ``cv2.imread`` does.
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}: one of {MODES}")
     hdr = _parse(data, path)
     height, width, comps = hdr.frame
     ncomp = len(comps)
-    ints = lambda xs: np.ascontiguousarray(xs, np.int32)  # noqa: E731
-    h, v, tq = (ints([c[k] for c in comps]) for k in (1, 2, 3))
-    scan_comp, td, ta = (ints([s[k] for s in hdr.scan]) for k in (0, 1, 2))
-    payload = np.frombuffer(data, np.uint8, len(data) - hdr.data_start,
-                            hdr.data_start)
-    out = np.empty((height, width, ncomp) if ncomp == 3 else (height, width),
-                   np.uint8)
-    arrays = [h, v, tq, hdr.quant, scan_comp, td, ta, hdr.bits[0],
-              hdr.vals[0], hdr.bits[1], hdr.vals[1]]
-    ptr = lambda a: a.ctypes.data_as(_p)   # noqa: E731
-    err = _load().jpeg_decode_scan(
-        ptr(payload), payload.size, width, height, ncomp,
-        *(ptr(a) for a in arrays), hdr.restart,
-        _transform(hdr) if ncomp == 3 else 0, ptr(out))
-    if err:
-        raise ValueError(f"{path}: {_ERRORS.get(err, f'error {err}')}")
-    if orientation:
+    space = _transform(hdr)
+    one_pass = _one_pass(hdr)
+    bufs, shapes, hmax, vmax = _buffers(hdr, one_pass)
+    lib = _load()
+    payload = np.frombuffer(data, np.uint8)
+    scans = [_scan_args(hdr, scan, payload, bufs, shapes, hmax, vmax)
+             for scan in hdr.scans]
+    if not one_pass:
+        for args in scans:
+            _check(lib.jpeg_decode_scan(*args), path)
+    quant = np.zeros((ncomp, 64), np.uint16)
+    for c, table in hdr.latched.items():
+        quant[c] = table
+    smooth, coef_bits = _smoothing(hdr, quant)
+    # libjpeg's colour conversion: 0 copy, 1 YCbCr -> RGB, 2 YCCK -> CMYK,
+    # 3 component 0 alone (grayscale output of YCbCr)
+    if mode == "gray" and space == "ycc":
+        conv, nout = 3, 1
+    else:
+        conv = {"ycc": 1, "ycck": 2}.get(space, 0)
+        nout = ncomp
+    layout = [width, height, hmax, vmax]
+    for shape, buf in zip(shapes, bufs):
+        layout += [*shape, *buf.shape[1::-1]]
+    layout = np.ascontiguousarray(layout, np.int32)
+    coefs = (ctypes.c_void_p * ncomp)(*(b.ctypes.data for b in bufs))
+    out = np.empty((height, width, nout), np.uint8)
+    scan = scans[0] if one_pass else [None, 0] + [None] * 6
+    _check(lib.jpeg_decode_output(ncomp, _ptr(layout), coefs, _ptr(quant),
+                                  _ptr(coef_bits), int(smooth), conv,
+                                  _ptr(out), *scan), path)
+    if nout == 1:
+        out = out[..., 0]
+    if ncomp == 4:
+        if mode == "unchanged":
+            out = 255 - out
+        elif mode == "color":
+            out = _cmyk_to_rgb(out)
+        else:
+            out = _rgb_to_gray(_cmyk_to_rgb(out), cv2_weights=True)
+    elif mode == "gray" and space == "rgb":
+        out = _rgb_to_gray(out, cv2_weights=False)
+    elif mode == "color" and ncomp == 1:
+        out = np.repeat(out[..., None], 3, axis=-1)
+    if mode != "unchanged":
         out = apply_orientation(out, exif_orientation(hdr.exif))
     return out
 
 
-def read_jpeg(path: str, orientation: bool) -> np.ndarray:
+def read_jpeg(path: str, mode: str = "unchanged") -> np.ndarray:
     """Decode the JPEG file at ``path`` (see :func:`decode_jpeg`)."""
     with open(path, "rb") as f:
-        return decode_jpeg(f.read(), path, orientation)
+        return decode_jpeg(f.read(), path, mode)

@@ -9,9 +9,13 @@ or rotate (25%). Returns one ``[H, W]`` uint8 {0, 255} mask per frame.
 
 Draws from ``random`` and ``np.random`` in the JAX package's order, so
 the same seeds give the same masks; the cv2 calls are the bit-equal
-twins of ``core/raster.py``. The free-form stroke generator
-(``get_video_masks_by_moving_random_stroke``) is a dataset-preparation
-tool, not on the training path, and is not ported.
+twins of ``core/raster.py``.
+
+:func:`get_video_masks_by_moving_random_stroke` is the free-form moving
+brush-stroke generator of dataset preparation (the reference's
+``mask_generators.py`` / ``freeform_masks.py``): it draws from one
+seeded ``np.random.RandomState`` in the JAX package's order and leaves
+the global ``random`` and ``np.random`` states alone.
 """
 
 from __future__ import annotations
@@ -177,6 +181,76 @@ def rect_mask(height: int, width: int, size: int = 96,
     y0, x0 = max(0, cy - size // 2), max(0, cx - size // 2)
     m[y0: y0 + size, x0: x0 + size] = 255
     return m
+
+
+def _random_stroke_points(rng, w, h, n_vertex_bound=(10, 30),
+                          max_head_speed=15, max_head_acc=(15, 0.5),
+                          border_gap=None):
+    """The vertices of one stroke: a head starting at a random point and
+    moving with a randomly accelerated speed and heading, clipped to the
+    image."""
+    n = rng.randint(n_vertex_bound[0], n_vertex_bound[1] + 1)
+    gx = border_gap if border_gap else 0
+    x = rng.randint(gx, w - gx) if w - 2 * gx > 0 else w // 2
+    y = rng.randint(gx, h - gx) if h - 2 * gx > 0 else h // 2
+    speed = rng.uniform(0, max_head_speed)
+    angle = rng.uniform(0, 2 * math.pi)
+    pts = [(x, y)]
+    for _ in range(n - 1):
+        speed = np.clip(speed + rng.uniform(-max_head_acc[0],
+                                            max_head_acc[0]),
+                        0, max_head_speed)
+        angle += rng.uniform(-max_head_acc[1], max_head_acc[1])
+        x = int(np.clip(x + speed * math.cos(angle), 0, w - 1))
+        y = int(np.clip(y + speed * math.sin(angle), 0, h - 1))
+        pts.append((x, y))
+    return pts
+
+
+def get_video_masks_by_moving_random_stroke(
+        video_len: int, imageWidth: int = 320, imageHeight: int = 180,
+        nStroke: int = 5, nVertexBound=(10, 30), maxHeadSpeed: float = 15,
+        maxHeadAcceleration=(15, 0.5), brushWidthBound=(5, 20),
+        boarderGap=None, nMovePointRatio: float = 0.5, maxPiontMove: int = 10,
+        maxLineAcceleration: float = 5, maxInitSpeed: float = 5,
+        seed=None) -> list:
+    """``video_len`` ``[H, W]`` uint8 masks (255 = hole) of ``nStroke``
+    brush strokes, each a polyline of thick lines (``raster.thick_line``)
+    that drifts with its own velocity from frame to frame while its
+    vertices jitter."""
+    rng = np.random.RandomState(seed)
+    strokes = []
+    for _ in range(nStroke):
+        pts = _random_stroke_points(rng, imageWidth, imageHeight,
+                                    nVertexBound, maxHeadSpeed,
+                                    maxHeadAcceleration, boarderGap)
+        width = rng.randint(brushWidthBound[0], brushWidthBound[1] + 1)
+        vel = get_random_velocity(maxInitSpeed, rng=rng)
+        strokes.append({"pts": pts, "width": width, "vel": vel})
+
+    masks = []
+    for _ in range(video_len):
+        m = np.zeros((imageHeight, imageWidth), np.uint8)
+        for s in strokes:
+            for a, b in zip(s["pts"][:-1], s["pts"][1:]):
+                raster.thick_line(m, a, b, 255, s["width"])
+        masks.append(m)
+        for s in strokes:            # move each stroke for the next frame
+            speed, angle = s["vel"]
+            dx = int(speed * math.cos(angle))
+            dy = int(speed * math.sin(angle))
+            new_pts = []
+            for (x, y) in s["pts"]:
+                if rng.uniform(0, 1) < nMovePointRatio:
+                    x += rng.randint(-maxPiontMove, maxPiontMove + 1)
+                    y += rng.randint(-maxPiontMove, maxPiontMove + 1)
+                new_pts.append((int(np.clip(x + dx, 0, imageWidth - 1)),
+                                int(np.clip(y + dy, 0, imageHeight - 1))))
+            s["pts"] = new_pts
+            s["vel"] = _random_accelerate((speed, angle),
+                                          (maxLineAcceleration, 0.5),
+                                          rng=rng)
+    return masks
 
 
 def get_masked_ratio(mask: np.ndarray) -> float:

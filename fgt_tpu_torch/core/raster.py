@@ -1,6 +1,7 @@
-"""cv2-free twins of the drawing and resampling calls that
-``core/masks.py`` makes, each bit-equal to OpenCV's on uint8 images
-(``tests/test_torch_port_masks.py``):
+"""cv2-free twins of the drawing, contour and resampling calls that
+``core/masks.py``, ``data/mask_models.py`` and ``data/readers.py``
+make, each bit-equal to OpenCV's (``tests/test_torch_port_masks.py``,
+``tests/test_torch_port_dataset_prep.py``):
 
 * :func:`fill_poly` — ``cv2.fillPoly(img, [pts], color)`` on int32
   points (8-connected, no shift): every edge drawn as a Bresenham line,
@@ -9,6 +10,14 @@
 * :func:`fill_ellipse` — ``cv2.ellipse(img, center, axes, 0, 0, 360,
   color, -1)``: cv2's polygon of the ellipse (its degree sine table),
   filled as a convex polygon;
+* :func:`thick_line` and :func:`circle_filled` — ``cv2.line(img, p0,
+  p1, color, thickness)`` and ``cv2.circle(img, center, radius, color,
+  -1)`` on uint8 or float32 images, ends on or past the border clipped
+  as cv2 clips them (the brush strokes of ``core/masks.py`` and
+  ``data/mask_models.py``);
+* :func:`external_bboxes` — ``cv2.findContours(RETR_EXTERNAL,
+  CHAIN_APPROX_NONE)`` then ``cv2.boundingRect`` of each contour, in
+  cv2's order (``data/readers.MaskReader``);
 * :func:`rotation_matrix_2d` and :func:`warp_affine_nearest` —
   ``cv2.getRotationMatrix2D`` and ``cv2.warpAffine(..., INTER_NEAREST)``
   with a zero border, in f32 with cv2's fused multiply-add;
@@ -133,54 +142,85 @@ def _ellipse_points(center, axes, delta: int) -> np.ndarray:
     return np.asarray(pts, np.int64)
 
 
+def _clip_line(w: int, h: int, p1, p2):
+    """cv2's ``clipLine`` on the [0, w - 1] x [0, h - 1] box (fixed-point
+    sizes for fixed-point points): the clipped ends, or None when the
+    segment misses the box. Each end is moved along the line in f64,
+    truncated toward zero, the second from the first's new place."""
+    (x1, y1), (x2, y2) = p1, p2
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * float(x2 - x1) / float(y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * float(x2 - x1) / float(y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * float(y2 - y1) / float(x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * float(y2 - y1) / float(x2 - x1))
+                x2 = a
+                c2 = 0
+    if c1 | c2:
+        return None
+    return (x1, y1), (x2, y2)
+
+
+def _cdiv(a: int, b: int) -> int:
+    """C integer division (toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
 def _line2(img: np.ndarray, p1, p2, color) -> None:
-    """cv2's ``Line2``: a line between fixed-point (16-bit) points."""
+    """cv2's ``Line2``: a line between fixed-point (16-bit) points,
+    clipped to the image by :func:`_clip_line`."""
     h, w = img.shape[:2]
-    (x1, y1), (x2, y2) = (int(v) for v in p1), (int(v) for v in p2)
-    if not (0 <= min(x1, x2) and max(x1, x2) < (w << XY_SHIFT)
-            and 0 <= min(y1, y2) and max(y1, y2) < (h << XY_SHIFT)):
-        raise ValueError("fill_ellipse: the ellipse must lie inside the "
-                         "image")
+    ends = _clip_line(w << XY_SHIFT, h << XY_SHIFT,
+                      tuple(int(v) for v in p1), tuple(int(v) for v in p2))
+    if ends is None:
+        return
+    (x1, y1), (x2, y2) = ends
     dx, dy = x2 - x1, y2 - y1
     ax, ay = abs(dx), abs(dy)
-
-    def put(x, y):
-        if 0 <= x < w and 0 <= y < h:
-            img[y, x] = color
-
-    def cdiv(a, b):                     # C integer division
-        q = abs(a) // abs(b)
-        return q if (a >= 0) == (b >= 0) else -q
-
     if ax > ay:
         if dx < 0:
             dy = -dy
             x1, x2, y1, y2 = x2, x1, y2, y1
-        x_step, y_step = XY_ONE, cdiv(dy << XY_SHIFT, ax | 1)
+        x_step, y_step = XY_ONE, _cdiv(dy << XY_SHIFT, ax | 1)
         ecount = (x2 - x1) >> XY_SHIFT
     else:
         if dy < 0:
             dx = -dx
             x1, x2, y1, y2 = x2, x1, y2, y1
-        x_step, y_step = cdiv(dx << XY_SHIFT, ay | 1), XY_ONE
+        x_step, y_step = _cdiv(dx << XY_SHIFT, ay | 1), XY_ONE
         ecount = (y2 - y1) >> XY_SHIFT
     x1 += XY_ONE >> 1
     y1 += XY_ONE >> 1
-    put((x2 + (XY_ONE >> 1)) >> XY_SHIFT, (y2 + (XY_ONE >> 1)) >> XY_SHIFT)
+    k = np.arange(max(ecount + 1, 0), dtype=np.int64)
     if ax > ay:
-        x1 >>= XY_SHIFT
-        while ecount >= 0:
-            put(x1, y1 >> XY_SHIFT)
-            x1 += 1
-            y1 += y_step
-            ecount -= 1
+        xs, ys = (x1 >> XY_SHIFT) + k, (y1 + k * y_step) >> XY_SHIFT
     else:
-        y1 >>= XY_SHIFT
-        while ecount >= 0:
-            put(x1 >> XY_SHIFT, y1)
-            x1 += x_step
-            y1 += 1
-            ecount -= 1
+        xs, ys = (x1 + k * x_step) >> XY_SHIFT, (y1 >> XY_SHIFT) + k
+    xs = np.append(xs, (x2 + (XY_ONE >> 1)) >> XY_SHIFT)
+    ys = np.append(ys, (y2 + (XY_ONE >> 1)) >> XY_SHIFT)
+    keep = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[keep], xs[keep]] = color
 
 
 def _fill_convex_poly(img: np.ndarray, v: np.ndarray, color) -> None:
@@ -251,6 +291,113 @@ def fill_ellipse(img: np.ndarray, center, axes, color: int = 255
     delta = 90 if big < 3 else 30 if big < 10 else 18 if big < 15 else 5
     _fill_convex_poly(img, _ellipse_points(center, axes, delta), color)
     return img
+
+
+def circle_filled(img: np.ndarray, center, radius: int, color=255
+                  ) -> np.ndarray:
+    """``cv2.circle(img, center, radius, color, -1)`` (``LINE_8``, shift
+    0): cv2's ``Circle`` routine, a midpoint walk whose every step fills
+    rows cy ± dy over [cx - dx, cx + dx] and rows cy ± dx over
+    [cx - dy, cx + dy], clipped to the image. ``img`` is 2-D uint8 or
+    float32, drawn in place and returned."""
+    cx, cy, r = int(center[0]), int(center[1]), int(radius)
+    if r < 0:
+        raise ValueError("circle_filled: negative radius")
+    err, dx, dy, plus, minus = 0, r, 0, 1, (r << 1) - 1
+    rows, x1, x2 = [], [], []
+    while dx >= dy:
+        for yy in (cy - dy, cy + dy):
+            rows.append(yy), x1.append(cx - dx), x2.append(cx + dx)
+        for yy in (cy - dx, cy + dx):
+            rows.append(yy), x1.append(cx - dy), x2.append(cx + dy)
+        dy += 1
+        err += plus
+        plus += 2
+        mask = (err <= 0) - 1
+        err -= minus & mask
+        dx += mask
+        minus -= mask & 2
+    _hlines(img, np.asarray(rows), np.asarray(x1), np.asarray(x2), color)
+    return img
+
+
+def thick_line(img: np.ndarray, p0, p1, color=255, thickness: int = 1
+               ) -> np.ndarray:
+    """``cv2.line(img, p0, p1, color, thickness)`` (``LINE_8``, shift 0)
+    on a 2-D uint8 or float32 ``img`` (in place; returned). Thickness 1
+    is the 8-connected line of :func:`_line_pixels` (the ends inside the
+    image). Thicker lines are cv2's ``ThickLine``: the band polygon
+    p0 ± d, p1 ∓ d in 16-bit fixed point, d the unit normal times
+    (thickness / 2 + (thickness odd) / 2) pixels rounded half to even,
+    filled by :func:`_fill_convex_poly` (skipped for a zero-length line),
+    then a :func:`circle_filled` cap of radius (thickness + 1) // 2 at
+    each end. Ends may lie on or past the border: as cv2.line does, the
+    segment is first clipped (:func:`_clip_line`) to the image grown by
+    ``thickness`` on every side, and the polygon and the caps clip to
+    the image."""
+    thickness = int(thickness)
+    if thickness <= 1:
+        _draw_line(img, p0, p1, color)
+        return img
+    # cv2.line first clips the ends to the image grown by the thickness
+    h, w = img.shape[:2]
+    m = thickness
+    ends = _clip_line(w + 2 * m, h + 2 * m, (int(p0[0]) + m, int(p0[1]) + m),
+                      (int(p1[0]) + m, int(p1[1]) + m))
+    if ends is None:
+        return img
+    p0, p1 = ((x - m, y - m) for x, y in ends)
+    (x0, y0), (x1, y1) = ((int(v) << XY_SHIFT for v in p) for p in (p0, p1))
+    dx, dy = (x0 - x1) / XY_ONE, (y1 - y0) / XY_ONE
+    r = dx * dx + dy * dy
+    odd = thickness & 1
+    half = thickness << (XY_SHIFT - 1)
+    if abs(r) > np.finfo(np.float64).eps:
+        r = (half + odd * XY_ONE * 0.5) / math.sqrt(r)
+        ddx, ddy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        _fill_convex_poly(img, np.array(
+            [[x0 + ddx, y0 + ddy], [x0 - ddx, y0 - ddy],
+             [x1 - ddx, y1 - ddy], [x1 + ddx, y1 + ddy]], np.int64), color)
+    radius = (half + (XY_ONE >> 1)) >> XY_SHIFT
+    for p in (p0, p1):
+        circle_filled(img, p, radius, color)
+    return img
+
+
+def external_bboxes(mask: np.ndarray) -> list:
+    """``cv2.findContours(mask, RETR_EXTERNAL, CHAIN_APPROX_NONE)``, each
+    contour through ``cv2.boundingRect``: [(x, y, w, h)] of the
+    8-connected components of ``mask != 0`` that touch the background
+    outside every hole (a component inside another's hole has no
+    external contour), listed in the reverse of the raster order of
+    their first pixels, as cv2 returns them."""
+    import scipy.ndimage
+
+    fg = np.asarray(mask) != 0
+    labels, n = scipy.ndimage.label(fg, structure=np.ones((3, 3), int))
+    if n == 0:
+        return []
+    # the background is 4-connected; the outer part is the one that
+    # holds a frame of one pixel around the image
+    bg, _ = scipy.ndimage.label(np.pad(~fg, 1, constant_values=True))
+    outer = np.pad(bg == bg[0, 0], 1, constant_values=False)
+    near = outer[:-2, 1:-1] | outer[2:, 1:-1] | outer[1:-1, :-2] | \
+        outer[1:-1, 2:]
+    near = near[1:-1, 1:-1] & fg
+    external = np.zeros(n + 1, bool)
+    external[labels[near]] = True
+    flat = labels.ravel()
+    idx = np.flatnonzero(flat)
+    first_pos = np.full(n + 1, flat.size, np.int64)
+    np.minimum.at(first_pos, flat[idx], idx)
+    boxes = []
+    for lab, sl in enumerate(scipy.ndimage.find_objects(labels), start=1):
+        if external[lab]:
+            boxes.append((first_pos[lab], (sl[1].start, sl[0].start,
+                                           sl[1].stop - sl[1].start,
+                                           sl[0].stop - sl[0].start)))
+    boxes.sort(key=lambda b: -b[0])
+    return [b for _, b in boxes]
 
 
 def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""``result.mp4`` without an encoder library — the port's counterpart of
-``fgt_tpu/core/video_io.py``.
+"""``result.mp4`` and MJPG AVIs without an encoder library — the port's
+counterpart of ``fgt_tpu/core/video_io.py``.
 
 The JAX package writes its videos through imageio's ffmpeg (libx264,
 lossy) or, failing that, cv2's ``mp4v``. The GPU machine has neither, so
@@ -25,10 +25,14 @@ slice), its samples stored raw. Any H.264 decoder plays it.
   64-bit size past 4 GiB; the chunk offset stays small (``stco``), as the
   samples follow ``ftyp`` in one chunk.
 
-:func:`read_video` reads the files :func:`write_video` writes (and raises
-on anything else, naming the file); :func:`read_planes` returns their
-Y / Cb / Cr planes, which equal :func:`rgb_to_yuv420` of the frames
-written.
+:func:`write_avi` writes the Motion-JPEG AVI of the dataset-preparation
+readers (``data/readers.FrameReader.write_files_to_video``, where the
+JAX package calls ``cv2.VideoWriter`` with fourcc ``MJPG``).
+
+:func:`read_video` reads the ``.mp4`` files :func:`write_video` writes
+and Motion-JPEG AVIs (its own and cv2's), and raises on anything else,
+naming the file; :func:`read_planes` returns the ``.mp4`` files' Y / Cb
+/ Cr planes, which equal :func:`rgb_to_yuv420` of the frames written.
 """
 
 from __future__ import annotations
@@ -37,8 +41,11 @@ import logging
 import os
 import re
 import struct
+from fractions import Fraction
 
 import numpy as np
+
+from fgt_tpu_torch.core import jpeg, jpeg_encode
 
 logger = logging.getLogger("fgt_tpu_torch")
 
@@ -488,7 +495,120 @@ def read_planes(path: str) -> list:
     return out
 
 
+# ---------------- MJPG AVI ----------------
+
+AVI_QUALITY = 95
+_AVIF_HASINDEX = 0x10
+_AVIIF_KEYFRAME = 0x10
+
+
+def _chunk(fourcc: bytes, body: bytes) -> bytes:
+    return fourcc + struct.pack("<I", len(body)) + body + b"\0" * (
+        len(body) % 2)
+
+
+def _list(kind: bytes, *parts: bytes) -> bytes:
+    return _chunk(b"LIST", kind + b"".join(parts))
+
+
+def write_avi(path: str, frames, fps: float = 6) -> None:
+    """RGB uint8 frames ([N, H, W, 3] or a list of [H, W, 3]) as a
+    Motion-JPEG AVI at ``fps``, what the JAX package's
+    ``cv2.VideoWriter(..., fourcc MJPG)`` writes: a RIFF ``AVI `` file
+    of ``hdrl`` (``avih``; one ``strl`` of ``strh`` ``vids`` / ``MJPG``
+    and a BITMAPINFOHEADER ``strf``), ``movi`` with one ``00dc`` chunk a
+    frame, and an ``idx1`` index. Each frame is a baseline 4:2:0 JFIF
+    JPEG of ``core/jpeg_encode`` at quality ``AVI_QUALITY`` (libjpeg's
+    scaling of the Annex K tables), written to a temporary file renamed into place."""
+    frames = [np.asarray(f) for f in frames]
+    if not frames:
+        raise ValueError(f"write_avi: no frames for {path}")
+    h, w = frames[0].shape[:2]
+    for f in frames:
+        if f.dtype != np.uint8 or f.shape != (h, w, 3):
+            raise ValueError(f"write_avi: {path}: every frame must be "
+                             f"uint8 [{h}, {w}, 3], got {f.dtype} "
+                             f"{list(f.shape)}")
+    datas = [jpeg_encode.encode_jpeg(f, AVI_QUALITY, "420") for f in frames]
+    rate = Fraction(fps).limit_denominator(1 << 16)
+    biggest = max(len(d) for d in datas)
+    avih = struct.pack("<10I4I", int(round(1e6 / fps)),
+                       int(biggest * fps), 0, _AVIF_HASINDEX, len(datas), 0,
+                       1, biggest, w, h, 0, 0, 0, 0)
+    strh = b"vidsMJPG" + struct.pack(
+        "<IHHIIIIIIIIhhhh", 0, 0, 0, 0, rate.denominator, rate.numerator,
+        0, len(datas), biggest, 0xFFFFFFFF, 0, 0, 0, w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3,
+                       0, 0, 0, 0)
+    hdrl = _list(b"hdrl", _chunk(b"avih", avih),
+                 _list(b"strl", _chunk(b"strh", strh), _chunk(b"strf", strf)))
+    movi, index, offset = [], [], 4       # offsets from the "movi" fourcc
+    for d in datas:
+        index.append(struct.pack("<4sIII", b"00dc", _AVIIF_KEYFRAME, offset,
+                                 len(d)))
+        movi.append(_chunk(b"00dc", d))
+        offset += len(movi[-1])
+    body = b"AVI " + hdrl + _list(b"movi", *movi) + _chunk(
+        b"idx1", b"".join(index))
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
+    os.replace(tmp, path)
+
+
+def _riff_chunks(data: bytes, start: int, end: int):
+    """(fourcc, body start, body end) of the chunks in [start, end)."""
+    pos = start
+    while pos + 8 <= end:
+        fourcc = data[pos:pos + 4]
+        size = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        yield fourcc, pos + 8, min(pos + 8 + size, end)
+        pos += 8 + size + size % 2
+
+
+def avi_frames(path: str) -> tuple:
+    """(JPEG bytes of every video frame, frames per second) of a
+    Motion-JPEG AVI (the port's or cv2's, OpenDML ``AVIX`` extensions
+    included): the nonempty ``##dc`` / ``##db`` chunks of every ``movi``
+    list, in file order."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise ValueError(f"read_video: {path}: not an AVI file")
+    frames, fps = [], None
+
+    def walk(start, end):
+        nonlocal fps
+        for fourcc, a, b in _riff_chunks(data, start, end):
+            if fourcc in (b"RIFF", b"LIST"):
+                if data[a:a + 4] in (b"AVI ", b"AVIX", b"hdrl", b"strl",
+                                     b"movi", b"rec "):
+                    walk(a + 4, b)
+            elif fourcc == b"strh" and data[a:a + 4] == b"vids" and \
+                    fps is None:
+                if data[a + 4:a + 8] not in (b"MJPG", b"mjpg", b"\0" * 4):
+                    raise ValueError(f"read_video: {path}: video codec "
+                                     f"{data[a + 4:a + 8]!r} (only "
+                                     f"Motion-JPEG AVIs are read)")
+                scale, rate = struct.unpack("<II", data[a + 20:a + 28])
+                fps = rate / scale if scale else 0.0
+            elif fourcc[2:] in (b"dc", b"db") and b > a:
+                frames.append(data[a:b])
+
+    walk(12, len(data))
+    return frames, fps
+
+
 def read_video(path: str) -> list:
-    """RGB uint8 frames of an ``.mp4`` written by :func:`write_video`
-    (:func:`read_planes` through :func:`yuv420_to_rgb`)."""
+    """RGB uint8 frames of a video the port writes or reads: an ``.mp4``
+    written by :func:`write_video` (:func:`read_planes` through
+    :func:`yuv420_to_rgb`), or a Motion-JPEG AVI (:func:`write_avi`'s or
+    cv2's), each frame decoded by ``core/jpeg`` as libjpeg-turbo
+    decodes it (``cv2.imdecode``)."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:4] == b"RIFF":
+        return [jpeg.decode_jpeg(d, f"{path} frame {i}", "color")
+                for i, d in enumerate(avi_frames(path)[0])]
     return [yuv420_to_rgb(*planes) for planes in read_planes(path)]

@@ -1,11 +1,20 @@
-// Baseline JPEG decoder for the host, bit-equal to libjpeg-turbo 3.1's
-// default decompression (the library inside cv2 and Pillow): sequential
-// Huffman-coded 8-bit data, 1 or 3 components, restart intervals,
-// jidctint.c's islow IDCT, jdsample.c's fancy upsampling (h2v1, h2v2,
-// h1v2) with jdmainct.c's edge rows, and jdcolor.c's fixed-point
-// YCbCr -> RGB. The marker segments are parsed in Python
-// (fgt_tpu_torch/core/jpeg.py), which hands this file the tables, the
-// frame and scan layout and the entropy-coded bytes that follow SOS.
+// JPEG decoder for the host, bit-equal to libjpeg-turbo 3.1's default
+// decompression (the library inside cv2 and Pillow): Huffman-coded 8-bit
+// data, sequential (SOF0/1, one scan or several) or progressive (SOF2:
+// DC and AC first and refinement scans, EOB runs, successive
+// approximation), 1, 3 or 4 components, every integral sampling ratio,
+// restart intervals. As jdcoefct.c does, a file of several scans (every
+// progressive one) decodes them into a whole-image coefficient buffer and
+// then runs the output pass; a file of one sequential scan decodes into a
+// buffer one iMCU row high and runs the output pass on each iMCU row as
+// it is decoded. The output pass, an iMCU row at a time, applies
+// jdcoefct.c's block smoothing where the last scans left coefficients
+// unrefined, jidctint.c's islow IDCT, jdsample.c's upsampling (fancy
+// h2v1, h2v2 and h1v2, plain replication for every other ratio) with
+// jdmainct.c's edge rows, and jdcolor.c's fixed-point YCbCr -> RGB and
+// YCCK -> CMYK. The marker
+// segments are parsed in Python (fgt_tpu_torch/core/jpeg.py), which hands
+// this file each scan's tables, layout and entropy-coded bytes.
 //
 // Build: g++ -O3 -fPIC -shared jpeg_decode.cpp -o libjpeg_decode.so
 // Plain C interface, bound with ctypes.
@@ -397,31 +406,39 @@ void up_h2v2_row(const uint8_t* near, const uint8_t* far, int dw,
   out[2 * dw - 1] = static_cast<uint8_t>((this_sum * 4 + 7) >> 4);
 }
 
-// Output row `y` (full resolution) of a component upsampled by (fh, fv),
-// each 1 or 2, into `out` (at least 2 * dw wide). Returns a pointer to
-// the row: the plane's own row when nothing is upsampled.
+// Output row `y` (full resolution) of a component upsampled by (fh, fv)
+// into `out` (at least fh * dw wide). Ratios of 2 along x and/or y take
+// jdsample.c's fancy (triangle) filters; every other ratio is its
+// int_upsample, each sample repeated fh times and each row fv times.
+// Returns a pointer to the row: the plane's own row when nothing is
+// upsampled.
 const uint8_t* upsampled_row(const Plane& p, int fh, int fv, int y,
                              uint8_t* out) {
-  if (fv == 1) {
-    const uint8_t* in = p.row(y);
-    if (fh == 1) return in;
-    up_h2(in, p.dw, out);
+  if (fh == 1 && fv == 1) return p.row(y);
+  if (fv == 1 && fh == 2) {   // h2v1_fancy_upsample or h2v1_upsample
+    up_h2(p.row(y), p.dw, out);
     return out;
   }
-  const int k = y >> 1;
-  const uint8_t* near = p.row(k);
-  const uint8_t* far = p.row((y & 1) ? k + 1 : k - 1);
-  if (fh == 1) {  // h1v2_fancy_upsample: biases 1 (upper) and 2 (lower)
-    const int bias = (y & 1) ? 2 : 1;
-    for (int x = 0; x < p.dw; ++x)
-      out[x] = static_cast<uint8_t>((near[x] * 3 + far[x] + bias) >> 2);
+  if (fv == 2 && fh <= 2) {
+    const int k = y >> 1;
+    const uint8_t* near = p.row(k);
+    const uint8_t* far = p.row((y & 1) ? k + 1 : k - 1);
+    if (fh == 1) {  // h1v2_fancy_upsample: biases 1 (upper) and 2 (lower)
+      const int bias = (y & 1) ? 2 : 1;
+      for (int x = 0; x < p.dw; ++x)
+        out[x] = static_cast<uint8_t>((near[x] * 3 + far[x] + bias) >> 2);
+      return out;
+    }
+    if (p.dw > 2) {
+      up_h2v2_row(near, far, p.dw, out);
+    } else {  // h2v2_upsample: plain replication
+      up_h2(near, p.dw, out);
+    }
     return out;
   }
-  if (p.dw > 2) {
-    up_h2v2_row(near, far, p.dw, out);
-  } else {  // h2v2_upsample: plain replication
-    up_h2(near, p.dw, out);
-  }
+  const uint8_t* in = p.row(y / fv);  // int_upsample
+  for (int x = 0; x < p.dw; ++x)
+    std::memset(out + static_cast<size_t>(x) * fh, in[x], fh);
   return out;
 }
 
@@ -449,155 +466,377 @@ inline uint8_t clamp255(int v) {
   return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
-}  // namespace
+// ---------------- entropy decoding into the coefficient buffer ----------
 
-extern "C" {
+// One component of a scan: its sampling factors, its real blocks
+// (width_in_blocks x height_in_blocks), the row pitch and the block rows
+// of its buffer (quantised coefficients, natural order; a buffer of fewer
+// rows than the image holds one iMCU row, and block row `by` lies at
+// `by % rows`) and its DC and AC tables.
+struct ScanComp {
+  int h, v, bw, bh, pitch, rows;
+  int16_t* coef;
+  const HuffTable* dc;
+  const HuffTable* ac;
+  int16_t* block(int bx, int by) const {
+    if (by >= rows) by %= rows;
+    return coef + (static_cast<size_t>(by) * pitch + bx) * 64;
+  }
+};
 
-// Decode one baseline scan.
-//   data/len: the bytes after the SOS header up to the end of the file.
-//   width, height: the frame's size; ncomp: 1 or 3 frame components.
-//   h, v, tq: per frame component, sampling factors (1 or 2) and the
-//     quantisation table index; quant: 4 tables x 64 entries, natural
-//     order.
-//   scan_comp, td, ta: per scan component (ncomp of them, as the scan
-//     lists them): its frame component index and its DC / AC table.
-//   dc_bits/ac_bits: 4 x 17 BITS arrays (entry 0 unused); dc_vals/ac_vals:
-//     4 x 256 HUFFVAL arrays.
-//   restart_interval: MCUs between RST markers, 0 for none.
-//   transform: 1 YCbCr -> RGB, 0 none (gray or RGB components).
-//   out: height x width x ncomp bytes.
-// Returns 0, or a negative error (see Error above).
-int jpeg_decode_scan(const uint8_t* data, int64_t len, int width, int height,
-                     int ncomp, const int* h, const int* v, const int* tq,
-                     const uint16_t* quant, const int* scan_comp,
-                     const int* td, const int* ta, const uint8_t* dc_bits,
-                     const uint8_t* dc_vals, const uint8_t* ac_bits,
-                     const uint8_t* ac_vals, int restart_interval,
-                     int transform, uint8_t* out) {
-  if (width <= 0 || height <= 0 || (ncomp != 1 && ncomp != 3))
-    return kBadLayout;
-  HuffTable dc[4], ac[4];
-  bool dc_ok[4] = {false, false, false, false};
-  bool ac_ok[4] = {false, false, false, false};
-  int hmax = 1, vmax = 1;
-  for (int c = 0; c < ncomp; ++c) {
-    if (h[c] < 1 || h[c] > 2 || v[c] < 1 || v[c] > 2) return kBadLayout;
-    hmax = h[c] > hmax ? h[c] : hmax;
-    vmax = v[c] > vmax ? v[c] : vmax;
-  }
-  for (int s = 0; s < ncomp; ++s) {
-    const int d = td[s], a = ta[s];
-    if (d < 0 || d > 3 || a < 0 || a > 3 || scan_comp[s] < 0 ||
-        scan_comp[s] >= ncomp)
-      return kBadLayout;
-    if (!dc_ok[d]) {
-      if (build_table(dc_bits + 17 * d, dc_vals + 256 * d, &dc[d]) != kOk)
-        return kBadHuffmanTable;
-      dc_ok[d] = true;
-    }
-    if (!ac_ok[a]) {
-      if (build_table(ac_bits + 17 * a, ac_vals + 256 * a, &ac[a]) != kOk)
-        return kBadHuffmanTable;
-      ac_ok[a] = true;
-    }
-  }
+struct ScanState {
+  BitReader br;
+  int Ss = 0, Se = 63, Ah = 0, Al = 0;
+  int last_dc[4] = {0, 0, 0, 0};
+  int eobrun = 0;
+};
 
-  // jdinput.c per_scan_setup: an interleaved scan's MCU holds h x v
-  // blocks of each component; a one-component scan's MCU is one block.
-  const bool interleaved = ncomp > 1;
-  int mcus_x, mcus_y;
-  if (interleaved) {
-    mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
-    mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
-  } else {
-    const int cw = (width * h[0] + hmax - 1) / hmax;
-    const int ch = (height * v[0] + vmax - 1) / vmax;
-    mcus_x = (cw + 7) / 8;
-    mcus_y = (ch + 7) / 8;
-  }
-  std::vector<Plane> planes(ncomp);
-  for (int c = 0; c < ncomp; ++c) {
-    Plane& p = planes[c];
-    const int bw = interleaved ? h[c] : 1, bh = interleaved ? v[c] : 1;
-    p.stride = mcus_x * bw * 8;
-    p.rows = mcus_y * bh * 8;
-    p.dw = (width * h[c] + hmax - 1) / hmax;
-    p.dh = (height * v[c] + vmax - 1) / vmax;
-    p.px.assign(static_cast<size_t>(p.stride) * p.rows, 0);
-  }
-
-  BitReader br{data, static_cast<size_t>(len)};
-  int last_dc[3] = {0, 0, 0};
-  int restarts_to_go = restart_interval, next_rst = 0;
-  int16_t block[64];
-  for (int my = 0; my < mcus_y; ++my) {
-    for (int mx = 0; mx < mcus_x; ++mx) {
-      if (restart_interval) {
-        if (restarts_to_go == 0) {
-          if (br.restart(next_rst) != kOk) return kBadRestart;
-          next_rst = (next_rst + 1) & 7;
-          last_dc[0] = last_dc[1] = last_dc[2] = 0;
-          restarts_to_go = restart_interval;
-        }
-        --restarts_to_go;
-      }
-      for (int s = 0; s < ncomp; ++s) {
-        const int c = scan_comp[s];
-        Plane& p = planes[c];
-        const int bw = interleaved ? h[c] : 1, bh = interleaved ? v[c] : 1;
-        const uint16_t* q = quant + 64 * tq[c];
-        for (int by = 0; by < bh; ++by) {
-          for (int bx = 0; bx < bw; ++bx) {
-            // jdhuff.c decode_mcu_slow, one block
-            std::memset(block, 0, sizeof(block));
-            int t = decode_symbol(br, dc[td[s]]);
-            if (t < 0) return t;
-            int diff = t ? extend(br.get(t), t) : 0;
-            last_dc[s] += diff;
-            block[0] = static_cast<int16_t>(last_dc[s]);
-            for (int k = 1; k < 64; ++k) {
-              t = decode_symbol(br, ac[ta[s]]);
-              if (t < 0) return t;
-              const int r = t >> 4, sz = t & 15;
-              if (sz) {
-                k += r;
-                block[kNaturalOrder[k]] =
-                    static_cast<int16_t>(extend(br.get(sz), sz));
-              } else {
-                if (r != 15) break;
-                k += 15;
-              }
-            }
-            const int x0 = (mx * bw + bx) * 8, y0 = (my * bh + by) * 8;
-            idct_islow(block, q,
-                       p.px.data() + static_cast<size_t>(y0) * p.stride + x0,
-                       p.stride);
-          }
-        }
-      }
-      if (br.overrun) return kTruncated;
-    }
-  }
-
-  // upsample each component row by row, then convert colour
-  std::vector<uint8_t> bufs(static_cast<size_t>(ncomp) * (2 * width + 32));
-  static const YccTables tabs;
-  for (int y = 0; y < height; ++y) {
-    const uint8_t* rows[3];
-    for (int c = 0; c < ncomp; ++c) {
-      uint8_t* b = bufs.data() + static_cast<size_t>(c) * (2 * width + 32);
-      rows[c] = upsampled_row(planes[c], hmax / h[c], vmax / v[c], y, b);
-    }
-    uint8_t* o = out + static_cast<size_t>(y) * width * ncomp;
-    if (ncomp == 1) {
-      std::memcpy(o, rows[0], width);
-    } else if (!transform) {
-      for (int x = 0; x < width; ++x) {
-        o[3 * x] = rows[0][x];
-        o[3 * x + 1] = rows[1][x];
-        o[3 * x + 2] = rows[2][x];
-      }
+// jdhuff.c decode_mcu_slow, one block of a sequential scan (zeroed
+// first, as libjpeg zeroes it).
+inline int decode_sequential(ScanState& st, const ScanComp& c, int s,
+                             int16_t* block) {
+  std::memset(block, 0, 64 * sizeof(int16_t));
+  int t = decode_symbol(st.br, *c.dc);
+  if (t < 0) return t;
+  const int diff = t ? extend(st.br.get(t), t) : 0;
+  st.last_dc[s] += diff;
+  block[0] = static_cast<int16_t>(st.last_dc[s]);
+  for (int k = 1; k < 64; ++k) {
+    t = decode_symbol(st.br, *c.ac);
+    if (t < 0) return t;
+    const int r = t >> 4, sz = t & 15;
+    if (sz) {
+      k += r;
+      block[kNaturalOrder[k]] = static_cast<int16_t>(extend(st.br.get(sz), sz));
     } else {
+      if (r != 15) break;
+      k += 15;
+    }
+  }
+  return kOk;
+}
+
+// jdphuff.c decode_mcu_DC_first / decode_mcu_DC_refine, one block.
+inline int decode_dc(ScanState& st, const ScanComp& c, int s, int16_t* block) {
+  if (st.Ah) {
+    if (st.br.get(1)) block[0] = static_cast<int16_t>(block[0] | (1 << st.Al));
+    return kOk;
+  }
+  const int t = decode_symbol(st.br, *c.dc);
+  if (t < 0) return t;
+  const int diff = t ? extend(st.br.get(t), t) : 0;
+  st.last_dc[s] += diff;
+  block[0] = static_cast<int16_t>(
+      static_cast<uint32_t>(st.last_dc[s]) << st.Al);
+  return kOk;
+}
+
+// jdphuff.c decode_mcu_AC_first, one block.
+inline int decode_ac_first(ScanState& st, const ScanComp& c, int16_t* block) {
+  if (st.eobrun > 0) {
+    --st.eobrun;
+    return kOk;
+  }
+  for (int k = st.Ss; k <= st.Se; ++k) {
+    const int t = decode_symbol(st.br, *c.ac);
+    if (t < 0) return t;
+    int r = t >> 4;
+    const int sz = t & 15;
+    if (sz) {
+      k += r;
+      block[kNaturalOrder[k]] = static_cast<int16_t>(
+          static_cast<uint32_t>(extend(st.br.get(sz), sz)) << st.Al);
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      st.eobrun = 1 << r;
+      if (r) st.eobrun += static_cast<int>(st.br.get(r));
+      --st.eobrun;
+      break;
+    }
+  }
+  return kOk;
+}
+
+// jdphuff.c decode_mcu_AC_refine, one block.
+inline int decode_ac_refine(ScanState& st, const ScanComp& c,
+                            int16_t* block) {
+  const int p1 = 1 << st.Al, m1 = -(1 << st.Al);
+  auto correct = [&](int16_t* coef) {
+    if (st.br.get(1) && (*coef & p1) == 0)
+      *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+  };
+  int k = st.Ss;
+  if (st.eobrun == 0) {
+    for (; k <= st.Se; ++k) {
+      const int t = decode_symbol(st.br, *c.ac);
+      if (t < 0) return t;
+      int r = t >> 4, s = t & 15;
+      if (s) {
+        s = st.br.get(1) ? p1 : m1;   // the size of a new coefficient is 1
+      } else if (r != 15) {
+        st.eobrun = 1 << r;
+        if (r) st.eobrun += static_cast<int>(st.br.get(r));
+        break;                        // the rest is the EOB run's
+      }
+      // pass over the nonzero coefficients, correcting each, and r zeros
+      do {
+        int16_t* coef = block + kNaturalOrder[k];
+        if (*coef != 0) {
+          correct(coef);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= st.Se);
+      if (s) block[kNaturalOrder[k]] = static_cast<int16_t>(s);
+    }
+  }
+  if (st.eobrun > 0) {
+    for (; k <= st.Se; ++k) {
+      int16_t* coef = block + kNaturalOrder[k];
+      if (*coef != 0) correct(coef);
+    }
+    --st.eobrun;
+  }
+  return kOk;
+}
+
+inline int decode_block(ScanState& st, const ScanComp& c, int s,
+                        bool progressive, int16_t* block) {
+  if (!progressive) return decode_sequential(st, c, s, block);
+  if (st.Ss == 0) return decode_dc(st, c, s, block);
+  return st.Ah ? decode_ac_refine(st, c, block) : decode_ac_first(st, c, block);
+}
+
+// ---------------- block smoothing (jdcoefct.c decompress_smooth_data) --
+
+// Natural positions of the nine lowest AC coefficients, zigzag 1-9.
+const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+inline int smooth_pred(int64_t num, int64_t q, int al) {
+  int pred;
+  if (num >= 0) {
+    pred = static_cast<int>(((q << 7) + num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = static_cast<int>(((q << 7) - num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return pred;
+}
+
+// The block rows jdcoefct.c takes as the two above and the two below
+// block row `by` of a component with vertical factor v. It numbers the
+// rows of iMCU row i (v block rows; `last` is the last one's index, which
+// holds bh % v or v) as i * block_rows + r and their count as
+// block_rows * (last + 1), so in the last iMCU row it repeats a nearer row
+// where one more exists, and in the row before it may read a dummy block
+// row of the padded buffer (set by an interleaved DC scan), as it does.
+void smooth_rows(int by, int v, int bh, int last, int rows[5]) {
+  const int imcu = by / v, br = by % v;
+  const int block_rows = imcu < last ? v : (bh % v ? bh % v : v);
+  const int row = imcu * block_rows + br, count = block_rows * (last + 1);
+  rows[2] = by;
+  rows[1] = row > 0 ? by - 1 : by;
+  rows[0] = row > 1 ? by - 2 : rows[1];
+  rows[3] = row < count - 1 ? by + 1 : by;
+  rows[4] = row < count - 2 ? by + 2 : rows[3];
+}
+
+// The estimates of libjpeg-turbo's 5x5 smoothing for block (bx, by):
+// ws holds the block; coef_bits the last scan's Al of zigzag 0-9 (-1:
+// never coded). DC[r][c] are the quantised DCs of the 5x5 neighbourhood:
+// the block rows of smooth_rows, the columns clamped to the component's
+// real blocks.
+void smooth_block(const ScanComp& c, int bx, int by, int last_imcu,
+                  const uint16_t* q, const int* coef_bits, bool change_dc,
+                  int16_t* ws) {
+  int dc[5][5], rows[5];
+  smooth_rows(by, c.v, c.bh, last_imcu, rows);
+  for (int r = 0; r < 5; ++r) {
+    const int y = rows[r];
+    for (int col = 0; col < 5; ++col) {
+      int x = bx + col - 2;
+      x = x < 0 ? 0 : (x >= c.bw ? c.bw - 1 : x);
+      dc[r][col] = c.block(x, y)[0];
+    }
+  }
+  // DC01..DC25 of jdcoefct.c, row by row
+  const int DC01 = dc[0][0], DC02 = dc[0][1], DC03 = dc[0][2], DC04 = dc[0][3],
+            DC05 = dc[0][4], DC06 = dc[1][0], DC07 = dc[1][1], DC08 = dc[1][2],
+            DC09 = dc[1][3], DC10 = dc[1][4], DC11 = dc[2][0], DC12 = dc[2][1],
+            DC13 = dc[2][2], DC14 = dc[2][3], DC15 = dc[2][4], DC16 = dc[3][0],
+            DC17 = dc[3][1], DC18 = dc[3][2], DC19 = dc[3][3], DC20 = dc[3][4],
+            DC21 = dc[4][0], DC22 = dc[4][1], DC23 = dc[4][2], DC24 = dc[4][3],
+            DC25 = dc[4][4];
+  const int64_t Q00 = q[0];
+  int64_t sums[10];
+  sums[1] = change_dc
+      ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+         3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 - 3 * DC16 +
+         13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 + DC24 + DC25)
+      : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15);
+  sums[2] = change_dc
+      ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 + 13 * DC07 +
+         38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 - 38 * DC18 -
+         13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+      : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23);
+  sums[3] = change_dc
+      ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+         5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+      : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23);
+  sums[4] = change_dc
+      ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 + DC21 -
+         DC25)
+      : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 - DC24 +
+         DC04 - DC06 + 10 * DC07 - 10 * DC09);
+  sums[5] = change_dc
+      ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+         7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+      : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15);
+  sums[6] = DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19;
+  sums[7] = DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19;
+  sums[8] = DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19;
+  sums[9] = DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19;
+  const int last = change_dc ? 9 : 5;
+  for (int i = 1; i <= last; ++i) {
+    const int pos = kSmoothPos[i], al = coef_bits[i];
+    if (al != 0 && ws[pos] == 0)
+      ws[pos] = static_cast<int16_t>(smooth_pred(Q00 * sums[i], q[pos], al));
+  }
+  if (change_dc) {
+    const int64_t num = Q00 *
+        (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 +
+         6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+         152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 +
+         6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+         2 * DC25);
+    ws[0] = static_cast<int16_t>(smooth_pred(num, Q00, 0));
+  }
+}
+
+// ---------------- the output pass, one iMCU row at a time ------------
+
+// The output pass (jdcoefct.c decompress_data / decompress_smooth_data,
+// jdmainct.c, jdsample.c, jdcolor.c): for iMCU row k, the IDCT of each
+// component's real blocks of that row (after block smoothing when
+// `smooth`) into the component's plane, then every output row whose
+// upsampling reads only plane rows done so far, upsampled and converted:
+// `mode` 0 copies the components, 1 converts YCbCr to RGB, 2 YCCK to
+// CMYK, 3 outputs component 0 alone.
+struct OutputPass {
+  int width = 0, height = 0, hmax = 1, vmax = 1, used = 0, mode = 0;
+  int last_imcu = 0, next_y = 0;
+  bool smooth = false, change_dc[4] = {true, true, true, true};
+  ScanComp comps[4];
+  Plane planes[4];
+  const uint16_t* quant = nullptr;
+  const int* coef_bits = nullptr;
+  std::vector<uint8_t> bufs;
+  size_t row_bytes = 0;
+  uint8_t* out = nullptr;
+
+  //   layout: width, height, hmax, vmax, then per component h, v,
+  //     width_in_blocks, height_in_blocks, buffer pitch and block rows
+  //     (6 ints each).
+  //   coefs: per component its coefficient buffer; quant: per component
+  //     its 64 quantisation values (natural order); coef_bits: per
+  //     component the Al of the last scan of zigzag 0-9 (-1: none).
+  //   out: height x width x (ncomp, or 1 for mode 3) bytes.
+  int setup(int ncomp, const int* layout, int16_t* const* coefs,
+            const uint16_t* q, const int* bits, int smooth_blocks, int m,
+            uint8_t* dst) {
+    if (ncomp < 1 || ncomp > 4) return kBadLayout;
+    if ((m == 1 && ncomp != 3) || (m == 2 && ncomp != 4) || m < 0 || m > 3)
+      return kBadLayout;
+    width = layout[0];
+    height = layout[1];
+    hmax = layout[2];
+    vmax = layout[3];
+    mode = m;
+    used = mode == 3 ? 1 : ncomp;
+    smooth = smooth_blocks != 0;
+    quant = q;
+    coef_bits = bits;
+    out = dst;
+    // the last iMCU row: of vmax block rows, or of one for one component
+    last_imcu = (height + 8 * vmax - 1) / (8 * vmax) - 1;
+    for (int ci = 0; ci < used; ++ci) {
+      const int* l = layout + 4 + 6 * ci;
+      comps[ci] = ScanComp{l[0], l[1], l[2], l[3], l[4], l[5], coefs[ci],
+                           nullptr, nullptr};
+      const int* cb = coef_bits + 10 * ci;
+      for (int i = 1; i < 10; ++i) change_dc[ci] = change_dc[ci] && cb[i] == -1;
+      Plane& p = planes[ci];
+      p.stride = comps[ci].bw * 8;
+      p.rows = comps[ci].bh * 8;
+      p.dw = (width * comps[ci].h + hmax - 1) / hmax;
+      p.dh = (height * comps[ci].v + vmax - 1) / vmax;
+      p.px.assign(static_cast<size_t>(p.stride) * p.rows, 0);
+    }
+    row_bytes = static_cast<size_t>(hmax) * (width + 8) + 32;
+    bufs.assign(used * row_bytes, 0);
+    return kOk;
+  }
+
+  // The last plane row of component ci that output row y reads
+  // (upsampled_row's rows, edge rows clamped).
+  int needed_row(int ci, int y) const {
+    const int fh = hmax / comps[ci].h, fv = vmax / comps[ci].v;
+    int r;
+    if (fv == 1)
+      r = y;
+    else if (fv == 2 && fh <= 2)
+      r = (y + 1) >> 1;  // fancy: the nearer row and the one below it
+    else
+      r = y / fv;
+    return r < planes[ci].dh ? r : planes[ci].dh - 1;
+  }
+
+  void imcu_row(int k) {
+    int16_t ws[64];
+    for (int ci = 0; ci < used; ++ci) {
+      const ScanComp& c = comps[ci];
+      const uint16_t* q = quant + 64 * ci;
+      Plane& p = planes[ci];
+      for (int by = k * c.v; by < (k + 1) * c.v && by < c.bh; ++by) {
+        for (int bx = 0; bx < c.bw; ++bx) {
+          const int16_t* blk = c.block(bx, by);
+          if (smooth) {
+            std::memcpy(ws, blk, sizeof(ws));
+            smooth_block(c, bx, by, last_imcu, q, coef_bits + 10 * ci,
+                         change_dc[ci], ws);
+            blk = ws;
+          }
+          idct_islow(blk, q,
+                     p.px.data() + static_cast<size_t>(by) * 8 * p.stride +
+                         bx * 8,
+                     p.stride);
+        }
+      }
+    }
+    for (; next_y < height; ++next_y) {
+      if (k < last_imcu) {
+        bool ready = true;
+        for (int ci = 0; ci < used; ++ci)
+          ready = ready && needed_row(ci, next_y) < (k + 1) * 8 * comps[ci].v;
+        if (!ready) break;
+      }
+      emit(next_y);
+    }
+  }
+
+  void emit(int y) {
+    static const YccTables tabs;
+    const uint8_t* rows[4];
+    for (int ci = 0; ci < used; ++ci)
+      rows[ci] = upsampled_row(planes[ci], hmax / comps[ci].h,
+                               vmax / comps[ci].v, y,
+                               bufs.data() + ci * row_bytes);
+    uint8_t* o = out + static_cast<size_t>(y) * width * used;
+    if (mode == 1) {
       for (int x = 0; x < width; ++x) {
         const int yy = rows[0][x], cb = rows[1][x], cr = rows[2][x];
         o[3 * x] = clamp255(yy + tabs.cr_r[cr]);
@@ -605,8 +844,166 @@ int jpeg_decode_scan(const uint8_t* data, int64_t len, int width, int height,
             yy + static_cast<int>((tabs.cb_g[cb] + tabs.cr_g[cr]) >> 16));
         o[3 * x + 2] = clamp255(yy + tabs.cb_b[cb]);
       }
+    } else if (mode == 2) {  // ycck_cmyk_convert: inverted, K passes through
+      for (int x = 0; x < width; ++x) {
+        const int yy = rows[0][x], cb = rows[1][x], cr = rows[2][x];
+        o[4 * x] = clamp255(255 - (yy + tabs.cr_r[cr]));
+        o[4 * x + 1] = clamp255(
+            255 - (yy + static_cast<int>((tabs.cb_g[cb] + tabs.cr_g[cr]) >>
+                                         16)));
+        o[4 * x + 2] = clamp255(255 - (yy + tabs.cb_b[cb]));
+        o[4 * x + 3] = rows[3][x];
+      }
+    } else if (used == 1) {
+      std::memcpy(o, rows[0], width);
+    } else {
+      for (int x = 0; x < width; ++x)
+        for (int ci = 0; ci < used; ++ci) o[used * x + ci] = rows[ci][x];
     }
   }
+};
+
+// ---------------- one scan ----------------------------------------------
+
+// Decode one scan into its components' coefficient buffers; with `pass`,
+// the output pass of each MCU row (of the file's one interleaved scan, or
+// of its one component: then an MCU row is an iMCU row) once it is
+// decoded. See jpeg_decode_scan for the arguments.
+int decode_scan(const uint8_t* data, int64_t len, const int* layout,
+                int16_t* const* coefs, const uint8_t* dc_bits,
+                const uint8_t* dc_vals, const uint8_t* ac_bits,
+                const uint8_t* ac_vals, OutputPass* pass) {
+  const int ns = layout[0];
+  if (ns < 1 || ns > 4) return kBadLayout;
+  ScanState st{BitReader{data, static_cast<size_t>(len)}};
+  st.Ss = layout[1];
+  st.Se = layout[2];
+  st.Ah = layout[3];
+  st.Al = layout[4];
+  const int restart_interval = layout[5];
+  const bool progressive = layout[6] != 0;
+  const int width = layout[7], height = layout[8];
+  const int hmax = layout[9], vmax = layout[10];
+  HuffTable dc[4], ac[4];
+  bool dc_ok[4] = {false, false, false, false};
+  bool ac_ok[4] = {false, false, false, false};
+  const bool need_dc = !progressive || (st.Ss == 0 && st.Ah == 0);
+  const bool need_ac = !progressive || st.Ss > 0;
+  ScanComp comps[4];
+  for (int s = 0; s < ns; ++s) {
+    const int* l = layout + 11 + 8 * s;
+    ScanComp& c = comps[s];
+    c.h = l[0];
+    c.v = l[1];
+    c.bw = l[2];
+    c.bh = l[3];
+    c.pitch = l[4];
+    c.rows = l[5];
+    c.coef = coefs[s];
+    const int d = l[6], a = l[7];
+    if (d < 0 || d > 3 || a < 0 || a > 3 || c.h < 1 || c.v < 1 ||
+        c.bw < 1 || c.bh < 1 || c.pitch < c.bw || c.rows < 1)
+      return kBadLayout;
+    if (need_dc && !dc_ok[d]) {
+      if (build_table(dc_bits + 17 * d, dc_vals + 256 * d, &dc[d]) != kOk)
+        return kBadHuffmanTable;
+      dc_ok[d] = true;
+    }
+    if (need_ac && !ac_ok[a]) {
+      if (build_table(ac_bits + 17 * a, ac_vals + 256 * a, &ac[a]) != kOk)
+        return kBadHuffmanTable;
+      ac_ok[a] = true;
+    }
+    c.dc = &dc[d];
+    c.ac = &ac[a];
+  }
+
+  // jdinput.c per_scan_setup: an interleaved scan's MCU holds h x v
+  // blocks of each component over the padded MCU grid; a one-component
+  // scan's MCU is one of the component's real blocks.
+  int mcus_x, mcus_y;
+  if (ns > 1) {
+    mcus_x = (width + 8 * hmax - 1) / (8 * hmax);
+    mcus_y = (height + 8 * vmax - 1) / (8 * vmax);
+  } else {
+    mcus_x = comps[0].bw;
+    mcus_y = comps[0].bh;
+  }
+  int restarts_to_go = restart_interval, next_rst = 0;
+  for (int my = 0; my < mcus_y; ++my) {
+    for (int mx = 0; mx < mcus_x; ++mx) {
+      if (restart_interval) {
+        if (restarts_to_go == 0) {
+          if (st.br.restart(next_rst) != kOk) return kBadRestart;
+          next_rst = (next_rst + 1) & 7;
+          st.last_dc[0] = st.last_dc[1] = st.last_dc[2] = st.last_dc[3] = 0;
+          st.eobrun = 0;
+          restarts_to_go = restart_interval;
+        }
+        --restarts_to_go;
+      }
+      for (int s = 0; s < ns; ++s) {
+        const ScanComp& c = comps[s];
+        const int bw = ns > 1 ? c.h : 1, bh = ns > 1 ? c.v : 1;
+        for (int by = 0; by < bh; ++by) {
+          for (int bx = 0; bx < bw; ++bx) {
+            const int err = decode_block(st, c, s, progressive,
+                                         c.block(mx * bw + bx, my * bh + by));
+            if (err) return err;
+          }
+        }
+      }
+      if (st.br.overrun) return kTruncated;
+    }
+    if (pass) pass->imcu_row(my);
+  }
+  return kOk;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode one scan of a file of several into the whole-image coefficient
+// buffers.
+//   data/len: the scan's entropy-coded bytes (RST markers included).
+//   layout: ns, Ss, Se, Ah, Al, restart interval, progressive (0/1),
+//     image width, height, hmax, vmax, then per scan component
+//     h, v, width_in_blocks, height_in_blocks, buffer pitch (blocks),
+//     buffer block rows, DC table, AC table (8 ints each).
+//   coefs: per scan component, its buffer of pitch x rows blocks of 64
+//     int16 (quantised coefficients, natural order).
+//   dc_bits/ac_bits: 4 x 17 BITS arrays (entry 0 unused); dc_vals/ac_vals:
+//     4 x 256 HUFFVAL arrays.
+// Returns 0, or a negative error (see Error above).
+int jpeg_decode_scan(const uint8_t* data, int64_t len, const int* layout,
+                     int16_t* const* coefs, const uint8_t* dc_bits,
+                     const uint8_t* dc_vals, const uint8_t* ac_bits,
+                     const uint8_t* ac_vals) {
+  return decode_scan(data, len, layout, coefs, dc_bits, dc_vals, ac_bits,
+                     ac_vals, nullptr);
+}
+
+// The output pass (see OutputPass::setup for ncomp ... out). Without
+// `data`, over the whole-image buffers that jpeg_decode_scan filled; with
+// it, the file's one sequential scan (data ... ac_vals as for
+// jpeg_decode_scan, scan_coefs its coefs) is decoded here into buffers one iMCU row high, each
+// iMCU row put out as soon as it is decoded.
+int jpeg_decode_output(int ncomp, const int* layout, int16_t* const* coefs,
+                       const uint16_t* quant, const int* coef_bits,
+                       int smooth, int mode, uint8_t* out,
+                       const uint8_t* data, int64_t len,
+                       const int* scan_layout, int16_t* const* scan_coefs,
+                       const uint8_t* dc_bits, const uint8_t* dc_vals,
+                       const uint8_t* ac_bits, const uint8_t* ac_vals) {
+  OutputPass pass;
+  const int err = pass.setup(ncomp, layout, coefs, quant, coef_bits, smooth,
+                             mode, out);
+  if (err) return err;
+  if (data)
+    return decode_scan(data, len, scan_layout, scan_coefs, dc_bits, dc_vals,
+                       ac_bits, ac_vals, &pass);
+  for (int k = 0; k <= pass.last_imcu; ++k) pass.imcu_row(k);
   return kOk;
 }
 

@@ -57,7 +57,7 @@ def load_name2len(path_or_dir, frame_root: str | None = None) -> dict:
 
 def read_frame(path: str, height: int, width: int) -> np.ndarray:
     """[height, width, 3] uint8 RGB of a JPEG or PNG frame."""
-    frame = image_io.read_image(path, orientation=False)
+    frame = image_io.imread(path, "unchanged")
     if frame.ndim == 2:
         frame = np.stack([frame] * 3, axis=-1)
     return image_io.resize_linear_u8(frame[..., :3], height, width)

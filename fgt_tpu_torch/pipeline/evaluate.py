@@ -66,7 +66,7 @@ def ground_truth(path: str, n: int, img_h: int, img_w: int) -> np.ndarray:
     """The first ``n`` source frames (PNG or JPEG, EXIF orientation
     ignored as the JAX tool's imageio reads them), RGB, resized to
     img_h x img_w as ``cv2.resize`` resizes uint8."""
-    frames = image_io.read_stack(path, orientation=False)[:n]
+    frames = image_io.read_stack(path, "unchanged")[:n]
     if frames.ndim == 3:
         frames = np.repeat(frames[..., None], 3, axis=-1)
     return np.stack([image_io.resize_linear_u8(f[..., :3], img_h, img_w)

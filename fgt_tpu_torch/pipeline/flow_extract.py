@@ -84,7 +84,8 @@ def list_videos(datapath: str) -> list:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="RAFT flows of every video under --datapath. Frames are "
-                    "directories of *.png / *.jpg files (baseline JPEG) or "
+                    "directories of *.png / *.jpg files (Huffman-coded 8-bit "
+                    "JPEG, baseline or progressive) or "
                     ".npy stacks.")
     p.add_argument("--datapath", required=True,
                    help="root of per-video frame directories / .npy stacks")
@@ -109,7 +110,7 @@ def main(argv=None) -> int:
     raft = load_raft(args.raft_model, args.device, args.seed)
     total, t0 = 0, time.perf_counter()
     for name, path in list_videos(args.datapath):
-        frames = image_io.read_stack(path, orientation=False)
+        frames = image_io.read_stack(path, "unchanged")
         if frames.ndim == 3:
             frames = np.repeat(frames[..., None], 3, axis=-1)
         if frames.shape[0] < 2:

@@ -1,12 +1,13 @@
-"""Frame I/O without cv2 or imageio: 8-bit PNG decode/encode on the
-standard library's ``zlib``, baseline JPEG decode (``core/jpeg.py``,
-bit-equal to libjpeg-turbo as cv2 and imageio run it), and ``.npy``
-stacks.
+"""Frame I/O without cv2 or imageio: PNG decode/encode on the standard
+library's ``zlib``, JPEG decode (``core/jpeg.py``, bit-equal to
+libjpeg-turbo as cv2 and imageio run it), and ``.npy`` stacks.
 
-The PNG reader takes non-interlaced 8-bit grayscale, gray+alpha, RGB,
-RGBA and palette images with all five PNG row filters; that covers
-frames and masks as video tools write them. :func:`read_image` picks
-PNG or JPEG by the file's signature; what neither reader takes raises.
+The PNG reader takes gray, gray+alpha, RGB, RGBA and palette images at
+every bit depth PNG allows (1 to 16), interlaced or not, with all five
+row filters. :func:`imread` picks PNG or JPEG by the file's signature and
+returns it as ``cv2.imread`` does (``IMREAD_COLOR`` or
+``IMREAD_GRAYSCALE``, EXIF orientation applied) or as ``imageio.imread``
+does; what neither decoder takes raises.
 
 :func:`resize_linear` and :func:`resize_nearest` reproduce cv2's
 ``INTER_LINEAR`` (on float32 frames and flows) and ``INTER_NEAREST``
@@ -33,8 +34,9 @@ _SIG = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
-def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
-    stride = w * bpp
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """``h`` filtered rows of ``stride`` bytes (each after its filter-type
+    byte) -> [h, stride] uint8, ``bpp`` the bytes of a whole pixel."""
     out = np.zeros((h, stride), np.uint8)
     prev = np.zeros(stride, np.int32)
     pos = 0
@@ -67,35 +69,119 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(path: str) -> np.ndarray:
-    """[H, W] or [H, W, C] uint8 array of an 8-bit PNG."""
+# Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(rows: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """Unfiltered rows [h, bytes] -> [h, w, ch] samples (uint8, or
+    uint16 for 16-bit data; 1-, 2- and 4-bit samples unpacked)."""
+    h = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return rows.reshape(h, w, ch)
+    bits = np.unpackbits(rows, axis=1).reshape(h, -1, depth)
+    vals = (bits * (1 << np.arange(depth - 1, -1, -1))).sum(-1)
+    return vals[:, :w * ch].astype(np.uint8).reshape(h, w, ch)
+
+
+def _png_chunks(path: str):
+    """(IHDR fields, inflated image bytes, PLTE palette, eXIf payload)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _SIG:
         raise ValueError(f"{path}: not a PNG")
-    pos, idat, palette = 8, [], None
-    w = h = ctype = None
-    while pos < len(data):
+    pos, idat, palette, exif, ihdr = 8, [], None, None, None
+    while pos + 8 <= len(data):
         length, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if tag == b"IHDR":
-            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
-                                                                body)
-            if depth != 8 or interlace or ctype not in _CHANNELS:
-                raise ValueError(f"{path}: only 8-bit non-interlaced PNGs")
+            ihdr = struct.unpack(">IIBBBBB", body)
         elif tag == b"PLTE":
             palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
+        elif tag == b"eXIf":
+            exif = body
         elif tag == b"IEND":
             break
+    if ihdr is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    return ihdr, zlib.decompress(b"".join(idat)), palette, exif
+
+
+def _read_png(path: str):
+    """(samples [H, W, C] uint8 or uint16, colour type, bit depth, PLTE,
+    eXIf payload) of a PNG, Adam7 interlacing undone; palette images
+    keep their indices."""
+    (w, h, depth, ctype, _, _, interlace), raw, palette, exif = \
+        _png_chunks(path)
+    if ctype not in _CHANNELS or depth not in (1, 2, 4, 8, 16) or \
+            (ctype in (2, 4, 6) and depth < 8) or (ctype == 3 and depth > 8):
+        raise ValueError(f"{path}: PNG colour type {ctype} at {depth} bits")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: a palette image without PLTE")
     ch = _CHANNELS[ctype]
-    img = _unfilter(zlib.decompress(b"".join(idat)), h, w, ch)
-    img = img.reshape(h, w, ch)
+    bpp = max(1, ch * depth // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    img = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = -(-(pw * ch * depth) // 8)
+        size = ph * (stride + 1)
+        rows = _unfilter(raw[pos:pos + size], ph, stride, bpp)
+        pos += size
+        img[y0::dy, x0::dx] = _samples(rows, pw, ch, depth)
+    return img, ctype, depth, palette, exif
+
+
+def read_png(path: str) -> np.ndarray:
+    """[H, W] or [H, W, C] array of a PNG as ``imageio.imread`` (Pillow)
+    returns it: palette images expanded to RGB, 1-bit gray as bool, 2-
+    and 4-bit gray scaled to 8 bits, 16-bit gray as uint16, other 16-bit
+    images at their high byte (gray+alpha as RGBA)."""
+    img, ctype, depth, palette, _ = _read_png(path)
     if ctype == 3:
         return palette[img[..., 0]]
-    return img[..., 0] if ch == 1 else img
+    if depth == 1:
+        return img[..., 0].astype(bool)
+    if depth < 8:
+        img = img * (255 // ((1 << depth) - 1))
+    elif depth == 16 and ctype != 0:
+        img = (img >> 8).astype(np.uint8)
+        if ctype == 4:          # Pillow has no 16-bit LA: RGBA
+            img = img[..., [0, 0, 0, 1]]
+    return img[..., 0] if img.shape[2] == 1 else img
+
+
+def _png_cv2(path: str, gray: bool) -> np.ndarray:
+    """``cv2.imread(path, IMREAD_COLOR or IMREAD_GRAYSCALE)`` of a PNG,
+    as RGB: libpng expands palettes and low-bit gray, strips alpha, turns
+    RGB to gray with its fixed-point (9797, 19234, 3737) / 32768 (with
+    no rounding on 8-bit data, rounded on 16-bit), then keeps the high
+    byte of 16-bit samples; the eXIf orientation is applied."""
+    img, ctype, depth, palette, exif = _read_png(path)
+    if ctype == 3:
+        img = palette[img[..., 0]]
+    elif depth < 8:
+        img = img * (255 // ((1 << depth) - 1))
+    if img.shape[2] in (2, 4):
+        img = img[..., :-1]
+    if gray and img.shape[2] == 3:
+        x = img.astype(np.int64)
+        y = 9797 * x[..., 0] + 19234 * x[..., 1] + 3737 * x[..., 2]
+        img = ((y + (16384 if depth == 16 else 0)) >> 15)[..., None]
+    if depth == 16:
+        img = img >> 8
+    img = img.astype(np.uint8)
+    img = img[..., 0] if gray else np.repeat(img, 3 // img.shape[2], axis=2)
+    return jpeg.apply_orientation(img, jpeg.exif_orientation(exif))
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -116,36 +202,44 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
-def read_image(path: str, orientation: bool) -> np.ndarray:
-    """[H, W] or [H, W, C] uint8 of a PNG or JPEG file, told apart by its
-    signature. ``orientation`` applies a JPEG's EXIF orientation, as
-    ``cv2.imread`` does; imageio ignores it."""
+def imread(path: str, mode: str) -> np.ndarray:
+    """A PNG or JPEG file, told apart by its signature, as one of the
+    reference's readers returns it: ``"color"`` — ``cv2.imread(path,
+    IMREAD_COLOR)`` as RGB, [H, W, 3] uint8, EXIF orientation applied
+    (the inference CLI, the dataset-preparation readers); ``"gray"`` —
+    ``cv2.imread(path, IMREAD_GRAYSCALE)``, [H, W] uint8, orientation
+    applied; ``"unchanged"`` — ``imageio.imread(path)``, orientation
+    ignored (the datasets, validation, flow extraction, the evaluation
+    ground truth)."""
+    if mode not in jpeg.MODES:
+        raise ValueError(f"mode {mode!r}: one of {jpeg.MODES}")
     with open(path, "rb") as f:
         head = f.read(8)
     if head == _SIG:
-        return read_png(path)
+        return read_png(path) if mode == "unchanged" else \
+            _png_cv2(path, mode == "gray")
     if head[:2] == jpeg.SOI:
-        return jpeg.read_jpeg(path, orientation)
+        return jpeg.read_jpeg(path, mode)
     raise ValueError(f"{path}: not a PNG or JPEG")
 
 
-def read_frames(path: str, orientation: bool) -> list:
+def read_frames(path: str, mode: str) -> list:
     """The frames of a ``.npy`` stack, or of the ``*.png`` and ``*.jpg``
     files of a directory sorted together by name (as the JAX CLI globs
-    them), as a list of uint8 arrays, each in its own shape.
-    ``orientation``: see :func:`read_image`."""
+    them) and read by :func:`imread` in ``mode``, as a list of uint8
+    arrays, each in its own shape."""
     if path.endswith(".npy"):
         return list(np.load(path))
     files = sorted(glob.glob(os.path.join(path, "*.png"))
                    + glob.glob(os.path.join(path, "*.jpg")))
     if not files:
         raise FileNotFoundError(f"no .png or .jpg frames in {path}")
-    return [read_image(f, orientation) for f in files]
+    return [imread(f, mode) for f in files]
 
 
-def read_stack(path: str, orientation: bool) -> np.ndarray:
+def read_stack(path: str, mode: str) -> np.ndarray:
     """:func:`read_frames` as one array [N, H, W(, C)]."""
-    return np.stack(read_frames(path, orientation))
+    return np.stack(read_frames(path, mode))
 
 
 def write_frames(outdir: str, frames: np.ndarray) -> None:

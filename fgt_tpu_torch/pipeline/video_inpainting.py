@@ -865,8 +865,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", default="object_removal", choices=MODES)
     p.add_argument("--path", default="data/frames",
                    help=".npy stack or directory of *.png / *.jpg frames "
-                        "(baseline JPEG; EXIF orientation applied, as "
-                        "cv2.imread does)")
+                        "(baseline, progressive or multi-scan Huffman JPEG, "
+                        "gray, YCbCr, RGB, CMYK or YCCK, any integral "
+                        "sampling; not arithmetic-coded or 12-bit; read as "
+                        "cv2.imread reads them, EXIF orientation applied)")
     p.add_argument("--path_mask", default="data/masks",
                    help=".npy stack or directory of *.png / *.jpg masks")
     p.add_argument("--outroot", default="out")
@@ -1001,8 +1003,8 @@ def load_frames(path: str, img_h: int, img_w: int,
     (watermark removal), then float cv2-INTER_LINEAR resized to
     img_h x img_w. Returns (float32 [N, img_h, img_w, 3] in [0, 255],
     the last frame's source (H, W))."""
-    frames = image_io.read_frames(path, orientation=True)
-    holes = (image_io.read_frames(premask_path, orientation=True)
+    frames = image_io.read_frames(path, "color")
+    holes = (image_io.read_frames(premask_path, "color")
              if premask_path is not None else None)
     if holes is not None and len(holes) != len(frames):
         raise ValueError(f"{len(frames)} frames but {len(holes)} masks")
@@ -1024,7 +1026,7 @@ def load_masks(path: str, img_h: int, img_w: int) -> np.ndarray:
     return np.stack([
         image_io.resize_nearest((m[..., 0] if m.ndim == 3 else m)[None],
                                 img_h, img_w)[0]
-        for m in image_io.read_frames(path, orientation=True)])
+        for m in image_io.read_frames(path, "color")])
 
 
 def video_inpainting(args, models: Optional[Models] = None) -> str:

@@ -151,7 +151,7 @@ def lafc_batch(i: int, h: int, w: int, t: int = 3,
 
 def load_clip(frames_dir: str, h: int, w: int) -> np.ndarray:
     """[N, h, w, 3] float32 in [-1, 1]: the PNG frames, float-resized."""
-    frames = image_io.read_stack(frames_dir, orientation=False)
+    frames = image_io.read_stack(frames_dir, "unchanged")
     return image_io.resize_linear(frames.astype(np.float32), h, w) \
         / 255.0 * 2 - 1
 
@@ -267,8 +267,8 @@ def run_pipeline_psnr(frames_dir: str, masks_dir: str, out: str,
              "--vis_frame", "--device", device, *extra])
     _sync(device)
     wall = time.perf_counter() - t0
-    result = image_io.read_stack(os.path.join(out, "frames"), False)
-    gt = image_io.read_stack(frames_dir, False)
+    result = image_io.read_stack(os.path.join(out, "frames"), "unchanged")
+    gt = image_io.read_stack(frames_dir, "unchanged")
     if gt.shape[1:3] != (h, w):
         gt = image_io.resize_linear(gt.astype(np.float32), h, w)
     n = min(len(result), len(gt))
@@ -276,7 +276,7 @@ def run_pipeline_psnr(frames_dir: str, masks_dir: str, out: str,
         return float(np.mean([metrics.psnr(result[i].astype(np.uint8),
                                            gt[i].astype(np.uint8))
                               for i in range(n)])), wall
-    holes = image_io.read_stack(masks_dir, False)
+    holes = image_io.read_stack(masks_dir, "unchanged")
     if holes.ndim == 4:
         holes = holes[..., 0]
     holes = image_io.resize_nearest(holes, h, w) > 0

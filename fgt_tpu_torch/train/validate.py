@@ -49,7 +49,7 @@ def _read_window_frames(frame_dir, width, height, ids):
         p = next((p for p in paths if os.path.exists(p)), None)
         if p is None:
             return []
-        f = image_io.read_image(p, orientation=False)
+        f = image_io.imread(p, "unchanged")
         if f.ndim == 2:
             f = np.stack([f] * 3, axis=-1)
         out.append(image_io.resize_linear_u8(f[..., :3], height, width))
@@ -102,7 +102,7 @@ def validate_fgt(gen: torch.nn.Module, frame_root: str,
             if mask_root:
                 p = os.path.join(mask_root, video, f"{i:05d}.png")
                 if os.path.exists(p):
-                    m = (image_io.read_image(p, orientation=False)
+                    m = (image_io.imread(p, "unchanged")
                          > 127).astype(np.uint8)
                     if m.ndim == 3:
                         m = m[..., 0]

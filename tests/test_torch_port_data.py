@@ -243,16 +243,22 @@ def test_name2len_and_helpers(tree):
 
 
 def test_jpeg_frames_raise_naming_the_decoder(tmp_path):
-    """A baseline JPEG frame reads as the JAX dataset reads it; one the
-    decoder does not take (progressive) raises, naming the file and what
-    it is."""
+    """Baseline and progressive JPEG frames read as the JAX dataset reads
+    them; one the decoder does not take (arithmetic-coded) raises, naming
+    the file and what it is."""
     frame = (np.random.RandomState(5).rand(30, 50, 3) * 255).astype(np.uint8)
     path = str(tmp_path / "00000.jpg")
     cv2.imwrite(path, frame)
     assert np.array_equal(tds.read_frame(path, 24, 40),
                           jdata.datasets.read_frame(path, 24, 40))
     cv2.imwrite(path, frame, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="00000.jpg: progressive"):
+    assert np.array_equal(tds.read_frame(path, 24, 40),
+                          jdata.datasets.read_frame(path, 24, 40))
+    data = bytearray(open(path, "rb").read())
+    sof = data.index(b"\xff\xc2")
+    data[sof + 1] = 0xCA            # the same data announced as SOF10
+    open(path, "wb").write(bytes(data))
+    with pytest.raises(ValueError, match="00000.jpg: arithmetic-coded"):
         tds.read_frame(path, 8, 8)
 
 

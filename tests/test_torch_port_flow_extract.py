@@ -125,7 +125,7 @@ def test_flow_extract_reads_a_jpeg_tree_as_the_jax_tool(tmp_path):
         imageio.imread(video / f).astype(np.float32)[..., :3], (64, 64),
         interpolation=cv2.INTER_LINEAR) for f in files])
     port_frames = image_io.resize_linear(
-        image_io.read_stack(str(video), orientation=False), 64, 64)
+        image_io.read_stack(str(video), "unchanged"), 64, 64)
     np.testing.assert_array_equal(port_frames, jax_frames)
 
     model = RAFT(RAFTConfig(iters=2))

@@ -1,18 +1,22 @@
-"""A small baseline JPEG encoder in numpy, for tests and for writing JPEG
-trees where no encoder is installed (the card's machine has neither
-cv2 nor Pillow). Not part of the port: the port only decodes.
+"""JPEG writers for tests, in numpy: the port's baseline encoder
+(``fgt_tpu_torch/core/jpeg_encode.py``, re-exported here) plus the
+layouts the decoder must read and neither cv2 nor Pillow writes:
 
-JFIF YCbCr (or gray), sampling 4:4:4, 4:2:2, 4:2:0 or 4:4:0 (chroma
-box-averaged), libjpeg's quality-scaled Annex K quantisation tables, the
-Annex K Huffman tables, optional restart intervals. The DCT is the
-float orthonormal one, rounded; the entropy coder and bit packing are
-vectorised, so an 854x480 frame takes well under a second.
+* :func:`write_scans` — any scan layout over quantised blocks:
+  sequential files of several scans (non-interleaved, or a subset of
+  components per scan), and progressive files from a scan script of
+  (components, Ss, Se, Ah, Al), with DC and AC first and refinement
+  scans, EOB runs and restart intervals; each scan's Huffman tables are
+  made for its own symbols (every code of one length);
+* :func:`component_blocks` — any integral sampling factors, 1, 3 or 4
+  components, YCbCr, RGB, CMYK or YCCK planes (all but YCbCr carry an
+  Adobe marker naming the transform);
+* :data:`SIMPLE_PROGRESSION` — libjpeg's ``jpeg_simple_progression``
+  for three components, and :data:`UNREFINED_PROGRESSION`, which stops
+  every AC band at Al = 1 so that libjpeg's block smoothing runs.
 
     from torch_port_jpeg_encoder import encode_jpeg
     data = encode_jpeg(rgb_u8, quality=90, sampling="420")
-
-:func:`quantized_blocks` and :func:`write_jpeg` split the two halves so
-that a test can set coefficients by hand.
 """
 
 from __future__ import annotations
@@ -21,307 +25,285 @@ import struct
 
 import numpy as np
 
-ZIGZAG = np.array([
-    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+from fgt_tpu_torch.core.jpeg_encode import (  # noqa: F401
+    CHROMA_Q, LUMA_Q, SAMPLING, ZIGZAG, _category, _extra, _pack, _segment,
+    encode_jpeg, quality_table, quantize_planes, quantized_blocks,
+    rgb_to_ycc, subsample, write_jpeg)
 
-# Annex K.1 tables, natural order
-LUMA_Q = np.array([
-    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
-CHROMA_Q = np.array([
-    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
-    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99] +
-    [99] * 32)
-
-# Annex K.3 Huffman tables: (BITS[1..16], HUFFVAL)
-DC_LUMA = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12)))
-DC_CHROMA = ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0],
-             list(range(12)))
-AC_LUMA = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d], [
-    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
-    0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
-    0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
-    0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
-    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
-    0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
-    0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
-    0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
-    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
-    0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
-    0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
-    0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
-    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
-    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa])
-AC_CHROMA = ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
-    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
-    0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
-    0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
-    0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
-    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
-    0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
-    0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
-    0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
-    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
-    0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
-    0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
-    0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
-    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
-    0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa])
-
-SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2)}
-
-_k = np.arange(8)
-DCT = np.sqrt(np.where(_k == 0, 1 / 8, 2 / 8))[:, None] * np.cos(
-    (2 * _k[None] + 1) * _k[:, None] * np.pi / 16)
+# libjpeg jcparam.c jpeg_simple_progression, YCbCr
+SIMPLE_PROGRESSION = [
+    ((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1),
+    ((1,), 1, 63, 0, 1), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+    ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0), ((1,), 1, 63, 1, 0),
+    ((0,), 1, 63, 1, 0)]
+# the same bands, every AC coefficient left one bit short
+UNREFINED_PROGRESSION = SIMPLE_PROGRESSION[:6] + [((0, 1, 2), 0, 0, 1, 0)]
 
 
-def quality_table(base: np.ndarray, quality: int) -> np.ndarray:
-    """libjpeg's jpeg_quality_scaling + jpeg_add_quant_table (baseline)."""
-    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
-    return np.clip((base * scale + 50) // 100, 1, 255).astype(np.int64)
-
-
-def _plane_blocks(plane: np.ndarray, bh: int, bw: int) -> np.ndarray:
-    """[H, W] f64 -> [bh, bw, 8, 8], edge-replicated to bh*8 x bw*8."""
-    h, w = plane.shape
-    p = np.pad(plane, ((0, bh * 8 - h), (0, bw * 8 - w)), mode="edge")
-    return p.reshape(bh, 8, bw, 8).swapaxes(1, 2)
-
-
-def quantized_blocks(img: np.ndarray, quality: int = 90,
-                     sampling: str = "420"):
-    """The quantised DCT blocks of ``img`` ([H, W] gray or [H, W, 3] RGB
-    uint8): (per component [by, bx, 64] int in natural order, h and v
-    factors per component, quantisation tables)."""
+def component_blocks(img: np.ndarray, quality: int, factors,
+                     space: str = "ycc"):
+    """(blocks, factors, tables) of ``img`` ([H, W] gray, [H, W, 3] RGB or
+    [H, W, 4] CMYK) under per-component ``factors`` [(h, v), ...]:
+    ``space`` "ycc" (RGB -> YCbCr), "rgb" or "cmyk" (the planes as they
+    are) or "ycck" (C, M, Y inverted to R, G, B, then YCbCr, K as it is).
+    Each component is box-averaged to its factors' share of the largest."""
     img = np.asarray(img)
     height, width = img.shape[:2]
     if img.ndim == 2:
-        planes, factors = [img.astype(np.float64)], [(1, 1)]
-        tables = [quality_table(LUMA_Q, quality)]
+        planes = [img.astype(np.float64)]
+    elif space == "ycc":
+        planes = list(rgb_to_ycc(img))
+    elif space in ("cmyk", "rgb"):
+        planes = [img[..., c].astype(np.float64)
+                  for c in range(img.shape[2])]
     else:
-        r, g, b = (img[..., c].astype(np.float64) for c in range(3))
-        y = 0.299 * r + 0.587 * g + 0.114 * b
-        cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128
-        cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128
-        hs, vs = SAMPLING[sampling]
-        chroma = []
-        for c in (cb, cr):
-            c = np.pad(c, ((0, (-height) % vs), (0, (-width) % hs)),
-                       mode="edge")
-            chroma.append(c.reshape(c.shape[0] // vs, vs, c.shape[1] // hs,
-                                    hs).mean(axis=(1, 3)))
-        planes = [y] + chroma
-        factors = [(hs, vs), (1, 1), (1, 1)]
-        tables = [quality_table(LUMA_Q, quality),
-                  quality_table(CHROMA_Q, quality)]
+        planes = list(rgb_to_ycc(255 - img[..., :3])) + [
+            img[..., 3].astype(np.float64)]
     hmax = max(f[0] for f in factors)
     vmax = max(f[1] for f in factors)
-    mx = -(-width // (8 * hmax))
-    my = -(-height // (8 * vmax))
-    blocks = []
-    for plane, (h, v) in zip(planes, factors):
-        plane = np.rint(np.clip(plane, 0, 255))
-        if len(planes) == 1:
-            bh, bw = -(-height // 8), -(-width // 8)
+    planes = [subsample(p, hmax // h, vmax // v)
+              for p, (h, v) in zip(planes, factors)]
+    tables = [quality_table(LUMA_Q, quality),
+              quality_table(CHROMA_Q, quality)]
+    table_of = [0, 1, 1, 0][:len(planes)]
+    return (quantize_planes(planes, factors, tables, table_of, width,
+                            height), list(factors), tables)
+
+
+def _flat_table(symbols):
+    """A Huffman table giving each used symbol a code of one length (the
+    all-ones code left free): (BITS[1..16], HUFFVAL, {symbol: (code,
+    length)})."""
+    used = sorted(set(symbols)) or [0]
+    length = max(1, int(np.ceil(np.log2(len(used) + 1))))
+    bits = [0] * 16
+    bits[length - 1] = len(used)
+    return bits, used, {s: (i, length) for i, s in enumerate(used)}
+
+
+class _Items:
+    """The items of one restart interval: Huffman symbols (kind "dc" or
+    "ac") and raw bits, coded once the scan's tables are known."""
+
+    def __init__(self):
+        self.items = []
+
+    def sym(self, kind, s):
+        self.items.append((kind, s, 0))
+
+    def bits(self, value, n):
+        if n:
+            self.items.append(("bits", value & ((1 << n) - 1), n))
+
+
+def _real_blocks(width, height, factors, c):
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    h, v = factors[c]
+    return (-(-(-(-height * v // vmax)) // 8),
+            -(-(-(-width * h // hmax)) // 8))
+
+
+def _mcu_blocks(comps, blocks, factors, width, height):
+    """Per MCU of a scan over ``comps``: the (component, block) pairs in
+    coding order (jdinput.c per_scan_setup)."""
+    if len(comps) == 1:
+        c = comps[0]
+        bh, bw = _real_blocks(width, height, factors, c)
+        return [[(c, blocks[c][y, x])] for y in range(bh) for x in range(bw)]
+    hmax = max(f[0] for f in factors)
+    vmax = max(f[1] for f in factors)
+    my, mx = -(-height // (8 * vmax)), -(-width // (8 * hmax))
+    mcus = []
+    for y in range(my):
+        for x in range(mx):
+            mcu = []
+            for c in comps:
+                h, v = factors[c]
+                for by in range(v):
+                    for bx in range(h):
+                        mcu.append((c, blocks[c][y * v + by, x * h + bx]))
+            mcus.append(mcu)
+    return mcus
+
+
+class _ScanCoder:
+    """Items of one scan, following libjpeg's jcphuff.c (progressive) and
+    jchuff.c (sequential) item by item."""
+
+    def __init__(self, ss, se, ah, al, progressive):
+        self.ss, self.se, self.ah, self.al = ss, se, ah, al
+        self.progressive = progressive
+        self.last_dc = {}
+        self.eobrun = 0
+        self.be = []                  # correction bits held by the EOB run
+
+    def restart(self, out):
+        self.flush_eobrun(out)
+        self.last_dc = {}
+
+    def flush_eobrun(self, out):
+        if self.eobrun:
+            n = self.eobrun.bit_length() - 1
+            out.sym("ac", n << 4)
+            out.bits(self.eobrun, n)
+            self.eobrun = 0
+            for b in self.be:
+                out.bits(b, 1)
+            self.be = []
+
+    def dc(self, out, c, value):
+        diff = value - self.last_dc.get(c, 0)
+        self.last_dc[c] = value
+        size = int(_category(np.array([diff]))[0])
+        out.sym("dc", size)
+        out.bits(int(_extra(np.array([diff]), np.array([size]))[0]), size)
+
+    def block(self, out, c, blk):
+        zz = blk[ZIGZAG]
+        if not self.progressive:
+            self.dc(out, c, int(zz[0]))
+            self.ac_first(out, zz, 1, 63, 0, eob_runs=False)
+        elif self.ss == 0 and self.ah == 0:
+            self.dc(out, c, int(zz[0]) >> self.al)
+        elif self.ss == 0:
+            out.bits((int(zz[0]) >> self.al) & 1, 1)
+        elif self.ah == 0:
+            self.ac_first(out, zz, self.ss, self.se, self.al, eob_runs=True)
         else:
-            bh, bw = my * v, mx * h
-        b = _plane_blocks(plane - 128, bh, bw)
-        coef = DCT @ b @ DCT.T
-        q = tables[0 if len(blocks) == 0 else 1].reshape(8, 8)
-        blocks.append(np.rint(coef / q).astype(np.int64).reshape(bh, bw, 64))
-    return blocks, factors, tables
+            self.ac_refine(out, zz)
+
+    def ac_first(self, out, zz, ss, se, al, eob_runs):
+        vals = [(abs(int(v)) >> al) * (1 if v >= 0 else -1)
+                for v in zz[ss:se + 1]]
+        nz = [i for i, v in enumerate(vals) if v]
+        if nz and eob_runs:
+            self.flush_eobrun(out)
+        run = 0
+        for i, v in enumerate(vals):
+            if not v:
+                run += 1
+                continue
+            while run > 15:
+                out.sym("ac", 0xF0)
+                run -= 16
+            size = abs(v).bit_length()
+            out.sym("ac", (run << 4) | size)
+            out.bits(v if v > 0 else v + (1 << size) - 1, size)
+            run = 0
+        if run:
+            if not eob_runs:
+                out.sym("ac", 0x00)
+                return
+            self.eobrun += 1
+            if self.eobrun == 0x7FFF:
+                self.flush_eobrun(out)
+
+    def ac_refine(self, out, zz):
+        al = self.al
+        absv = [abs(int(v)) >> al for v in zz[self.ss:self.se + 1]]
+        eob = max([i for i, a in enumerate(absv) if a == 1], default=-1)
+        run, br = 0, []
+        for i, a in enumerate(absv):
+            if a == 0:
+                run += 1
+                continue
+            while run > 15 and i <= eob:
+                self.flush_eobrun(out)
+                out.sym("ac", 0xF0)
+                run -= 16
+                for b in br:
+                    out.bits(b, 1)
+                br = []
+            if a > 1:
+                br.append(a & 1)
+                continue
+            self.flush_eobrun(out)
+            out.sym("ac", (run << 4) | 1)
+            out.bits(0 if zz[self.ss + i] < 0 else 1, 1)
+            for b in br:
+                out.bits(b, 1)
+            br, run = [], 0
+        if run or br:
+            self.eobrun += 1
+            self.be += br
+            if self.eobrun == 0x7FFF or len(self.be) > 937:
+                self.flush_eobrun(out)
 
 
-def _huff_codes(spec):
-    """Canonical (code, length) of each symbol of a (BITS, HUFFVAL)."""
-    bits, vals = spec
-    code_of = np.zeros(256, np.int64)
-    len_of = np.zeros(256, np.int64)
-    code, k = 0, 0
-    for length, count in enumerate(bits, start=1):
-        for _ in range(count):
-            code_of[vals[k]] = code
-            len_of[vals[k]] = length
-            code += 1
-            k += 1
-        code <<= 1
-    return code_of, len_of
+def _code(intervals, tables):
+    """Codes and lengths of a scan's items, RST markers between its
+    restart intervals."""
+    parts = []
+    for i, items in enumerate(intervals):
+        codes, lens = [], []
+        for kind, v, n in items.items:
+            if kind == "bits":
+                codes.append(v)
+                lens.append(n)
+            else:
+                code, length = tables[kind][2][v]
+                codes.append(code)
+                lens.append(length)
+        if i:
+            parts.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
+        parts.append(_pack(np.array(codes, np.int64),
+                           np.array(lens, np.int64)))
+    return b"".join(parts)
 
 
-def _category(v: np.ndarray) -> np.ndarray:
-    a = np.abs(v)
-    out = np.zeros(v.shape, np.int64)
-    nz = a > 0
-    out[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
-    return out
-
-
-def _extra(v: np.ndarray, size: np.ndarray) -> np.ndarray:
-    return np.where(v < 0, v + (1 << size) - 1, v)
-
-
-def _items(zz: np.ndarray, dc_diff: np.ndarray, dc_spec, ac_spec):
-    """(codes, lengths, block of each item) of blocks [n, 64] in zigzag
-    order, each block: its DC code and bits, then per nonzero AC the
-    ZRLs, the code and the bits, then EOB unless the last is at 63."""
-    n = zz.shape[0]
-    dc_code, dc_len = _huff_codes(dc_spec)
-    ac_code, ac_len = _huff_codes(ac_spec)
-    blk, kk = np.nonzero(zz[:, 1:])
-    k = kk + 1
-    val = zz[blk, k]
-    first = np.ones(blk.size, bool)
-    first[1:] = blk[1:] != blk[:-1]
-    prev = np.where(first, 0, np.concatenate([[0], k[:-1]]))
-    run = k - prev - 1
-    nzrl = run // 16
-    size = _category(val)
-    sym = (run % 16) * 16 + size
-    last = np.zeros(n, np.int64)
-    np.maximum.at(last, blk, k)
-    eob = last < 63
-    # per block: 2 DC items, per AC nzrl + 2 items, then EOB
-    per_ac = nzrl + 2
-    ac_items = np.bincount(blk, weights=per_ac, minlength=n).astype(np.int64)
-    counts = 2 + ac_items + eob
-    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
-    total = int(counts.sum())
-    codes = np.zeros(total, np.int64)
-    lens = np.zeros(total, np.int64)
-    dsize = _category(dc_diff)
-    codes[start] = dc_code[dsize]
-    lens[start] = dc_len[dsize]
-    codes[start + 1] = _extra(dc_diff, dsize)
-    lens[start + 1] = dsize
-    # offset of each AC's first item inside its block
-    csum = np.cumsum(per_ac) - per_ac
-    block_first = np.concatenate([[0], np.cumsum(
-        np.bincount(blk, weights=per_ac, minlength=n).astype(np.int64))[:-1]])
-    ac_at = start[blk] + 2 + csum - block_first[blk]
-    zrl_at = np.repeat(ac_at, nzrl) + (
-        np.arange(int(nzrl.sum())) - np.repeat(np.cumsum(nzrl) - nzrl, nzrl))
-    codes[zrl_at] = ac_code[0xF0]
-    lens[zrl_at] = ac_len[0xF0]
-    codes[ac_at + nzrl] = ac_code[sym]
-    lens[ac_at + nzrl] = ac_len[sym]
-    codes[ac_at + nzrl + 1] = _extra(val, size)
-    lens[ac_at + nzrl + 1] = size
-    eob_at = (start + counts - 1)[eob]
-    codes[eob_at] = ac_code[0x00]
-    lens[eob_at] = ac_len[0x00]
-    owner = np.repeat(np.arange(n), counts)
-    return codes, lens, owner
-
-
-def _pack(codes: np.ndarray, lens: np.ndarray) -> bytes:
-    """MSB-first bit packing, 1-padded to a byte, 0xFF stuffed."""
-    total = int(lens.sum())
-    if total == 0:
-        return b""
-    item = np.repeat(np.arange(codes.size), lens)
-    starts = np.cumsum(lens) - lens
-    j = np.arange(total) - starts[item]
-    bits = ((codes[item] >> (lens[item] - 1 - j)) & 1).astype(np.uint8)
-    bits = np.concatenate([bits, np.ones((-total) % 8, np.uint8)])
-    out = np.packbits(bits)
-    ff = np.flatnonzero(out == 0xFF)
-    return np.insert(out, ff + 1, 0).astype(np.uint8).tobytes()
-
-
-def _segment(marker: int, body: bytes) -> bytes:
-    return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
-
-
-def write_jpeg(blocks, factors, tables, width: int, height: int,
-               restart: int = 0) -> bytes:
-    """A baseline JFIF file from :func:`quantized_blocks`' output."""
+def write_scans(blocks, factors, tables, width: int, height: int, scans,
+                progressive: bool = False, restart: int = 0,
+                space: str = "ycc") -> bytes:
+    """A JPEG of ``blocks`` / ``factors`` / ``tables`` (as
+    :func:`quantized_blocks` or :func:`component_blocks` return them)
+    coded in ``scans``: a list of (components, Ss, Se, Ah, Al); for a
+    sequential file only the components count (Ss 0, Se 63, Ah = Al = 0).
+    SOF2 when ``progressive``, else SOF1 (extended sequential, which a
+    several-scan file is). ``space`` "rgb", "cmyk" or "ycck" writes an
+    Adobe marker (transform 0, 0 or 2) in place of JFIF."""
     ncomp = len(blocks)
-    specs = [(DC_LUMA, AC_LUMA)] + [(DC_CHROMA, AC_CHROMA)] * (ncomp - 1)
-    # MCU order: per MCU, each component's h x v blocks in raster order
-    if ncomp == 1:
-        order = [blocks[0].reshape(-1, 64)]
-        comp_of = np.zeros(order[0].shape[0], np.int64)
-        mcu_of = np.arange(order[0].shape[0])
-        seq = order[0]
+    out = [b"\xff\xd8"]
+    if space != "ycc":
+        out.append(_segment(0xEE, b"Adobe" + struct.pack(
+            ">HHHB", 100, 0, 0, {"rgb": 0, "cmyk": 0, "ycck": 2}[space])))
     else:
-        hmax = max(f[0] for f in factors)
-        vmax = max(f[1] for f in factors)
-        my = -(-height // (8 * vmax))
-        mx = -(-width // (8 * hmax))
-        parts, comps = [], []
-        for c, (b, (h, v)) in enumerate(zip(blocks, factors)):
-            m = b.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4)
-            parts.append(m.reshape(my * mx, h * v, 64))
-            comps.append(np.full(h * v, c))
-        seq = np.concatenate(parts, axis=1)
-        per_mcu = seq.shape[1]
-        seq = seq.reshape(-1, 64)
-        comp_of = np.tile(np.concatenate(comps), my * mx)
-        mcu_of = np.repeat(np.arange(my * mx), per_mcu)
-    zz = seq[:, ZIGZAG]
-    # DC differences per component, reset at each restart interval
-    interval = mcu_of // restart if restart else np.zeros_like(mcu_of)
-    dc_diff = np.zeros(zz.shape[0], np.int64)
-    for c in range(ncomp):
-        sel = np.flatnonzero(comp_of == c)
-        dc = zz[sel, 0]
-        prev = np.concatenate([[0], dc[:-1]])
-        new = np.concatenate([[True], interval[sel][1:] != interval[sel][:-1]])
-        dc_diff[sel] = dc - np.where(new, 0, prev)
-    codes = np.zeros(0, np.int64)
-    lens = np.zeros(0, np.int64)
-    owner = np.zeros(0, np.int64)
-    for c in range(ncomp):
-        sel = np.flatnonzero(comp_of == c)
-        cc, ll, oo = _items(zz[sel], dc_diff[sel], *specs[c])
-        codes = np.concatenate([codes, cc])
-        lens = np.concatenate([lens, ll])
-        owner = np.concatenate([owner, sel[oo]])
-    order = np.argsort(owner, kind="stable")
-    codes, lens, owner = codes[order], lens[order], owner[order]
-    if restart:
-        data = []
-        item_interval = interval[owner]
-        bounds = np.searchsorted(item_interval,
-                                 np.arange(item_interval.max() + 2))
-        for i in range(len(bounds) - 1):
-            if i:
-                data.append(bytes([0xFF, 0xD0 + (i - 1) % 8]))
-            data.append(_pack(codes[bounds[i]:bounds[i + 1]],
-                              lens[bounds[i]:bounds[i + 1]]))
-        scan = b"".join(data)
-    else:
-        scan = _pack(codes, lens)
-
-    out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00"
-                                       b"\x01\x00\x00")]
+        out.append(_segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+                                  b"\x00\x00"))
+    table_of = [0, 1, 1, 0][:ncomp]
     for t, q in enumerate(tables):
         out.append(_segment(0xDB, bytes([t]) + bytes(
             q.astype(np.uint8)[ZIGZAG].tolist())))
-    comp_bytes = b"".join(bytes([c + 1, (h << 4) | v, min(c, 1)])
+    comp_bytes = b"".join(bytes([c + 1, (h << 4) | v, table_of[c]])
                           for c, (h, v) in enumerate(factors))
-    out.append(_segment(0xC0, struct.pack(">BHHB", 8, height, width, ncomp)
-                        + comp_bytes))
-    for t, (dc, ac) in enumerate(specs[:min(ncomp, 2)]):
-        for cls, (bits, vals) in ((0, dc), (1, ac)):
-            out.append(_segment(0xC4, bytes([(cls << 4) | t] + bits + vals)))
+    out.append(_segment(0xC2 if progressive else 0xC1, struct.pack(
+        ">BHHB", 8, height, width, ncomp) + comp_bytes))
     if restart:
         out.append(_segment(0xDD, struct.pack(">H", restart)))
-    sos = bytes([ncomp]) + b"".join(
-        bytes([c + 1, (min(c, 1) << 4) | min(c, 1)]) for c in range(ncomp))
-    out.append(_segment(0xDA, sos + b"\x00\x3f\x00"))
-    out += [scan, b"\xff\xd9"]
+    for comps, ss, se, ah, al in scans:
+        if not progressive:
+            ss, se, ah, al = 0, 63, 0, 0
+        coder = _ScanCoder(ss, se, ah, al, progressive)
+        intervals = [_Items()]
+        for m, mcu in enumerate(_mcu_blocks(list(comps), blocks, factors,
+                                            width, height)):
+            if restart and m and m % restart == 0:
+                coder.restart(intervals[-1])
+                intervals.append(_Items())
+            for c, blk in mcu:
+                coder.block(intervals[-1], c, blk)
+        coder.flush_eobrun(intervals[-1])
+        tables_used = {}
+        for kind, tc in (("dc", 0), ("ac", 1)):
+            syms = [v for it in intervals for k, v, _ in it.items
+                    if k == kind]
+            if syms:
+                tables_used[kind] = _flat_table(syms)
+                bits, vals, _ = tables_used[kind]
+                out.append(_segment(0xC4, bytes([tc << 4] + bits + vals)))
+        out.append(_segment(0xDA, bytes([len(comps)]) + b"".join(
+            bytes([c + 1, 0]) for c in comps) + bytes([ss, se,
+                                                       (ah << 4) | al])))
+        out.append(_code(intervals, tables_used))
+    out.append(b"\xff\xd9")
     return b"".join(out)
-
-
-def encode_jpeg(img: np.ndarray, quality: int = 90, sampling: str = "420",
-                restart: int = 0) -> bytes:
-    """Baseline JFIF bytes of ``img`` ([H, W] gray or [H, W, 3] RGB)."""
-    blocks, factors, tables = quantized_blocks(img, quality, sampling)
-    return write_jpeg(blocks, factors, tables, img.shape[1], img.shape[0],
-                      restart)
