@@ -5,14 +5,16 @@ to libjpeg-turbo 3.1's default decompression as cv2 and Pillow run it
 (islow IDCT, block smoothing, fancy upsampling, fixed-point colour
 conversion).
 
-Taken: Huffman-coded 8-bit JPEGs, sequential (SOF0, SOF1; one scan or
-several, interleaved or not) or progressive (SOF2: spectral selection
-and successive approximation, EOB runs), with 1, 3 or 4 components
-(gray, YCbCr, RGB, CMYK, YCCK), every integral sampling ratio (4:1:1
-among them) and restart intervals. Arithmetic-coded, lossless,
-hierarchical and 12-bit files, non-integral sampling ratios and
-interleaved MCUs of more than 10 blocks raise ``ValueError`` naming the
-file and the property.
+Taken: 8-bit JPEGs, Huffman- or arithmetic-coded (the latter with the
+conditioning of its DAC segments: DC L and U, AC K; 0, 1 and 5 without),
+sequential (SOF0, SOF1, SOF9; one scan or several, interleaved or not)
+or progressive (SOF2, SOF10: spectral selection and successive
+approximation, EOB runs), with 1, 3 or 4 components (gray, YCbCr, RGB,
+CMYK, YCCK), every integral sampling ratio (4:1:1 among them) and
+restart intervals. Lossless (SOF3, SOF11), hierarchical and 12-bit
+files, non-integral sampling ratios and interleaved MCUs of more than 10
+blocks raise ``ValueError`` naming the file and the property; so does a
+scan whose data is corrupt or ends before the image does.
 
 The reference's readers differ, so the caller chooses
 (:func:`decode_jpeg`'s ``mode``): ``cv2.imread`` applies the EXIF
@@ -42,7 +44,12 @@ _NATURAL = np.array([
 
 _ERRORS = {-1: "a bad Huffman code", -2: "truncated entropy-coded data",
            -3: "a missing or out-of-order restart marker",
-           -4: "a bad Huffman table", -5: "an unsupported layout"}
+           -4: "a bad Huffman table", -5: "an unsupported layout",
+           -6: "a bad arithmetic code"}
+
+# sequential and progressive frames, Huffman- or arithmetic-coded
+_TAKEN = {0xC0, 0xC1, 0xC2, 0xC9, 0xCA}
+_ARITH_TABLES = 16      # NUM_ARITH_TBLS
 
 
 # the nine lowest AC coefficients (zigzag 1-9), whose precision decides
@@ -73,8 +80,9 @@ def _load() -> ctypes.CDLL:
 
 
 def _sof_property(marker: int):
-    """What keeps a SOFn frame from this decoder, or None for SOF0/1/2."""
-    if marker in (0xC0, 0xC1, 0xC2):
+    """What keeps a SOFn frame from this decoder, or None for SOF0/1/2
+    and their arithmetic-coded twins SOF9/10."""
+    if marker in _TAKEN:
         return None
     parts = []
     if marker >= 0xC9:
@@ -90,15 +98,18 @@ def _sof_property(marker: int):
 
 class _Scan:
     """One SOS: its components (frame indices), DC / AC table numbers,
-    spectral band and approximation bits, the tables and restart interval
-    in force, and where its entropy-coded bytes lie in the file."""
+    spectral band and approximation bits, the tables (Huffman, or the
+    arithmetic conditioning of each component's: DC L, DC U, AC K) and
+    restart interval in force, and where its entropy-coded bytes lie in
+    the file (up to and with the marker that ends them)."""
 
     def __init__(self, comps, td, ta, ss, se, ah, al, restart, bits, vals,
-                 start, end):
+                 conditioning, start, end):
         self.comps, self.td, self.ta = comps, td, ta
         self.ss, self.se, self.ah, self.al = ss, se, ah, al
         self.restart = restart
         self.bits, self.vals = bits, vals
+        self.conditioning = conditioning
         self.start, self.end = start, end
 
 
@@ -118,6 +129,11 @@ class _Header:
         self.adobe_transform = None
         self.exif = None
         self.progressive = False
+        self.arith = False
+        # jdmarker.c get_soi's arithmetic conditioning, until a DAC
+        self.dc_l = [0] * _ARITH_TABLES
+        self.dc_u = [1] * _ARITH_TABLES
+        self.ac_k = [5] * _ARITH_TABLES
         self.frame = None       # (height, width, [(id, h, v, tq)])
         self.latched = {}       # frame component -> its quantisation table
         self.scans = []
@@ -138,6 +154,17 @@ def _scan_end(data: bytes, pos: int) -> int:
         if pos < n and data[pos] != 0 and not 0xD0 <= data[pos] <= 0xD7:
             return end
         pos += 1
+
+
+def _with_marker(data: bytes, end: int) -> int:
+    """The end of a scan's bytes as the decoder takes them: past the
+    marker that ends the scan at ``end`` (its fill bytes and code), so
+    that it can tell a scan that reached its marker (after which
+    arithmetic-coded data legally reads zeros) from a file cut short."""
+    n = len(data)
+    while end < n and data[end] == 0xFF:
+        end += 1
+    return min(end + 1, n)
 
 
 def _parse(data: bytes, path: str) -> _Header:
@@ -170,7 +197,7 @@ def _parse(data: bytes, path: str) -> _Header:
         if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
             _frame(hdr, marker, seg, path)
         elif marker == 0xCC:
-            raise ValueError(f"{path}: arithmetic-coded (DAC marker)")
+            _dac(hdr, seg, path)
         elif marker == 0xC4:
             _dht(hdr, seg, path)
         elif marker == 0xDB:
@@ -190,7 +217,7 @@ def _parse(data: bytes, path: str) -> _Header:
                              f"the scan)")
         elif marker == 0xDA:
             end = _scan_end(data, pos)
-            _sos(hdr, seg, path, pos, end)
+            _sos(hdr, seg, path, pos, _with_marker(data, end))
             pos = end
     if not hdr.scans:
         raise ValueError(f"{path}: no scan before the end of the file")
@@ -225,7 +252,8 @@ def _frame(hdr: _Header, marker: int, seg: bytes, path: str) -> None:
                 "ratios are read)")
     else:   # one component: its factors do not shape the data
         comps = [(comps[0][0], 1, 1, comps[0][3])]
-    hdr.progressive = marker == 0xC2
+    hdr.progressive = marker in (0xC2, 0xCA)
+    hdr.arith = marker >= 0xC9
     hdr.frame = (height, width, comps)
 
 
@@ -245,6 +273,28 @@ def _dht(hdr: _Header, seg: bytes, path: str) -> None:
                                                  pos + 17)
         hdr.huff_ok[tc][th] = True
         pos += 17 + count
+
+
+def _dac(hdr: _Header, seg: bytes, path: str) -> None:
+    """T.81 B.2.4.3 as jdmarker.c get_dac reads it: pairs of Tc/Tb and
+    Cs; a DC table takes L = Cs & 15 and U = Cs >> 4 (L <= U), an AC
+    table K = Cs (1 <= K <= 63)."""
+    if len(seg) % 2:
+        raise ValueError(f"{path}: bad DAC segment length")
+    for at in range(0, len(seg), 2):
+        index, cs = seg[at], seg[at + 1]
+        if index >= 2 * _ARITH_TABLES:
+            raise ValueError(f"{path}: bad DAC table {index >> 4}/"
+                             f"{index & 15}")
+        if index >= _ARITH_TABLES:
+            if not 1 <= cs <= 63:
+                raise ValueError(f"{path}: bad DAC AC conditioning K {cs}")
+            hdr.ac_k[index - _ARITH_TABLES] = cs
+        else:
+            if cs & 15 > cs >> 4:
+                raise ValueError(f"{path}: bad DAC DC conditioning L "
+                                 f"{cs & 15} > U {cs >> 4}")
+            hdr.dc_l[index], hdr.dc_u[index] = cs & 15, cs >> 4
 
 
 def _dqt(hdr: _Header, seg: bytes, path: str) -> None:
@@ -297,11 +347,13 @@ def _sos(hdr: _Header, seg: bytes, path: str, start: int, end: int) -> None:
     else:
         ss, se, ah, al = 0, 63, 0, 0
         use_dc = use_ac = True
-    for c, d, a in zip(idx, td, ta):
-        if d > 3 or a > 3 or (use_dc and not hdr.huff_ok[0][d]) \
-                or (use_ac and not hdr.huff_ok[1][a]):
+    for d, a in zip(td, ta):   # (arithmetic coding takes any of 16)
+        if not hdr.arith and (d > 3 or a > 3
+                              or (use_dc and not hdr.huff_ok[0][d])
+                              or (use_ac and not hdr.huff_ok[1][a])):
             raise ValueError(f"{path}: a scan uses an undefined Huffman "
                              f"table")
+    for c in idx:
         if c not in hdr.latched:   # jdinput.c latch_quant_tables
             tq = comps[c][3]
             if tq > 3 or not hdr.quant_ok[tq]:
@@ -311,7 +363,8 @@ def _sos(hdr: _Header, seg: bytes, path: str, start: int, end: int) -> None:
     hdr.scans.append(_Scan(idx, td, ta, ss, se, ah, al, hdr.restart,
                            {k: v.copy() for k, v in hdr.bits.items()},
                            {k: v.copy() for k, v in hdr.vals.items()},
-                           start, end))
+                           [(hdr.dc_l[d], hdr.dc_u[d], hdr.ac_k[a])
+                            for d, a in zip(td, ta)], start, end))
 
 
 def _transform(hdr: _Header) -> str:
@@ -408,9 +461,11 @@ def _scan_args(hdr: _Header, scan: _Scan, data: np.ndarray, bufs, shapes,
     file, the last eight of ``jpeg_decode_output``'s)."""
     height, width, _ = hdr.frame
     layout = [len(scan.comps), scan.ss, scan.se, scan.ah, scan.al,
-              scan.restart, int(hdr.progressive), width, height, hmax, vmax]
-    for c, d, a in zip(scan.comps, scan.td, scan.ta):
-        layout += [*shapes[c], *bufs[c].shape[1::-1], d, a]
+              scan.restart, int(hdr.progressive), width, height, hmax, vmax,
+              int(hdr.arith)]
+    for c, d, a, cond in zip(scan.comps, scan.td, scan.ta,
+                             scan.conditioning):
+        layout += [*shapes[c], *bufs[c].shape[1::-1], d, a, *cond]
     layout = np.ascontiguousarray(layout, np.int32)
     coefs = (ctypes.c_void_p * len(scan.comps))(
         *(bufs[c].ctypes.data for c in scan.comps))

@@ -1,20 +1,22 @@
 // JPEG decoder for the host, bit-equal to libjpeg-turbo 3.1's default
-// decompression (the library inside cv2 and Pillow): Huffman-coded 8-bit
-// data, sequential (SOF0/1, one scan or several) or progressive (SOF2:
-// DC and AC first and refinement scans, EOB runs, successive
-// approximation), 1, 3 or 4 components, every integral sampling ratio,
-// restart intervals. As jdcoefct.c does, a file of several scans (every
-// progressive one) decodes them into a whole-image coefficient buffer and
-// then runs the output pass; a file of one sequential scan decodes into a
-// buffer one iMCU row high and runs the output pass on each iMCU row as
-// it is decoded. The output pass, an iMCU row at a time, applies
-// jdcoefct.c's block smoothing where the last scans left coefficients
-// unrefined, jidctint.c's islow IDCT, jdsample.c's upsampling (fancy
-// h2v1, h2v2 and h1v2, plain replication for every other ratio) with
-// jdmainct.c's edge rows, and jdcolor.c's fixed-point YCbCr -> RGB and
-// YCCK -> CMYK. The marker
-// segments are parsed in Python (fgt_tpu_torch/core/jpeg.py), which hands
-// this file each scan's tables, layout and entropy-coded bytes.
+// decompression (the library inside cv2 and Pillow): 8-bit data,
+// Huffman- or arithmetic-coded (jdhuff.c / jdphuff.c, or jdarith.c's QM
+// decoder with its DC and AC conditioning), sequential (SOF0/1/9, one
+// scan or several) or progressive (SOF2/10: DC and AC first and
+// refinement scans, EOB runs, successive approximation), 1, 3 or 4
+// components, every integral sampling ratio, restart intervals. As
+// jdcoefct.c does, a file of several scans (every progressive one)
+// decodes them into a whole-image coefficient buffer and then runs the
+// output pass; a file of one sequential scan decodes into a buffer one
+// iMCU row high and runs the output pass on each iMCU row as it is
+// decoded. The output pass, an iMCU row at a time, applies jdcoefct.c's
+// block smoothing where the last scans left coefficients unrefined,
+// jidctint.c's islow IDCT, jdsample.c's upsampling (fancy h2v1, h2v2 and
+// h1v2, plain replication for every other ratio) with jdmainct.c's edge
+// rows, and jdcolor.c's fixed-point YCbCr -> RGB and YCCK -> CMYK. The
+// marker segments are parsed in Python (fgt_tpu_torch/core/jpeg.py),
+// which hands this file each scan's tables, layout and entropy-coded
+// bytes.
 //
 // Build: g++ -O3 -fPIC -shared jpeg_decode.cpp -o libjpeg_decode.so
 // Plain C interface, bound with ctypes.
@@ -41,7 +43,22 @@ enum Error {
   kBadRestart = -3,
   kBadHuffmanTable = -4,
   kBadLayout = -5,
+  kBadArithCode = -6,
 };
+
+// jdmarker.c read_restart_marker, from `pos`: skip to the next marker
+// (0xFF then neither 0x00 nor 0xFF), which must be RST<expected>; `pos`
+// then lies past it.
+int seek_restart(const uint8_t* data, size_t len, size_t& pos, int expected) {
+  while (pos + 1 < len) {
+    if (data[pos] == 0xFF && data[pos + 1] != 0 && data[pos + 1] != 0xFF)
+      break;
+    ++pos;
+  }
+  if (pos + 1 >= len || data[pos + 1] != 0xD0 + expected) return kBadRestart;
+  pos += 2;
+  return kOk;
+}
 
 // ---------------- Huffman tables (jdhuff.c jpeg_make_d_derived_tbl) ----
 
@@ -165,14 +182,7 @@ struct BitReader {
     buf = 0;
     cnt = real = 0;
     at_marker = false;
-    while (pos + 1 < len) {
-      if (data[pos] == 0xFF && data[pos + 1] != 0 && data[pos + 1] != 0xFF)
-        break;
-      ++pos;
-    }
-    if (pos + 1 >= len || data[pos + 1] != 0xD0 + expected) return kBadRestart;
-    pos += 2;
-    return kOk;
+    return seek_restart(data, len, pos, expected);
   }
 };
 
@@ -200,6 +210,139 @@ inline int extend(uint32_t r, int s) {  // HUFF_EXTEND
              ? static_cast<int>(r) + static_cast<int>((~0u) << s) + 1
              : static_cast<int>(r);
 }
+
+// ---------------- QM decoder (jdarith.c arith_decode, T.81 Annex D) ----
+
+// T.81 Table D.2: Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS of each
+// probability estimation state; state 113 is the fixed estimate of 0.5
+// (T.851 Table 5) that signs and refinement bits use.
+struct QeState {
+  uint16_t qe;
+  uint8_t nlps, nmps, switch_mps;
+};
+const QeState kQe[114] = {
+    {0x5a1d, 1, 1, 1},     {0x2586, 14, 2, 0},    {0x1114, 16, 3, 0},
+    {0x080b, 18, 4, 0},    {0x03d8, 20, 5, 0},    {0x01da, 23, 6, 0},
+    {0x00e5, 25, 7, 0},    {0x006f, 28, 8, 0},    {0x0036, 30, 9, 0},
+    {0x001a, 33, 10, 0},   {0x000d, 35, 11, 0},   {0x0006, 9, 12, 0},
+    {0x0003, 10, 13, 0},   {0x0001, 12, 13, 0},   {0x5a7f, 15, 15, 1},
+    {0x3f25, 36, 16, 0},   {0x2cf2, 38, 17, 0},   {0x207c, 39, 18, 0},
+    {0x17b9, 40, 19, 0},   {0x1182, 42, 20, 0},   {0x0cef, 43, 21, 0},
+    {0x09a1, 45, 22, 0},   {0x072f, 46, 23, 0},   {0x055c, 48, 24, 0},
+    {0x0406, 49, 25, 0},   {0x0303, 51, 26, 0},   {0x0240, 52, 27, 0},
+    {0x01b1, 54, 28, 0},   {0x0144, 56, 29, 0},   {0x00f5, 57, 30, 0},
+    {0x00b7, 59, 31, 0},   {0x008a, 60, 32, 0},   {0x0068, 62, 33, 0},
+    {0x004e, 63, 34, 0},   {0x003b, 32, 35, 0},   {0x002c, 33, 9, 0},
+    {0x5ae1, 37, 37, 1},   {0x484c, 64, 38, 0},   {0x3a0d, 65, 39, 0},
+    {0x2ef1, 67, 40, 0},   {0x261f, 68, 41, 0},   {0x1f33, 69, 42, 0},
+    {0x19a8, 70, 43, 0},   {0x1518, 72, 44, 0},   {0x1177, 73, 45, 0},
+    {0x0e74, 74, 46, 0},   {0x0bfb, 75, 47, 0},   {0x09f8, 77, 48, 0},
+    {0x0861, 78, 49, 0},   {0x0706, 79, 50, 0},   {0x05cd, 48, 51, 0},
+    {0x04de, 50, 52, 0},   {0x040f, 50, 53, 0},   {0x0363, 51, 54, 0},
+    {0x02d4, 52, 55, 0},   {0x025c, 53, 56, 0},   {0x01f8, 54, 57, 0},
+    {0x01a4, 55, 58, 0},   {0x0160, 56, 59, 0},   {0x0125, 57, 60, 0},
+    {0x00f6, 58, 61, 0},   {0x00cb, 59, 62, 0},   {0x00ab, 61, 63, 0},
+    {0x008f, 61, 32, 0},   {0x5b12, 65, 65, 1},   {0x4d04, 80, 66, 0},
+    {0x412c, 81, 67, 0},   {0x37d8, 82, 68, 0},   {0x2fe8, 83, 69, 0},
+    {0x293c, 84, 70, 0},   {0x2379, 86, 71, 0},   {0x1edf, 87, 72, 0},
+    {0x1aa9, 87, 73, 0},   {0x174e, 72, 74, 0},   {0x1424, 72, 75, 0},
+    {0x119c, 74, 76, 0},   {0x0f6b, 74, 77, 0},   {0x0d51, 75, 78, 0},
+    {0x0bb6, 77, 79, 0},   {0x0a40, 77, 48, 0},   {0x5832, 80, 81, 1},
+    {0x4d1c, 88, 82, 0},   {0x438e, 89, 83, 0},   {0x3bdd, 90, 84, 0},
+    {0x34ee, 91, 85, 0},   {0x2eae, 92, 86, 0},   {0x299a, 93, 87, 0},
+    {0x2516, 86, 71, 0},   {0x5570, 88, 89, 1},   {0x4ca9, 95, 90, 0},
+    {0x44d9, 96, 91, 0},   {0x3e22, 97, 92, 0},   {0x3824, 99, 93, 0},
+    {0x32b4, 99, 94, 0},   {0x2e17, 93, 86, 0},   {0x56a8, 95, 96, 1},
+    {0x4f46, 101, 97, 0},  {0x47e5, 102, 98, 0},  {0x41cf, 103, 99, 0},
+    {0x3c3d, 104, 100, 0}, {0x375e, 99, 93, 0},   {0x5231, 105, 102, 0},
+    {0x4c0f, 106, 103, 0}, {0x4639, 107, 104, 0}, {0x415e, 103, 99, 0},
+    {0x5627, 105, 106, 1}, {0x50e7, 108, 107, 0}, {0x4b85, 109, 103, 0},
+    {0x5597, 110, 109, 0}, {0x504f, 111, 107, 0}, {0x5a10, 110, 111, 1},
+    {0x5522, 112, 109, 0}, {0x59eb, 112, 111, 1}, {0x5a1d, 113, 113, 0}};
+
+constexpr uint8_t kFixedBin = 113;
+
+// The decoder's registers: C (interval base and input bits), A (interval
+// size) and CT (bits left in C's input byte; -16 before the first two
+// bytes). A statistics bin is one byte: the state index, and the MPS in
+// bit 7.
+struct ArithReader {
+  const uint8_t* data = nullptr;
+  size_t len = 0;
+  size_t pos = 0;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  bool at_marker = false;
+  bool overrun = false;   // the data ended with no marker after it
+
+  // jdarith.c get_byte and its marker rule: 0xFF 0x00 is a stuffed 0xFF;
+  // at a marker (which arithmetic data may legally reach) zeros follow
+  // and `pos` stays on the 0xFF.
+  int next_byte() {
+    if (at_marker) return 0;
+    if (pos >= len) {
+      overrun = true;
+      return 0;
+    }
+    if (data[pos] != 0xFF) return data[pos++];
+    size_t q = pos + 1;
+    while (q < len && data[q] == 0xFF) ++q;   // fill bytes
+    if (q < len && data[q] == 0) {
+      pos = q + 1;
+      return 0xFF;
+    }
+    if (q >= len) overrun = true;
+    at_marker = true;
+    return 0;
+  }
+
+  // jdarith.c arith_decode: renormalise (D.2.6), then decode one binary
+  // decision with bin *st and update its estimate (D.2.4, D.2.5).
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        c = (c << 8) | next_byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;   // two bytes read
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const QeState& e = kQe[sv & 0x7F];
+    const int64_t qe = e.qe;
+    const int nl = e.nlps | (e.switch_mps << 7), nm = e.nmps;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {   // conditional exchange: the MPS after all
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {   // conditional exchange: the LPS
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+
+  // jdarith.c process_restart's part: skip to RST<expected>, then read
+  // two fresh bytes into C.
+  int restart(int expected) {
+    c = a = 0;
+    ct = -16;
+    at_marker = false;
+    return seek_restart(data, len, pos, expected);
+  }
+};
 
 // ---------------- islow IDCT (jidctint.c, CONST_BITS 13, PASS1_BITS 2) --
 
@@ -472,24 +615,182 @@ inline uint8_t clamp255(int v) {
 // (width_in_blocks x height_in_blocks), the row pitch and the block rows
 // of its buffer (quantised coefficients, natural order; a buffer of fewer
 // rows than the image holds one iMCU row, and block row `by` lies at
-// `by % rows`) and its DC and AC tables.
+// `by % rows`) and its DC and AC tables: Huffman tables, or for an
+// arithmetic-coded scan the numbers of its statistics areas and their
+// conditioning (DAC: DC L and U, AC K).
 struct ScanComp {
   int h, v, bw, bh, pitch, rows;
   int16_t* coef;
   const HuffTable* dc;
   const HuffTable* ac;
+  int dc_tbl = 0, ac_tbl = 0, L = 0, U = 1, K = 5;
   int16_t* block(int bx, int by) const {
     if (by >= rows) by %= rows;
     return coef + (static_cast<size_t>(by) * pitch + bx) * 64;
   }
 };
 
+constexpr int kArithTables = 16;   // NUM_ARITH_TBLS
+
 struct ScanState {
   BitReader br;
   int Ss = 0, Se = 63, Ah = 0, Al = 0;
   int last_dc[4] = {0, 0, 0, 0};
   int eobrun = 0;
+  // arithmetic coding (jdarith.c arith_entropy_decoder): the decoder,
+  // per table its DC (64) and AC (256) statistics bins, per scan
+  // component its DC conditioning context
+  ArithReader ar;
+  uint8_t dc_stats[kArithTables][64] = {};
+  uint8_t ac_stats[kArithTables][256] = {};
+  uint8_t fixed_bin = kFixedBin;
+  int dc_context[4] = {0, 0, 0, 0};
 };
+
+// jdarith.c start_pass / process_restart: clear the statistics areas the
+// scan uses, the DC predictions and contexts. (The decoder's registers
+// start over in ArithReader.)
+void reset_arith(ScanState& st, const ScanComp* comps, int ns,
+                 bool progressive) {
+  for (int s = 0; s < ns; ++s) {
+    if (!progressive || (st.Ss == 0 && st.Ah == 0)) {
+      std::memset(st.dc_stats[comps[s].dc_tbl], 0, 64);
+      st.last_dc[s] = 0;
+      st.dc_context[s] = 0;
+    }
+    if (!progressive || st.Ss)
+      std::memset(st.ac_stats[comps[s].ac_tbl], 0, 256);
+  }
+}
+
+// T.81 F.2.4.1 (jdarith.c decode_mcu's DC part): the DC difference of
+// one block of scan component s, added to its prediction (mod 2^16).
+inline int arith_dc_diff(ScanState& st, const ScanComp& c, int s) {
+  ArithReader& ar = st.ar;
+  uint8_t* stats = st.dc_stats[c.dc_tbl];
+  uint8_t* sp = stats + st.dc_context[s];
+  if (ar.decode(sp) == 0) {
+    st.dc_context[s] = 0;
+    return kOk;
+  }
+  const int sign = ar.decode(sp + 1);
+  sp += 2 + sign;
+  int m = ar.decode(sp);
+  if (m) {   // the magnitude category, X1 = 20
+    sp = stats + 20;
+    while (ar.decode(sp)) {
+      if ((m <<= 1) == 0x8000) return kBadArithCode;
+      ++sp;
+    }
+  }
+  // F.1.4.4.1.2: the conditioning category of the next difference
+  if (m < ((1 << c.L) >> 1))
+    st.dc_context[s] = 0;
+  else if (m > ((1 << c.U) >> 1))
+    st.dc_context[s] = 12 + sign * 4;
+  else
+    st.dc_context[s] = 4 + sign * 4;
+  int v = m;
+  sp += 14;
+  while (m >>= 1)
+    if (ar.decode(sp)) v |= m;
+  v += 1;
+  if (sign) v = -v;
+  st.last_dc[s] = (st.last_dc[s] + v) & 0xFFFF;
+  return kOk;
+}
+
+// T.81 F.2.4.2 (jdarith.c decode_mcu's AC part, decode_mcu_AC_first):
+// the AC coefficients Ss..Se of one block, each shifted left by Al.
+inline int arith_ac(ScanState& st, const ScanComp& c, int ss, int se, int al,
+                    int16_t* block) {
+  ArithReader& ar = st.ar;
+  uint8_t* stats = st.ac_stats[c.ac_tbl];
+  for (int k = ss; k <= se; ++k) {
+    uint8_t* sp = stats + 3 * (k - 1);
+    if (ar.decode(sp)) break;   // end of block
+    while (ar.decode(sp + 1) == 0) {
+      sp += 3;
+      if (++k > se) return kBadArithCode;
+    }
+    const int sign = ar.decode(&st.fixed_bin);
+    sp += 2;
+    int m = ar.decode(sp);
+    if (m && ar.decode(sp)) {
+      m <<= 1;
+      sp = stats + (k <= c.K ? 189 : 217);
+      while (ar.decode(sp)) {
+        if ((m <<= 1) == 0x8000) return kBadArithCode;
+        ++sp;
+      }
+    }
+    int v = m;
+    sp += 14;
+    while (m >>= 1)
+      if (ar.decode(sp)) v |= m;
+    v += 1;
+    if (sign) v = -v;
+    block[kNaturalOrder[k]] =
+        static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+  }
+  return kOk;
+}
+
+// jdarith.c decode_mcu_AC_refine, one block.
+inline int arith_ac_refine(ScanState& st, const ScanComp& c, int16_t* block) {
+  ArithReader& ar = st.ar;
+  uint8_t* stats = st.ac_stats[c.ac_tbl];
+  const int p1 = 1 << st.Al, m1 = -(1 << st.Al);
+  int kex = st.Se;   // the previous stage's end of block
+  for (; kex > 0; --kex)
+    if (block[kNaturalOrder[kex]]) break;
+  for (int k = st.Ss; k <= st.Se; ++k) {
+    uint8_t* sp = stats + 3 * (k - 1);
+    if (k > kex && ar.decode(sp)) break;
+    for (;;) {
+      int16_t* coef = block + kNaturalOrder[k];
+      if (*coef) {   // nonzero before: a correction bit
+        if (ar.decode(sp + 2))
+          *coef = static_cast<int16_t>(*coef + (*coef < 0 ? m1 : p1));
+        break;
+      }
+      if (ar.decode(sp + 1)) {   // newly nonzero
+        *coef = static_cast<int16_t>(ar.decode(&st.fixed_bin) ? m1 : p1);
+        break;
+      }
+      sp += 3;
+      if (++k > st.Se) return kBadArithCode;
+    }
+  }
+  return kOk;
+}
+
+// One block of an arithmetic-coded scan: jdarith.c decode_mcu (the
+// sequential block, zeroed first) or its four progressive passes.
+inline int decode_block_arith(ScanState& st, const ScanComp& c, int s,
+                              bool progressive, int16_t* block) {
+  if (!progressive) {
+    std::memset(block, 0, 64 * sizeof(int16_t));
+    const int err = arith_dc_diff(st, c, s);
+    if (err) return err;
+    block[0] = static_cast<int16_t>(st.last_dc[s]);
+    return arith_ac(st, c, 1, 63, 0, block);
+  }
+  if (st.Ss == 0) {
+    if (st.Ah) {   // DC refinement: the next bit, at the fixed estimate
+      if (st.ar.decode(&st.fixed_bin))
+        block[0] = static_cast<int16_t>(block[0] | (1 << st.Al));
+      return kOk;
+    }
+    const int err = arith_dc_diff(st, c, s);
+    if (err) return err;
+    block[0] = static_cast<int16_t>(
+        static_cast<uint32_t>(st.last_dc[s]) << st.Al);
+    return kOk;
+  }
+  return st.Ah ? arith_ac_refine(st, c, block)
+               : arith_ac(st, c, st.Ss, st.Se, st.Al, block);
+}
 
 // jdhuff.c decode_mcu_slow, one block of a sequential scan (zeroed
 // first, as libjpeg zeroes it).
@@ -875,7 +1176,9 @@ int decode_scan(const uint8_t* data, int64_t len, const int* layout,
                 const uint8_t* ac_vals, OutputPass* pass) {
   const int ns = layout[0];
   if (ns < 1 || ns > 4) return kBadLayout;
-  ScanState st{BitReader{data, static_cast<size_t>(len)}};
+  ScanState st;
+  st.br = BitReader{data, static_cast<size_t>(len)};
+  st.ar = ArithReader{data, static_cast<size_t>(len)};
   st.Ss = layout[1];
   st.Se = layout[2];
   st.Ah = layout[3];
@@ -884,6 +1187,8 @@ int decode_scan(const uint8_t* data, int64_t len, const int* layout,
   const bool progressive = layout[6] != 0;
   const int width = layout[7], height = layout[8];
   const int hmax = layout[9], vmax = layout[10];
+  const bool arith = layout[11] != 0;
+  const int tables = arith ? kArithTables : 4;
   HuffTable dc[4], ac[4];
   bool dc_ok[4] = {false, false, false, false};
   bool ac_ok[4] = {false, false, false, false};
@@ -891,7 +1196,7 @@ int decode_scan(const uint8_t* data, int64_t len, const int* layout,
   const bool need_ac = !progressive || st.Ss > 0;
   ScanComp comps[4];
   for (int s = 0; s < ns; ++s) {
-    const int* l = layout + 11 + 8 * s;
+    const int* l = layout + 12 + 11 * s;
     ScanComp& c = comps[s];
     c.h = l[0];
     c.v = l[1];
@@ -901,9 +1206,15 @@ int decode_scan(const uint8_t* data, int64_t len, const int* layout,
     c.rows = l[5];
     c.coef = coefs[s];
     const int d = l[6], a = l[7];
-    if (d < 0 || d > 3 || a < 0 || a > 3 || c.h < 1 || c.v < 1 ||
-        c.bw < 1 || c.bh < 1 || c.pitch < c.bw || c.rows < 1)
+    if (d < 0 || d >= tables || a < 0 || a >= tables || c.h < 1 ||
+        c.v < 1 || c.bw < 1 || c.bh < 1 || c.pitch < c.bw || c.rows < 1)
       return kBadLayout;
+    c.dc_tbl = d;
+    c.ac_tbl = a;
+    c.L = l[8];
+    c.U = l[9];
+    c.K = l[10];
+    if (arith) continue;
     if (need_dc && !dc_ok[d]) {
       if (build_table(dc_bits + 17 * d, dc_vals + 256 * d, &dc[d]) != kOk)
         return kBadHuffmanTable;
@@ -917,6 +1228,7 @@ int decode_scan(const uint8_t* data, int64_t len, const int* layout,
     c.dc = &dc[d];
     c.ac = &ac[a];
   }
+  if (arith) reset_arith(st, comps, ns, progressive);
 
   // jdinput.c per_scan_setup: an interleaved scan's MCU holds h x v
   // blocks of each component over the padded MCU grid; a one-component
@@ -934,10 +1246,15 @@ int decode_scan(const uint8_t* data, int64_t len, const int* layout,
     for (int mx = 0; mx < mcus_x; ++mx) {
       if (restart_interval) {
         if (restarts_to_go == 0) {
-          if (st.br.restart(next_rst) != kOk) return kBadRestart;
+          if (arith) {
+            if (st.ar.restart(next_rst) != kOk) return kBadRestart;
+            reset_arith(st, comps, ns, progressive);
+          } else {
+            if (st.br.restart(next_rst) != kOk) return kBadRestart;
+            st.last_dc[0] = st.last_dc[1] = st.last_dc[2] = st.last_dc[3] = 0;
+            st.eobrun = 0;
+          }
           next_rst = (next_rst + 1) & 7;
-          st.last_dc[0] = st.last_dc[1] = st.last_dc[2] = st.last_dc[3] = 0;
-          st.eobrun = 0;
           restarts_to_go = restart_interval;
         }
         --restarts_to_go;
@@ -947,13 +1264,15 @@ int decode_scan(const uint8_t* data, int64_t len, const int* layout,
         const int bw = ns > 1 ? c.h : 1, bh = ns > 1 ? c.v : 1;
         for (int by = 0; by < bh; ++by) {
           for (int bx = 0; bx < bw; ++bx) {
-            const int err = decode_block(st, c, s, progressive,
-                                         c.block(mx * bw + bx, my * bh + by));
+            int16_t* block = c.block(mx * bw + bx, my * bh + by);
+            const int err = arith
+                ? decode_block_arith(st, c, s, progressive, block)
+                : decode_block(st, c, s, progressive, block);
             if (err) return err;
           }
         }
       }
-      if (st.br.overrun) return kTruncated;
+      if (st.br.overrun || st.ar.overrun) return kTruncated;
     }
     if (pass) pass->imcu_row(my);
   }
@@ -966,15 +1285,18 @@ extern "C" {
 
 // Decode one scan of a file of several into the whole-image coefficient
 // buffers.
-//   data/len: the scan's entropy-coded bytes (RST markers included).
+//   data/len: the scan's entropy-coded bytes (RST markers included),
+//     and the marker that ends them if one does.
 //   layout: ns, Ss, Se, Ah, Al, restart interval, progressive (0/1),
-//     image width, height, hmax, vmax, then per scan component
-//     h, v, width_in_blocks, height_in_blocks, buffer pitch (blocks),
-//     buffer block rows, DC table, AC table (8 ints each).
+//     image width, height, hmax, vmax, arithmetic-coded (0/1), then per
+//     scan component h, v, width_in_blocks, height_in_blocks, buffer
+//     pitch (blocks), buffer block rows, DC table, AC table, and the
+//     arithmetic conditioning of those tables: DC L, DC U, AC K (11 ints
+//     each).
 //   coefs: per scan component, its buffer of pitch x rows blocks of 64
 //     int16 (quantised coefficients, natural order).
 //   dc_bits/ac_bits: 4 x 17 BITS arrays (entry 0 unused); dc_vals/ac_vals:
-//     4 x 256 HUFFVAL arrays.
+//     4 x 256 HUFFVAL arrays (unread for an arithmetic-coded scan).
 // Returns 0, or a negative error (see Error above).
 int jpeg_decode_scan(const uint8_t* data, int64_t len, const int* layout,
                      int16_t* const* coefs, const uint8_t* dc_bits,

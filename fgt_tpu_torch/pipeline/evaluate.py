@@ -52,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--imgW", type=int, default=432)
     ap.add_argument("--lafc_ckpts", default="checkpoints/lafc")
     ap.add_argument("--fgt_ckpts", default="checkpoints/fgt")
-    ap.add_argument("--raft_model", default="checkpoints/raft/raft.pth")
+    ap.add_argument("--raft_model", default="checkpoints/raft-things.pth")
     ap.add_argument("--vfid_ckpt", default="",
                     help="pytorch-i3d state dict (.pt/.pth) or the JAX "
                          "package's i3d.msgpack; VFID is skipped without "

@@ -84,15 +84,16 @@ def list_videos(datapath: str) -> list:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="RAFT flows of every video under --datapath. Frames are "
-                    "directories of *.png / *.jpg files (Huffman-coded 8-bit "
-                    "JPEG, baseline or progressive) or "
+                    "directories of *.png / *.jpg files (8-bit JPEG, "
+                    "Huffman- or arithmetic-coded, baseline or "
+                    "progressive) or "
                     ".npy stacks.")
     p.add_argument("--datapath", required=True,
                    help="root of per-video frame directories / .npy stacks")
     p.add_argument("--outroot", required=True)
     p.add_argument("--height", type=int, default=240)
     p.add_argument("--width", type=int, default=432)
-    p.add_argument("--raft_model", default="checkpoints/raft/raft.pth",
+    p.add_argument("--raft_model", default="checkpoints/raft/raft.msgpack",
                    help="reference RAFT state dict or the JAX package's "
                         "raft.msgpack (random init if absent)")
     p.add_argument("--iters", type=int, default=20)

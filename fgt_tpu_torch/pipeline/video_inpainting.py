@@ -865,10 +865,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", default="object_removal", choices=MODES)
     p.add_argument("--path", default="data/frames",
                    help=".npy stack or directory of *.png / *.jpg frames "
-                        "(baseline, progressive or multi-scan Huffman JPEG, "
-                        "gray, YCbCr, RGB, CMYK or YCCK, any integral "
-                        "sampling; not arithmetic-coded or 12-bit; read as "
-                        "cv2.imread reads them, EXIF orientation applied)")
+                        "(baseline, progressive or multi-scan JPEG, Huffman- "
+                        "or arithmetic-coded, gray, YCbCr, RGB, CMYK or "
+                        "YCCK, any integral sampling; not lossless or "
+                        "12-bit; read as cv2.imread reads them, EXIF "
+                        "orientation applied)")
     p.add_argument("--path_mask", default="data/masks",
                    help=".npy stack or directory of *.png / *.jpg masks")
     p.add_argument("--outroot", default="out")
@@ -880,7 +881,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "parsed as the JAX and reference CLIs parse it "
                         "(type=bool): any nonempty value, 'False' too, "
                         "turns it on")
-    p.add_argument("--raft_model", default="checkpoints/raft/raft.pth",
+    p.add_argument("--raft_model", default="checkpoints/raft/raft.msgpack",
                    help="reference RAFT state dict, or the JAX package's "
                         "raft.msgpack (--small: RAFT small's); random init "
                         "if absent")

@@ -286,10 +286,10 @@ def run_pipeline_psnr(frames_dir: str, masks_dir: str, out: str,
     return float(10.0 * np.log10(255.0 ** 2 / max(mse, 1e-12))), wall
 
 
-def card() -> dict:
+def card(device: str = DEFAULT_DEVICE) -> dict:
     """The device the run used: the card's name and power limit as
     ``nvidia-smi`` gives them, or the CPU."""
-    if not torch.cuda.is_available():
+    if torch.device(device).type != "cuda" or not torch.cuda.is_available():
         return {"device": "cpu"}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -334,7 +334,7 @@ def run_full(root: str, frames: int, lafc_steps: int, fgt_steps: int,
         "improved": bool(psnr1 > psnr0),
         "lafc_loss_curve": lafc_curve, "fgt_l1_curve": fgt_curve,
         "lafc_train_s": lafc_s, "fgt_train_s": fgt_s,
-        "pipeline_s": [wall0, wall1], **card()}
+        "pipeline_s": [wall0, wall1], **card(device)}
 
 
 def run_fgt_only(root: str, frames: int, fgt_steps: int, device: str,
@@ -375,7 +375,7 @@ def run_fgt_only(root: str, frames: int, fgt_steps: int, device: str,
         "hole_psnr_before_db": round(psnr0, 3),
         "hole_psnr_after_db": round(psnr1, 3),
         "improved": bool(psnr1 > psnr0), "fgt_l1_curve": fgt_curve,
-        "fgt_train_s": fgt_s, "pipeline_s": [wall0, wall1], **card()}
+        "fgt_train_s": fgt_s, "pipeline_s": [wall0, wall1], **card(device)}
 
 
 def write_record(path: str, rec: dict, fgt_only: bool) -> None:

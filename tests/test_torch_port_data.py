@@ -243,9 +243,9 @@ def test_name2len_and_helpers(tree):
 
 
 def test_jpeg_frames_raise_naming_the_decoder(tmp_path):
-    """Baseline and progressive JPEG frames read as the JAX dataset reads
-    them; one the decoder does not take (arithmetic-coded) raises, naming
-    the file and what it is."""
+    """Baseline, progressive and arithmetic-coded JPEG frames read as the
+    JAX dataset reads them; one the decoder does not take (lossless)
+    raises, naming the file and what it is."""
     frame = (np.random.RandomState(5).rand(30, 50, 3) * 255).astype(np.uint8)
     path = str(tmp_path / "00000.jpg")
     cv2.imwrite(path, frame)
@@ -255,10 +255,14 @@ def test_jpeg_frames_raise_naming_the_decoder(tmp_path):
     assert np.array_equal(tds.read_frame(path, 24, 40),
                           jdata.datasets.read_frame(path, 24, 40))
     data = bytearray(open(path, "rb").read())
+    for name in ("arith_420_rst2", "arith_prog_420_rst1"):
+        arith = os.path.join(ROOT, "tests", "data", "jpeg", name + ".jpg")
+        assert np.array_equal(tds.read_frame(arith, 24, 40),
+                              jdata.datasets.read_frame(arith, 24, 40))
     sof = data.index(b"\xff\xc2")
-    data[sof + 1] = 0xCA            # the same data announced as SOF10
+    data[sof + 1] = 0xC3            # the same data announced as SOF3
     open(path, "wb").write(bytes(data))
-    with pytest.raises(ValueError, match="00000.jpg: arithmetic-coded"):
+    with pytest.raises(ValueError, match="00000.jpg: lossless"):
         tds.read_frame(path, 8, 8)
 
 

@@ -10,18 +10,36 @@ smoothing runs, DC-only files, sequential files of several scans, RGB,
 CMYK and YCCK); the three readers' semantics (``cv2.imread`` in colour
 and in gray, ``imageio.imread``); EXIF orientations 1-8 applied as cv2
 applies them and ignored as imageio ignores them; samples past the range
-saturate as libjpeg-turbo's SIMD IDCT saturates them; arithmetic-coded,
-12-bit, lossless and hierarchical files raise. The committed fixtures
-under ``tests/data/jpeg/`` (which ``chip_smoke.py`` decodes on the
-card's host) still equal cv2's decode.
+saturate as libjpeg-turbo's SIMD IDCT saturates them; 12-bit, lossless
+(SOF3, SOF11) and hierarchical files raise. The committed fixtures under
+``tests/data/jpeg/`` (which ``chip_smoke.py`` decodes on the card's
+host) still equal cv2's decode; among them arithmetic-coded files (SOF9,
+SOF10, DAC conditioning: 4:2:0 with restarts, gray, 4:4:4 under
+non-default L, U and K beside its twin under the defaults, three
+non-interleaved scans, simple and unrefined progressions, YCCK, and an
+854x480 frame each way) written by libjpeg-turbo 2.1.5's own encoder
+(``tests/data/jpeg/make_arith_fixtures.c``). Their cv2 5.0 decodes are
+the PNGs beside them (of the 854x480 frames, a SHA-256 in
+``arith_decodes.json``: their PNGs would take 780 KB each), and Pillow
+12.1's decodes equal cv2's. Pillow reads an arithmetic-coded file only
+when one decode block (``ImageFile.MAXBLOCK``, 64 KiB) holds all of it:
+libjpeg's arithmetic decoder cannot suspend, so a larger file gives
+"broken data stream"; the tests raise the block, and the port reads such
+a file in every mode.
 
-    python tests/test_torch_port_jpeg.py   # rewrite the fixtures
+    python tests/test_torch_port_jpeg.py   # rewrite the fixtures (the
+                                           # arithmetic ones need gcc and
+                                           # libjpeg-turbo's libjpeg.a)
 """
 
+import hashlib
 import io
+import json
 import os
 import re
+import subprocess
 import sys
+import tempfile
 
 import cv2
 import imageio.v2 as imageio
@@ -210,17 +228,13 @@ def _relabel(data: bytes, old: bytes, new: bytes) -> bytes:
 
 
 def _unsupported(case: str) -> bytes:
-    """A file the decoder refuses: baseline or progressive data announced
-    under another SOF (its marker byte swapped), a 12-bit SOF1 header, a
-    DAC segment, a non-integral sampling ratio, an oversized MCU."""
+    """A file the decoder refuses: baseline data announced under another
+    SOF (its marker byte swapped), a 12-bit SOF1 header, a non-integral
+    sampling ratio, an oversized MCU."""
     img = _image(32, 48, seed=4)
     base = _cv2_bytes(img, 90, "420", 0, 0)
-    ok, prog = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    prog = prog.tobytes()
-    if case == "arithmetic-coded (SOF9)":
-        return _relabel(base, b"\xff\xc0", b"\xff\xc9")
-    if case == "arithmetic-coded progressive (SOF10)":
-        return _relabel(prog, b"\xff\xc2", b"\xff\xca")
+    if case == "arithmetic-coded lossless (SOF11)":
+        return _relabel(base, b"\xff\xc0", b"\xff\xcb")
     if case == "lossless (SOF3)":
         return _relabel(base, b"\xff\xc0", b"\xff\xc3")
     if case == "hierarchical (SOF5)":
@@ -229,9 +243,6 @@ def _unsupported(case: str) -> bytes:
         sof = base.index(b"\xff\xc0")
         return base[:sof] + b"\xff\xc1" + base[sof + 2:sof + 4] + b"\x0c" \
             + base[sof + 5:]
-    if case == "arithmetic-coded (DAC marker)":
-        sof = base.index(b"\xff\xc0")
-        return base[:sof] + b"\xff\xcc\x00\x04\x00\x10" + base[sof:]
     if case == "sampling factors 3x1,2x1,2x1":
         blocks, factors, tables = component_blocks(img, 90, [(3, 1)] * 3)
         data = write_scans(blocks, factors, tables, 48, 32,
@@ -249,19 +260,17 @@ def _unsupported(case: str) -> bytes:
 
 
 @pytest.mark.parametrize("case", [
-    "arithmetic-coded (SOF9)", "arithmetic-coded progressive (SOF10)",
-    "lossless (SOF3)", "hierarchical (SOF5)", "12-bit samples",
-    "arithmetic-coded (DAC marker)", "sampling factors 3x1,2x1,2x1",
+    "lossless (SOF3)", "arithmetic-coded lossless (SOF11)",
+    "hierarchical (SOF5)", "12-bit samples", "sampling factors 3x1,2x1,2x1",
     "11 blocks an MCU"])
 def test_unsupported_files_raise_naming_file_and_property(tmp_path, case):
     """What the decoder refuses raises ValueError naming the file and the
-    property (no writer on this machine makes arithmetic-coded or 12-bit
-    files, so their headers are made by hand); so do a truncated file
-    and one that is not a JPEG."""
+    property (the encoders the tests use write no lossless, hierarchical
+    or 12-bit files, so their headers are made by hand); so do a
+    truncated file and one that is not a JPEG."""
     path = tmp_path / "bad.jpg"
     path.write_bytes(_unsupported(case))
-    prop = re.escape(case.split(" (")[0] if "SOF" in case or "DAC" in case
-                     else case)
+    prop = re.escape(case.split(" (")[0] if "SOF" in case else case)
     with pytest.raises(ValueError, match=f"bad.jpg: .*{prop}"):
         jpeg.read_jpeg(str(path))
     if case == "12-bit samples":
@@ -482,23 +491,153 @@ def _fixture_files():
     return sorted(f for f in os.listdir(FIXTURES) if f.endswith(".jpg"))
 
 
+# The arithmetic-coded fixtures: the flags of make_arith_fixtures.c (q
+# quality, s sampling, r restart interval, p simple progression, d DAC
+# conditioning L,U,K, c ycck, S scan script) and the image each codes.
+_UNREFINED_SCRIPT = "/".join(
+    "".join(map(str, c)) + f":{ss}-{se}:{ah}:{al}"
+    for c, ss, se, ah, al in UNREFINED_PROGRESSION)
+ARITH_FIXTURES = {
+    "arith_420_rst2": ("-q 85 -r 2", (37, 61, 30)),
+    "arith_gray_q80": ("-q 80", (29, 33, 31, "gray")),
+    "arith_444_q90": ("-s 444", (33, 47, 32)),
+    "arith_444_q90_dac": ("-s 444 -d 2,6,20", (33, 47, 32)),
+    "arith_seq_3scans_rst3": (
+        "-s 422 -r 3 -S 0:0-63:0:0/1:0-63:0:0/2:0-63:0:0", (23, 37, 33)),
+    "arith_prog_420_rst1": ("-q 80 -p -r 1", (25, 39, 34)),
+    "arith_prog_unrefined_rst2": (f"-q 70 -r 2 -S {_UNREFINED_SCRIPT}",
+                                  (35, 45, 35)),
+    "arith_prog_gray": ("-p", (21, 35, 36, "gray")),
+    "arith_ycck_q80": ("-q 80 -c ycck", (26, 38, 37, "cmyk")),
+    "arith_854_420_q90": ("-q 90", "davis"),
+    "arith_prog_854_420_q90": ("-q 90 -p", "davis"),
+}
+# cv2's decodes of the fixtures too large to commit as PNG: SHA-256 of
+# the [H, W, 3] RGB bytes
+ARITH_DECODES = os.path.join(FIXTURES, "arith_decodes.json")
+
+
+def _decode_sha256(rgb: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(rgb, np.uint8).tobytes()
+                          ).hexdigest()
+
+
+def _cv2_fixture_decode(name: str):
+    """(the committed cv2 decode of fixture ``name`` as RGB, or None
+    where only its hash is committed; that hash or None)."""
+    png = os.path.join(FIXTURES, name[:-4] + ".png")
+    if os.path.exists(png):
+        return image_io.read_png(png), None
+    with open(ARITH_DECODES) as f:
+        return None, json.load(f)[name]
+
+
 def test_committed_fixtures_equal_cv2():
     """The fixtures ``chip_smoke.py`` holds the card host's build to:
     each ``.jpg`` beside its ``.png``, which holds cv2.imread's RGB
-    decode (orientation applied); all under 200 KB."""
+    decode (orientation applied), or for the two 854x480 arithmetic
+    frames beside that decode's SHA-256; all under 320 KB (200 KB before
+    those two frames, 63 KB each, came)."""
     names = _fixture_files()
-    assert len(names) >= 17
+    assert len(names) >= 18 + len(ARITH_FIXTURES)
+    assert set(ARITH_FIXTURES) <= {n[:-4] for n in names}
     total = sum(os.path.getsize(os.path.join(FIXTURES, f))
                 for f in os.listdir(FIXTURES))
-    assert total < 200_000, total
+    assert total < 320_000, total
     for name in names:
         path = os.path.join(FIXTURES, name)
-        png = image_io.read_png(path[:-4] + ".png")
-        np.testing.assert_array_equal(
-            png, cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1], err_msg=name)
-        np.testing.assert_array_equal(
-            jpeg.read_jpeg(path, "color"), png,
-            err_msg=name)
+        want = cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]
+        png, digest = _cv2_fixture_decode(name)
+        if png is None:
+            assert _decode_sha256(want) == digest, name
+        else:
+            np.testing.assert_array_equal(png, want, err_msg=name)
+        got = jpeg.read_jpeg(path, "color")
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("name", sorted(ARITH_FIXTURES))
+def test_arithmetic_fixtures_bit_equal(monkeypatch, name):
+    """Each arithmetic-coded fixture (SOF9 or SOF10 as its name says, with
+    its DAC segments) decodes bit-equal to its committed cv2 decode
+    through ``read_jpeg``, and through ``image_io.imread`` as cv2.imread
+    reads it in colour and in gray and as imageio.imread (Pillow, with a
+    decode block that holds the file) reads it."""
+    from PIL import ImageFile
+
+    monkeypatch.setattr(ImageFile, "MAXBLOCK", 1 << 23)
+    path = os.path.join(FIXTURES, name + ".jpg")
+    with open(path, "rb") as f:
+        data = f.read()
+    sof = b"\xff\xca" if "_prog_" in name else b"\xff\xc9"
+    assert sof in data and b"\xff\xcc" in data
+    png, digest = _cv2_fixture_decode(name + ".jpg")
+    got = jpeg.read_jpeg(path, "color")
+    if png is None:
+        assert _decode_sha256(got) == digest
+    else:
+        np.testing.assert_array_equal(got, png)
+    np.testing.assert_array_equal(
+        image_io.imread(path, "color"),
+        cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1])
+    np.testing.assert_array_equal(image_io.imread(path, "gray"),
+                                  cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    unchanged = image_io.imread(path, "unchanged")
+    np.testing.assert_array_equal(unchanged, imageio.imread(path))
+    np.testing.assert_array_equal(unchanged, np.asarray(Image.open(path)))
+
+
+def test_dac_conditioning_decodes_as_the_defaults():
+    """The same image coded under DAC conditioning L 2, U 6, K 20 and
+    under the defaults (L 0, U 1, K 5): other bytes, the same pixels in
+    every mode. Out-of-range conditioning raises, naming the file."""
+    dac, default = (os.path.join(FIXTURES, f"arith_444_q90{s}.jpg")
+                    for s in ("_dac", ""))
+    with open(dac, "rb") as f:
+        data = f.read()
+    with open(default, "rb") as f:
+        assert f.read() != data
+    for path, cond in ((dac, (2, 6, 20)), (default, (0, 1, 5))):
+        with open(path, "rb") as f:
+            scans = jpeg._parse(f.read(), path).scans
+        assert [scan.conditioning for scan in scans] == [[cond] * 3]
+    for mode in jpeg.MODES:
+        np.testing.assert_array_equal(jpeg.read_jpeg(dac, mode),
+                                      jpeg.read_jpeg(default, mode))
+    at = data.index(b"\xff\xcc") + 4       # the first Tc/Tb, Cs pair
+    assert data[at:at + 2] == b"\x00\x62"
+    for pair, what in ((b"\x00\x26", "L 6 > U 2"), (b"\x10\x00", "K 0"),
+                       (b"\x10\x40", "K 64"), (b"\x20\x01", "table 2/0")):
+        with pytest.raises(ValueError, match=f"dac.jpg: bad DAC .*{what}"):
+            jpeg.decode_jpeg(data[:at] + pair + data[at + 2:], "dac.jpg")
+
+
+def test_corrupt_or_truncated_arithmetic_scans_raise(tmp_path):
+    """A scan cut short raises in every mode, as one of a Huffman file
+    does: Pillow raises too, cv2.imread warns ("Premature end of JPEG
+    file") and returns what it decoded. A scan of stuffed 0xFF bytes
+    (all ones) raises "a bad arithmetic code" where libjpeg warns "bad
+    arithmetic code" and decodes on: never a silent partial image."""
+    with open(os.path.join(FIXTURES, "arith_420_rst2.jpg"), "rb") as f:
+        data = f.read()
+    path = tmp_path / "cut.jpg"
+    path.write_bytes(data[:len(data) // 2])
+    assert cv2.imread(str(path)) is not None
+    with pytest.raises(OSError):
+        np.asarray(Image.open(path))
+    for mode in jpeg.MODES:
+        with pytest.raises(ValueError, match="cut.jpg: truncated"):
+            image_io.imread(str(path), mode)
+    with open(os.path.join(FIXTURES, "arith_gray_q80.jpg"), "rb") as f:
+        data = f.read()
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+    path = tmp_path / "ones.jpg"
+    path.write_bytes(data[:start] + b"\xff\x00" * 300 + b"\xff\xd9")
+    assert cv2.imread(str(path)) is not None
+    for mode in jpeg.MODES:
+        with pytest.raises(ValueError, match="ones.jpg: a bad arithmetic"):
+            image_io.imread(str(path), mode)
 
 
 def write_fixtures(root: str = FIXTURES) -> None:
@@ -567,12 +706,58 @@ def write_fixtures(root: str = FIXTURES) -> None:
     files["encoder_seq_3scans_rst2"] = write_scans(
         blocks, factors, tables, 37, 23,
         [((c,), 0, 63, 0, 0) for c in range(3)], restart=2)
+    files.update(_arith_files())
+    decodes = {}
     for name, data in files.items():
         path = os.path.join(root, name + ".jpg")
         with open(path, "wb") as f:
             f.write(data)
-        image_io.write_png(path[:-4] + ".png",
-                           cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1])
+        rgb = cv2.imread(path, cv2.IMREAD_COLOR)[..., ::-1]
+        if rgb.size > 200_000:
+            decodes[name + ".jpg"] = _decode_sha256(rgb)
+        else:
+            image_io.write_png(path[:-4] + ".png", rgb)
+    with open(os.path.join(root, os.path.basename(ARITH_DECODES)), "w") as f:
+        json.dump(decodes, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def _arith_files() -> dict:
+    """The arithmetic-coded fixtures, written by libjpeg-turbo's encoder
+    (``make_arith_fixtures.c``, built here against its static library)."""
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import davis_clip
+
+    libjpeg = os.environ.get("LIBJPEG_A",
+                             "/usr/lib/x86_64-linux-gnu/libjpeg.a")
+    files = {}
+    with tempfile.TemporaryDirectory() as d:
+        exe = os.path.join(d, "make_arith_fixtures")
+        subprocess.run(["gcc", "-O2", os.path.join(
+            FIXTURES, "make_arith_fixtures.c"), libjpeg, "-lm", "-o", exe],
+            check=True)
+        for name, (flags, source) in ARITH_FIXTURES.items():
+            if source == "davis":
+                img = davis_clip(n=1)[0][0]
+            else:
+                h, w, seed, *kind = source
+                img = _image(h, w, seed)
+                if kind == ["gray"]:
+                    img = img[..., 0].copy()
+                elif kind == ["cmyk"]:
+                    img = np.concatenate([img, _image(h, w, seed + 1)[
+                        ..., :1]], axis=-1)
+            raw = os.path.join(d, "in.raw")
+            with open(raw, "wb") as f:
+                ch = 1 if img.ndim == 2 else img.shape[2]
+                f.write(f"{img.shape[1]} {img.shape[0]} {ch}\n".encode()
+                        + np.ascontiguousarray(img).tobytes())
+            out = os.path.join(d, "out.jpg")
+            subprocess.run([exe, raw, out] + flags.split(), check=True)
+            with open(out, "rb") as f:
+                files[name] = f.read()
+    return files
 
 
 if __name__ == "__main__":

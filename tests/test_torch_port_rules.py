@@ -49,6 +49,7 @@ from fgt_tpu_torch.pipeline import batch, evaluate, flow_extract, image_io
 from fgt_tpu_torch.pipeline import video_inpainting as tvi
 from fgt_tpu_torch.train import perceptual as tperc
 from fgt_tpu_torch.train import train as train_cli
+from fgt_tpu_torch.tools import sustained_train
 from fgt_tpu_torch.train.trainer import FGTTrainer, LAFCTrainer
 
 torch.set_num_threads(1)
@@ -94,7 +95,7 @@ def test_port_imports_no_jax_no_reference_package_no_cv2():
                    "core/video_io.py", "tools/demo.py",
                    "core/jpeg_encode.py", "data/mask_models.py",
                    "data/readers.py", "models/registry.py",
-                   "utils/progress.py"):
+                   "utils/progress.py", "tools/sustained_train.py"):
         assert f"fgt_tpu_torch/{module}" in rel, module
     bad = {(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN}
@@ -122,6 +123,7 @@ def test_entry_points_default_to_cuda():
         "device"].default == "cuda"
     assert inspect.signature(tvfid.vfid).parameters["device"].default == \
         "cuda"
+    assert sustained_train.build_parser().parse_args([]).device == "cuda"
 
 
 def _random_tree(own, paths):

@@ -202,8 +202,8 @@ def test_validate_fgt_matches_jax(val_tree, fgt_models, oracle, masks,
 
 def test_validation_reads_png_only(val_tree, fgt_models, tmp_path):
     """Frames come as PNG or as the JPEG the decoder takes; a JPEG it
-    does not take (arithmetic-coded: progressive data announced as SOF10)
-    raises, naming it, rather than being skipped."""
+    does not take (lossless: progressive data announced as SOF3) raises,
+    naming it, rather than being skipped."""
     import cv2
 
     frames = tmp_path / "frames" / "v"
@@ -211,10 +211,10 @@ def test_validation_reads_png_only(val_tree, fgt_models, tmp_path):
     data = cv2.imencode(".jpg", np.zeros((H, W, 3), np.uint8),
                         [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
     sof = data.index(b"\xff\xc2")
-    data = data[:sof + 1] + b"\xca" + data[sof + 2:]
+    data = data[:sof + 1] + b"\xc3" + data[sof + 2:]
     for i in range(8):
         (frames / f"{i:05d}.jpg").write_bytes(data)
-    with pytest.raises(ValueError, match="00000.jpg: arithmetic-coded"):
+    with pytest.raises(ValueError, match="00000.jpg: lossless"):
         tval.validate_fgt(fgt_models[4], str(tmp_path / "frames"), None,
                           resolution=RES, mask_size=MASK)
 
