@@ -14,9 +14,14 @@ Phases (any failure exits nonzero; nothing is caught):
      files from libjpeg-turbo's encoder, DAC conditioning, an 854x480
      frame each way), which must equal cv2's decodes bit for bit (the
      PNG beside each, or for the 854x480 frames its SHA-256 in
-     arith_decodes.json), and time an 854x480 4:2:0 decode, baseline,
+     arith_decodes.json), and the lossless SOF3 fixtures from
+     libjpeg-turbo 3.1's encoder (tests/data/jpeg/lossless: gray, RGB,
+     CMYK, predictors 1-7, point transforms, restarts, 6- and 4-bit
+     files), which must equal the decode beside each (Pillow's, or
+     cv2's below 8 bits); time an 854x480 4:2:0 decode, baseline,
      progressive (which must decode alike), arithmetic sequential and
-     arithmetic progressive; print every kernel's
+     arithmetic progressive, and an 854x480 lossless RGB one; print
+     every kernel's
      registers, stack, static shared memory and spills (cuobjdump);
   2. kernel K1 (RAFT corner-dot correlation) against its plain PyTorch
      version at the main-path shape, in f32 and bf16 (bf16 level 0, f32
@@ -27,7 +32,11 @@ Phases (any failure exits nonzero; nothing is caught):
      --alternate_corr contract's;
   3. kernel K2 (flash attention) against its plain version at
      N=80, L=2340, ch=128, in f32 and bf16; F.scaled_dot_product_attention
-     is timed beside it as a yardstick only;
+     is timed beside it as a yardstick only; then in bf16 at the
+     outpainting canvas's shapes, N=16 at L=9360 (24 frames) and
+     L=22320 (208 frames), against the plain version in chunks of N
+     whose scores fit, timed beside SDPA and the chunked plain version,
+     with the bound;
   4. kernels K4 (dq) and K5 (dk, dv), the flash backward, at training's
      N=32, L=900, ch=128, in f32 and bf16: against their plain versions
      and against autograd of the plain forward; SDPA's backward (forward
@@ -62,6 +71,13 @@ Phases (any failure exits nonzero; nothing is caught):
      directories with premasked frames (default path), video
      extrapolation to a 1.2x canvas of 288x516 (pyramid path; the centre
      must be the input) and --Nonlocal on 12 frames (pyramid path);
+     the outpainting probe's path (``phase_outpaint``: its ``make_pan``
+     frames, then the CLI with its arguments) onto the full 2x canvas of
+     480x864, 24 frames (the probe's 208 cut to 24): output [24, 480,
+     864, 3] u8, the centre equal to the input, K1 20 a refine chunk as
+     the back-offs in ``timings.jsonl`` imply, K2 20 launches each at N=16
+     L=9360, the last line of ``timings.jsonl`` with the JAX CLI's keys;
+     stage seconds, peak device memory and s/frame beside the card;
      offline flow extraction of a PNG and a JPEG video x 8 frames (28
      .flo files, K3 160 launches); the batch driver over a PNG and a
      JPEG video (every row ok);
@@ -194,6 +210,7 @@ frame by ``tests/torch_port_jpeg_encoder.py``'s scan writer, numpy only).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -424,21 +441,35 @@ def phase_k1(dtype, stats: dict, C: int = 256, r: int = 4):
             max_abs_err=err, library_ms=None)
 
 
+def plain_chunk(l: int) -> int:
+    """Sequences a call of K2's plain version takes at length ``l``: as
+    many as keep the f32 [N, L, L] scores within ~2.2 GB (one at L
+    22320)."""
+    return max(1, int(2.2e9 // (4 * l * l)))
+
+
 def check_k2(q, k, v, scale: float, label: str) -> float:
-    """K2 against its plain version on the same inputs; returns the
-    largest output deviation. f32: online vs one-shot softmax
-    reassociation (2e-5); bf16 output: 1 ulp of the largest entry (the
-    kernel rounds p against the running max, the plain version against
-    the row max). lse within 1e-4 in both."""
+    """K2 against its plain version on the same inputs (the plain version
+    over chunks of ``plain_chunk`` sequences); returns the largest output
+    deviation. f32: online vs one-shot softmax reassociation (2e-5); bf16
+    output: 1 ulp of the largest entry (the kernel rounds p against the
+    running max, the plain version against the row max). lse within 1e-4
+    in both."""
     import torch
     from fgt_tpu_torch.ops import flash_attention as fa
 
     out, lse = fa.flash_mhsa(q, k, v, scale)
-    want, want_lse = fa.flash_attention_plain(q, k, v, scale)
-    torch.cuda.synchronize()
-    err = (out.float() - want.float()).abs().max().item()
-    err_lse = (lse - want_lse).abs().max().item()
-    top = want.float().abs().max().item()
+    chunk = plain_chunk(q.shape[1])
+    err = err_lse = top = 0.0
+    for s in range(0, q.shape[0], chunk):
+        want, want_lse = fa.flash_attention_plain(
+            q[s:s + chunk], k[s:s + chunk], v[s:s + chunk], scale)
+        err = max(err, (out[s:s + chunk].float() - want.float()).abs()
+                  .max().item())
+        err_lse = max(err_lse, (lse[s:s + chunk] - want_lse).abs()
+                      .max().item())
+        top = max(top, want.float().abs().max().item())
+        del want, want_lse
     tol = 2e-5 if q.dtype == torch.float32 else top * 2 ** -7
     log(f"K2 {label}: max_abs_err {err:.3g} (tol {tol:.3g}), "
         f"lse err {err_lse:.3g} (tol 1e-4)")
@@ -484,6 +515,51 @@ def phase_k2(dtype, stats: dict):
     stats[str(dtype)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, max_abs_err=err,
                              library_ms=library_ms)
+
+
+# K2's shapes at the outpainting canvas (480x864, 20x36 tokens a frame,
+# window_batch 1, so N = 4 groups x 4 heads): the 24-frame probe's 5
+# windows of 13 frames and the 208-frame probe's 42 windows of 31
+CANVAS_K2 = ((16, 9360), (16, 22320))
+
+
+def phase_k2_canvas(stats: dict, smi: str):
+    """K2 in bf16 at the outpainting canvas's shapes (``CANVAS_K2``):
+    against its plain version (in chunks of N), timed beside
+    F.scaled_dot_product_attention (a yardstick only), the plain
+    version's time over all N in those chunks, and the bound
+    (4·N·L²·128 FLOP over the bf16 dense peak)."""
+    import torch
+    import torch.nn.functional as F
+    from fgt_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    ch = 128
+    scale = ch ** -0.5
+    for n, l in CANVAS_K2:
+        q, k, v = (torch.randn(n, l, ch, device="cuda", generator=g)
+                   .to(torch.bfloat16) for _ in range(3))
+        err = check_k2(q, k, v, scale, f"bfloat16 canvas N={n} L={l}")
+        kernel_ms = cuda_ms(lambda: fa.flash_mhsa(q, k, v, scale), 5)
+        chunk = plain_chunk(l)
+        plain_ms = cuda_ms(lambda: [fa.flash_attention_plain(
+            q[s:s + chunk], k[s:s + chunk], v[s:s + chunk], scale)
+            for s in range(0, n, chunk)], 1)
+        torch.cuda.empty_cache()
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None]), 5)
+        nbytes = 4 * n * l * ch * q.element_size() + n * l * 4
+        flops = 4.0 * n * l * l * ch
+        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
+        log(f"K2 bfloat16 canvas N={n} L={l}: kernel_ms {kernel_ms:.4f} "
+            f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
+            f"{b_ms:.4f} ({b_by}); {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
+            f"{b_ms / kernel_ms:.3f} of the bound; {smi}")
+        stats[(n, l)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, max_abs_err=err,
+                             library_ms=library_ms)
+        del q, k, v
+        torch.cuda.empty_cache()
 
 
 def check_k45_ragged(q, k, v, do, scale: float):
@@ -1033,6 +1109,13 @@ CLI_RANDOM = ["--raft_model", "/nonexistent", "--lafc_ckpts", "/nonexistent",
               "--device", "cuda"]
 
 
+def last_timings(outroot: str) -> dict:
+    """The last line of a CLI run's ``outroot/timings.jsonl``: the record
+    of the latest run into that directory."""
+    with open(os.path.join(outroot, "timings.jsonl")) as f:
+        return json.loads(f.readlines()[-1])
+
+
 def run_cli(label: str, counters, argv: list, want: dict):
     """One full-width CLI run (random weights from seed 0, bf16) with the
     counts reset just before and read just after. Returns (output,
@@ -1048,8 +1131,7 @@ def run_cli(label: str, counters, argv: list, want: dict):
     wall = time.perf_counter() - t0
     launches = read(counters)
     out = np.load(path)
-    with open(os.path.join(os.path.dirname(path), "timings.json")) as f:
-        stages = json.load(f)["stages"]
+    stages = last_timings(os.path.dirname(path))["stages"]
     work = sum(v for k, v in stages.items() if k[:2] in ("s1", "s2", "s3",
                                                         "s4", "s5", "s6"))
     log(f"{label} stages (s): " + json.dumps(
@@ -1115,6 +1197,76 @@ def phase_modes(counters, root: str):
             out[~hole[:12]], frames[:12][~hole[:12]]):
         raise AssertionError("--Nonlocal output wrong outside the hole")
     log("--Nonlocal: output ok")
+
+
+OUTPAINT_KEYS = ("stages", "total", "minor_faults", "n_frames", "mode",
+                 "backoffs")
+
+
+def phase_outpaint(counters, root: str, smi: str) -> dict:
+    """The outpainting probe's path (``fgt_tpu_torch.tools.outpaint_probe``:
+    its ``make_pan`` frames, then the CLI in video_extrapolation with its
+    arguments) at the full 2x canvas, 24 frames of 240x432 onto 480x864
+    (the probe's 208 cut to 24), K1 path, bf16: output [24, 480, 864, 3]
+    u8 whose centre is the input byte for byte; K1 20 launches a refine
+    chunk (46 pairs in one chunk, or as many chunks as the s1 back-offs
+    in ``timings.jsonl`` imply); K2 4 a window x 5 windows, each launch
+    at (N, L) = (16, 9360); the last line of ``timings.jsonl`` with the
+    JAX CLI's keys. Logs the stage seconds, the peak device memory and
+    s/frame (the probe's: CLI wall over frames) beside the card."""
+    from fgt_tpu_torch.pipeline import image_io
+    from fgt_tpu_torch.tools import outpaint_probe as probe
+
+    n, h, w = 24, 240, 432
+    t0 = time.perf_counter()
+    frames_dir = probe.make_pan(f"{root}/outpaint", n, h, w)
+    pan_s = time.perf_counter() - t0
+    args = probe.build_parser().parse_args(["--frames", str(n)])
+    out_dir = f"{root}/outpaint/out"
+    with k2_shapes_recorded([]) as shapes:
+        out, launches, wall = run_cli(
+            "outpaint 2x", counters,
+            probe.cli_argv(frames_dir, out_dir, args, []),
+            {"lookup_corr_fused": None, "lookup_corr_pyramid": 0,
+             "flash_mhsa": 20})
+    import torch
+
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rec = last_timings(out_dir)
+    missing = [k for k in OUTPAINT_KEYS if k not in rec]
+    if missing or rec["n_frames"] != n or rec["mode"] != \
+            "video_extrapolation":
+        raise AssertionError(f"outpaint: timings.jsonl's last line {rec}, "
+                             f"missing {missing}")
+    pairs = 2 * (n - 1)
+    chunk = pairs
+    for stage, _, smaller in rec["backoffs"]:
+        if stage == "s1_raft":
+            chunk = smaller
+    want_k1 = 20 * -(-pairs // chunk)
+    if launches["lookup_corr_fused"] != want_k1:
+        raise AssertionError(f"outpaint: K1 launched "
+                             f"{launches['lookup_corr_fused']} times, want "
+                             f"{want_k1} (chunk {chunk} of {pairs} pairs)")
+    if sorted(set(shapes)) != [(16, 9360, 128)] or len(shapes) != 20:
+        raise AssertionError(f"outpaint: K2 shapes {shapes}, want 20 "
+                             f"launches at N=16 L=9360")
+    if out.shape != (n, 2 * h, 2 * w, 3) or out.dtype != np.uint8:
+        raise AssertionError(f"outpaint output {out.shape} {out.dtype}")
+    frames = image_io.read_stack(frames_dir, "unchanged")
+    y0, x0 = h // 2, w // 2
+    if not np.array_equal(out[:, y0:y0 + h, x0:x0 + w], frames):
+        raise AssertionError("outpaint: the centre differs from the input")
+    stages = {k: round(v, 4) for k, v in rec["stages"].items()}
+    log(f"outpaint 2x (the probe's path, {n} frames {h}x{w} -> "
+        f"{2 * h}x{2 * w}): output ok, centre byte-identical; "
+        f"{wall / n:.4f} s/frame (CLI wall {wall:.2f} s; frames written in "
+        f"{pan_s:.2f} s); stages {json.dumps(stages)}; total "
+        f"{rec['total']:.3f} s; peak device memory {peak:.2f} GiB; "
+        f"back-offs {rec['backoffs']}; K1 {launches['lookup_corr_fused']}, "
+        f"K2 {len(shapes)} at N=16 L=9360; {smi}")
+    return dict(s_per_frame=wall / n, stages=rec["stages"], peak_gib=peak,
+                backoffs=rec["backoffs"])
 
 
 def phase_flow_extract(counters, root: str):
@@ -1211,8 +1363,8 @@ def phase_small(counters, root: str):
                     not np.array_equal(out[~hole], frames[~hole]):
                 raise AssertionError(f"{label}: output wrong outside the "
                                      "hole")
-        with open(f"{root}/sm_{fused_corr}_warm/timings.json") as f:
-            s1[fused_corr] = json.load(f)["stages"]["s1_raft"]
+        s1[fused_corr] = last_timings(
+            f"{root}/sm_{fused_corr}_warm")["stages"]["s1_raft"]
         log(f"--small (--fused_corr {fused_corr}): output ok; mean value "
             f"inside the hole {out[hole].astype(np.float64).mean():.2f}")
     log(f"--small s1, warm, same run: K1 path {s1['auto']:.4f} s, pyramid "
@@ -1349,10 +1501,15 @@ def phase_jpeg_fixtures() -> dict:
     without restarts, a progressive file that leaves its coefficients
     unrefined (block smoothing), 4:1:1, CMYK, YCCK, several sequential
     scans, an EXIF-rotated one and one whose samples saturate — each
-    beside cv2's decode as PNG): bit-equal under cv2's colour semantics.
+    beside cv2's decode as PNG): bit-equal under cv2's colour semantics;
+    the lossless fixtures (``tests/data/jpeg/lossless``: SOF3 from
+    libjpeg-turbo 3.1's encoder, gray, RGB and CMYK, predictors 1-7,
+    point transforms, restarts, 6- and 4-bit files) bit-equal to the
+    decode beside each (Pillow's, or cv2's for fewer than 8 bits).
     Then the decode time of an 854x480 4:2:0 q90 frame (DAVIS's size),
     baseline and progressive (libjpeg's simple progression, written by
-    the tests' encoder), beside the PNG reader's on the same frame."""
+    the tests' encoder), arithmetic-coded, and lossless RGB (predictor
+    1), beside the PNG reader's on the same frame."""
     from fgt_tpu_torch.core import jpeg
     from fgt_tpu_torch.pipeline import image_io
 
@@ -1371,6 +1528,24 @@ def phase_jpeg_fixtures() -> dict:
         if not same:
             raise AssertionError(f"JPEG fixture {name}: the decode differs "
                                  f"from cv2's")
+    lossless = os.path.join(JPEG_FIXTURES, "lossless")
+    with open(os.path.join(lossless, "decodes.json")) as f:
+        decodes = json.load(f)
+    if len(decodes) < 23:
+        raise AssertionError(f"lossless fixtures missing: {sorted(decodes)}")
+    for name, rec in sorted(decodes.items()):
+        path = os.path.join(lossless, name + ".jpg")
+        mode = "unchanged" if rec["reader"] == "pillow" else (
+            "gray" if "_gray_" in name else "color")
+        got = jpeg.read_jpeg(path, mode)
+        if "sha256" in rec:
+            same = hashlib.sha256(got.tobytes()).hexdigest() == rec["sha256"]
+        else:
+            same = np.array_equal(got, image_io.read_png(
+                os.path.join(lossless, name + ".png")))
+        if not same:
+            raise AssertionError(f"lossless JPEG fixture {name}: the decode "
+                                 f"differs from {rec['reader']}'s")
     frame = davis_clip(n=1)[0][0]
     from fgt_tpu_torch.core.jpeg_encode import encode_jpeg, quantized_blocks
 
@@ -1388,6 +1563,8 @@ def phase_jpeg_fixtures() -> dict:
         with open(os.path.join(JPEG_FIXTURES, f"{name}_854_420_q90.jpg"),
                   "rb") as f:
             arith[name] = f.read()
+    with open(os.path.join(lossless, "lossless_854_rgb_p1.jpg"), "rb") as f:
+        arith["lossless"] = f.read()
     with tempfile.TemporaryDirectory() as d:
         png = os.path.join(d, "f.png")
         image_io.write_png(png, frame)
@@ -1397,6 +1574,8 @@ def phase_jpeg_fixtures() -> dict:
                          ("arith", lambda: jpeg.decode_jpeg(arith["arith"])),
                          ("arith_prog",
                           lambda: jpeg.decode_jpeg(arith["arith_prog"])),
+                         ("lossless",
+                          lambda: jpeg.decode_jpeg(arith["lossless"])),
                          ("png", lambda: image_io.read_png(png))):
             fn()
             reps = 3 if name == "png" else 30
@@ -1414,6 +1593,11 @@ def phase_jpeg_fixtures() -> dict:
         f"({len(arith['arith'])} bytes) {times['arith']:.3f} ms, SOF10 "
         f"({len(arith['arith_prog'])} bytes, 10 scans) "
         f"{times['arith_prog']:.3f} ms (host CPU, one thread)")
+    log(f"JPEG lossless: {len(decodes)} SOF3 fixtures bit-equal to their "
+        f"readers' decodes; an 854x480 RGB frame (predictor 1, "
+        f"{len(arith['lossless'])} bytes) {times['lossless']:.3f} ms, "
+        f"{times['lossless'] / times['jpeg']:.2f}x the baseline decode "
+        f"(host CPU, one thread)")
     return times
 
 
@@ -1443,6 +1627,31 @@ def k2_at_window_shapes(shapes: list) -> dict:
     return ms
 
 
+@contextlib.contextmanager
+def k2_shapes_recorded(shapes: list):
+    """Within the block, K2's entry point notes each launch's (N, L, ch)
+    in ``shapes``; the launch count stays the wrapper's own."""
+    from fgt_tpu_torch.ops import flash_attention as fa
+
+    real_kernel = fa._kernel
+
+    def recording_kernel(lib, name, n_ptrs):
+        launch = real_kernel(lib, name, n_ptrs)
+        if name != "flash_attention_forward":
+            return launch
+
+        def call(*args):
+            shapes.append((args[n_ptrs], args[n_ptrs + 1], 128))
+            return launch(*args)
+        return call
+
+    fa._kernel = recording_kernel
+    try:
+        yield shapes
+    finally:
+        fa._kernel = real_kernel
+
+
 def phase_jpeg_clip(counters, root: str) -> dict:
     """(b), (c) Object removal through the CLI from a DAVIS-style JPEG
     clip (24 frames 854x480, baseline 4:2:0, PNG masks) at 432x240, full
@@ -1453,7 +1662,6 @@ def phase_jpeg_clip(counters, root: str) -> dict:
     ``--host_diffusion`` (s2's regionfill by the host's multigrid solve).
     Each output [24, 240, 432, 3] u8, within 1 of the resized source
     outside the hole."""
-    from fgt_tpu_torch.ops import flash_attention as fa
     from fgt_tpu_torch.pipeline import video_inpainting as vi
 
     frames, masks = davis_clip()
@@ -1461,37 +1669,18 @@ def phase_jpeg_clip(counters, root: str) -> dict:
     mdir = write_pngs(f"{root}/davis/masks", masks * 255)
     source = vi.load_frames(jdir, 240, 432)[0]
     hole = vi.load_masks(mdir, 240, 432) > 0
-    shapes, real_kernel = [], fa._kernel
-
-    def recording_kernel(lib, name, n_ptrs):
-        """K2's entry point, noting each launch's (N, L, ch); the launch
-        count stays the wrapper's own."""
-        launch = real_kernel(lib, name, n_ptrs)
-        if name != "flash_attention_forward":
-            return launch
-
-        def call(*args):
-            shapes.append((args[n_ptrs], args[n_ptrs + 1], 128))
-            return launch(*args)
-        return call
-
     stats = {}
     for label, flags, k2 in (("default", [], 4),
                              ("--exact_windows", ["--exact_windows"], 20),
                              ("--host_diffusion", ["--host_diffusion"], 4)):
         out_dir = f"{root}/davis/out_{label.strip('-')}"
-        fa._kernel = recording_kernel
-        shapes.clear()
-        try:
+        with k2_shapes_recorded([]) as shapes:
             out, _, _ = run_cli(f"JPEG clip {label}", counters, [
                 "--path", jdir, "--path_mask", mdir, "--outroot", out_dir]
                 + flags, {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
                           "flash_mhsa": k2})
-        finally:
-            fa._kernel = real_kernel
-        with open(f"{out_dir}/timings.json") as f:
-            stats[label] = dict(json.load(f)["stages"],
-                                k2_shapes=list(shapes))
+        stats[label] = dict(last_timings(out_dir)["stages"],
+                            k2_shapes=list(shapes))
         err = np.abs(out.astype(np.float64) - source)[~hole].max()
         if out.shape != (24, 240, 432, 3) or out.dtype != np.uint8 or err > 1:
             raise AssertionError(f"JPEG clip {label}: output {out.shape} "
@@ -1595,8 +1784,7 @@ def phase_dataset_prep(counters, root: str, smi: str, vanilla_s: dict,
         if not np.array_equal(out[~hole], frames[~hole]):
             raise AssertionError(f"dataset prep {label}: output differs "
                                  f"from the input outside the hole")
-        with open(f"{out_dir}/timings.json") as f:
-            stages = json.load(f)["stages"]
+        stages = last_timings(out_dir)["stages"]
         work = sum(v for k, v in stages.items() if k[:2] in (
             "s1", "s2", "s3", "s4", "s5", "s6"))
         stats[label] = {"frames_per_s": 24 / work, "peak_gib": peak,
@@ -1811,8 +1999,7 @@ def phase_checkpoints(counters, root: str, smi: str) -> dict:
         raise AssertionError("result.mp4's planes differ from result.npy's")
     rgb = np.stack(video_io.read_video(mp4)).astype(np.float64)
     psnr = 10 * np.log10(255.0 ** 2 / np.mean((rgb - out) ** 2))
-    with open(f"{root}/ck/out_msgpack/timings.json") as f:
-        s7 = json.load(f)["stages"]["s7_write"]
+    s7 = last_timings(f"{root}/ck/out_msgpack")["stages"]["s7_write"]
     write_s = {"png_npy": [], "mp4": []}
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3477,8 +3664,7 @@ def conv_types_removal(counters, root: str, smi: str, vanilla_s: dict):
         if not np.array_equal(out[keep], frames[keep]):
             raise AssertionError("gated run: output differs from the input "
                                  "outside the hole")
-    with open(f"{ck}/out_warm/timings.json") as f:
-        stages = json.load(f)["stages"]
+    stages = last_timings(f"{ck}/out_warm")["stages"]
     work = {k: v for k, v in stages.items() if k[:2] in ("s1", "s2", "s3",
                                                           "s4", "s5", "s6")}
     log(f"gated BN vs vanilla, warm, same run: s2_lafc "
@@ -3699,6 +3885,9 @@ def main() -> int:
         f"levels, C=256, r=4, the f32 body): kernel_ms {alt['ms']:.4f} "
         f"plain_ms {alt['plain_ms']:.4f} bound_ms {alt['bound_ms']:.4f} "
         f"({alt['bound_by']}), max_abs_err {alt['max_abs_err']:.3g}")
+    t0 = time.perf_counter()
+    phase_k2_canvas(k2, smi)
+    log(f"phase_k2_canvas: {time.perf_counter() - t0:.2f} s")
     phase_k1(torch.bfloat16, k1, C=128, r=3)     # RAFT --small
     phase_k3_small(k3)
     phase_pyramid_build()
@@ -3715,6 +3904,9 @@ def main() -> int:
         f"pyramid path (K3) {pyr_s['s1_raft']:.4f} s")
     with tempfile.TemporaryDirectory() as root:
         phase_modes(counters, root)
+        t0 = time.perf_counter()
+        phase_outpaint(counters, root, smi)
+        log(f"phase_outpaint: {time.perf_counter() - t0:.2f} s")
         phase_flow_extract(counters, root)
         phase_batch(counters, root)
         phase_small(counters, root)

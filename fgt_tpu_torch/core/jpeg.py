@@ -11,16 +11,26 @@ sequential (SOF0, SOF1, SOF9; one scan or several, interleaved or not)
 or progressive (SOF2, SOF10: spectral selection and successive
 approximation, EOB runs), with 1, 3 or 4 components (gray, YCbCr, RGB,
 CMYK, YCCK), every integral sampling ratio (4:1:1 among them) and
-restart intervals. Lossless (SOF3, SOF11), hierarchical and 12-bit
-files, non-integral sampling ratios and interleaved MCUs of more than 10
-blocks raise ``ValueError`` naming the file and the property; so does a
-scan whose data is corrupt or ends before the image does.
+restart intervals. Lossless files too (SOF3: Huffman-coded DPCM,
+predictors 1-7, point transforms, precision 2-8, restart intervals of
+whole rows; gray, RGB or CMYK, one scan, 1x1 sampling: what
+libjpeg-turbo 3.1's encoder writes), with no colour conversion, as
+libjpeg-turbo decodes them. Arithmetic-coded lossless (SOF11),
+hierarchical and 12-bit files, lossless files labelled YCbCr (a JFIF or
+Adobe marker says so) or YCCK or subsampled (which no reader here
+decodes), non-integral sampling ratios and interleaved MCUs of more
+than 10 blocks raise ``ValueError`` naming the file and the property;
+so does a scan whose data is corrupt or ends before the image does.
 
 The reference's readers differ, so the caller chooses
 (:func:`decode_jpeg`'s ``mode``): ``cv2.imread`` applies the EXIF
 orientation (the inference CLI, the dataset-preparation readers),
 ``imageio.imread`` does not (the datasets, validation, flow extraction
-and the evaluation ground truth); they also differ on CMYK.
+and the evaluation ground truth); they also differ on CMYK. A lossless
+file decodes in cv2's modes only where the channels it asks for are the
+file's (libjpeg-turbo converts no colour in lossless mode, and
+``cv2.imread`` then returns None: :class:`ChannelMismatch`), and through
+Pillow only at 8 bits.
 """
 
 from __future__ import annotations
@@ -47,8 +57,9 @@ _ERRORS = {-1: "a bad Huffman code", -2: "truncated entropy-coded data",
            -4: "a bad Huffman table", -5: "an unsupported layout",
            -6: "a bad arithmetic code"}
 
-# sequential and progressive frames, Huffman- or arithmetic-coded
-_TAKEN = {0xC0, 0xC1, 0xC2, 0xC9, 0xCA}
+# sequential and progressive frames, Huffman- or arithmetic-coded, and
+# Huffman-coded lossless ones
+_TAKEN = {0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA}
 _ARITH_TABLES = 16      # NUM_ARITH_TBLS
 
 
@@ -75,13 +86,21 @@ def _load() -> ctypes.CDLL:
             lib.jpeg_decode_output.argtypes = [_int, _p, _p, _p, _p, _int,
                                                _int, _p, _p, ctypes.c_int64,
                                                _p, _p, _p, _p, _p, _p]
+            lib.jpeg_decode_lossless.restype = _int
+            lib.jpeg_decode_lossless.argtypes = [_p, ctypes.c_int64, _p, _p,
+                                                 _p, _p]
             _lib = lib
         return _lib
 
 
+class ChannelMismatch(ValueError):
+    """A lossless file read in a cv2 mode whose channel count is not the
+    file's: ``cv2.imread`` returns None for it."""
+
+
 def _sof_property(marker: int):
-    """What keeps a SOFn frame from this decoder, or None for SOF0/1/2
-    and their arithmetic-coded twins SOF9/10."""
+    """What keeps a SOFn frame from this decoder, or None for SOF0/1/2,
+    their arithmetic-coded twins SOF9/10 and lossless SOF3."""
     if marker in _TAKEN:
         return None
     parts = []
@@ -130,6 +149,8 @@ class _Header:
         self.exif = None
         self.progressive = False
         self.arith = False
+        self.lossless = False
+        self.precision = 8
         # jdmarker.c get_soi's arithmetic conditioning, until a DAC
         self.dc_l = [0] * _ARITH_TABLES
         self.dc_u = [1] * _ARITH_TABLES
@@ -231,7 +252,8 @@ def _frame(hdr: _Header, marker: int, seg: bytes, path: str) -> None:
     if hdr.frame is not None:
         raise ValueError(f"{path}: more than one frame header")
     precision, height, width, ncomp = struct.unpack(">BHHB", seg[:6])
-    if precision != 8:
+    lossless = marker == 0xC3
+    if precision != 8 and not (lossless and 2 <= precision < 8):
         raise ValueError(f"{path}: {precision}-bit samples")
     if height == 0:
         raise ValueError(f"{path}: a DNL-defined height")
@@ -250,8 +272,14 @@ def _frame(hdr: _Header, marker: int, seg: bytes, path: str) -> None:
             raise ValueError(f"{path}: sampling factors " + ",".join(
                 f"{c[1]}x{c[2]}" for c in comps) + " (only integral "
                 "ratios are read)")
+        if lossless and any(c[1:3] != (1, 1) for c in comps):
+            raise ValueError(f"{path}: lossless with sampling factors "
+                             + ",".join(f"{c[1]}x{c[2]}" for c in comps)
+                             + " (only 1x1 is read)")
     else:   # one component: its factors do not shape the data
         comps = [(comps[0][0], 1, 1, comps[0][3])]
+    hdr.lossless = lossless
+    hdr.precision = precision
     hdr.progressive = marker in (0xC2, 0xCA)
     hdr.arith = marker >= 0xC9
     hdr.frame = (height, width, comps)
@@ -336,6 +364,19 @@ def _sos(hdr: _Header, seg: bytes, path: str, start: int, end: int) -> None:
                          f"an MCU (at most 10)")
     ss, se, ahal = seg[1 + 2 * ns:4 + 2 * ns]
     ah, al = ahal >> 4, ahal & 15
+    if hdr.lossless:        # jdlossls.c start_pass_lossless checks
+        if not 1 <= ss <= 7 or se != 0 or ah != 0 \
+                or al >= hdr.precision:
+            raise ValueError(f"{path}: bad lossless scan: predictor {ss}, "
+                             f"Se {se}, point transform {ahal:#x}")
+        if any(d > 3 or not hdr.huff_ok[0][d] for d in td):
+            raise ValueError(f"{path}: a scan uses an undefined Huffman "
+                             f"table")
+        hdr.scans.append(_Scan(idx, td, ta, ss, se, ah, al, hdr.restart,
+                               {k: v.copy() for k, v in hdr.bits.items()},
+                               {k: v.copy() for k, v in hdr.vals.items()},
+                               None, start, end))
+        return
     if hdr.progressive:     # jdinput.c initial_setup / jdphuff.c checks
         dc = ss == 0
         if (dc and se != 0) or (not dc and (se < ss or se > 63 or ns != 1)) \
@@ -381,6 +422,8 @@ def _transform(hdr: _Header) -> str:
         return "ycc"
     if hdr.adobe_transform is not None:
         return "rgb" if hdr.adobe_transform == 0 else "ycc"
+    if hdr.lossless:     # libjpeg-turbo 3 assumes RGB whatever the ids
+        return "rgb"
     ids = [c[0] for c in hdr.frame[2]]
     return "rgb" if ids == [82, 71, 66] else "ycc"
 
@@ -517,6 +560,58 @@ def _rgb_to_gray(rgb: np.ndarray, cv2_weights: bool) -> np.ndarray:
 MODES = ("unchanged", "color", "gray")
 
 
+def _decode_lossless(hdr: _Header, payload: np.ndarray, path: str):
+    """The samples of a lossless file, [H, W, components] uint8, as
+    libjpeg-turbo decodes them (no colour conversion), or ValueError
+    naming what no reader here decodes."""
+    height, width, comps = hdr.frame
+    ncomp = len(comps)
+    space = _transform(hdr)
+    if space in ("ycc", "ycck"):
+        raise ValueError(f"{path}: lossless JPEG labelled "
+                         f"{'YCbCr' if space == 'ycc' else 'YCCK'} (no "
+                         f"colour conversion in lossless mode: no reader "
+                         f"here decodes it)")
+    if len(hdr.scans) != 1 or len(hdr.scans[0].comps) != ncomp:
+        raise ValueError(f"{path}: lossless JPEG of {len(hdr.scans)} scans "
+                         f"(one scan of every component is read)")
+    scan = hdr.scans[0]
+    if scan.restart % width:
+        raise ValueError(f"{path}: lossless restart interval {scan.restart}"
+                         f" not a multiple of the {width} MCUs of a row")
+    layout = [ncomp, scan.ss, scan.al, scan.restart, width, height,
+              hdr.precision, ncomp]
+    for c, d in zip(scan.comps, scan.td):
+        layout += [c, d]
+    layout = np.ascontiguousarray(layout, np.int32)
+    out = np.empty((height, width, ncomp), np.uint8)
+    _check(_load().jpeg_decode_lossless(
+        _ptr(payload[scan.start:]), scan.end - scan.start, _ptr(layout),
+        _ptr(scan.bits[0]), _ptr(scan.vals[0]), _ptr(out)), path)
+    return out, space
+
+
+def _lossless_as(out: np.ndarray, space: str, hdr: _Header, mode: str,
+                 path: str) -> np.ndarray:
+    """A lossless file's samples as each reader returns them: Pillow (at 8
+    bits only) gray, RGB or inverted CMYK; cv2 where the channels it asks
+    for are the file's (gray from a gray file, colour from an RGB one) or
+    from CMYK, which it converts itself."""
+    if mode == "unchanged":
+        if hdr.precision != 8:
+            raise ValueError(f"{path}: lossless {hdr.precision}-bit "
+                             f"samples (Pillow reads 8)")
+        return {"gray": out[..., 0], "rgb": out}.get(space, 255 - out)
+    if space == "cmyk":
+        rgb = _cmyk_to_rgb(out)
+        return rgb if mode == "color" else _rgb_to_gray(rgb, True)
+    if (space == "gray") != (mode == "gray"):
+        raise ChannelMismatch(
+            f"{path}: lossless {space} JPEG read as {mode}: no colour "
+            f"conversion in lossless mode (cv2.imread gives None)")
+    return out[..., 0] if mode == "gray" else out
+
+
 def decode_jpeg(data: bytes, path: str = "<bytes>",
                 mode: str = "unchanged") -> np.ndarray:
     """Decode a JPEG as one of the reference's readers does:
@@ -532,17 +627,25 @@ def decode_jpeg(data: bytes, path: str = "<bytes>",
       samples of a YCbCr file as libjpeg's grayscale output gives them.
 
     The two cv2 modes apply the EXIF orientation as ``cv2.imread`` does.
+    A lossless file read in a cv2 mode whose channels are not the file's
+    raises :class:`ChannelMismatch` where cv2.imread returns None.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
     hdr = _parse(data, path)
+    payload = np.frombuffer(data, np.uint8)
+    if hdr.lossless:
+        out = _lossless_as(*_decode_lossless(hdr, payload, path), hdr, mode,
+                           path)
+        if mode != "unchanged":
+            out = apply_orientation(out, exif_orientation(hdr.exif))
+        return out
     height, width, comps = hdr.frame
     ncomp = len(comps)
     space = _transform(hdr)
     one_pass = _one_pass(hdr)
     bufs, shapes, hmax, vmax = _buffers(hdr, one_pass)
     lib = _load()
-    payload = np.frombuffer(data, np.uint8)
     scans = [_scan_args(hdr, scan, payload, bufs, shapes, hmax, vmax)
              for scan in hdr.scans]
     if not one_pass:

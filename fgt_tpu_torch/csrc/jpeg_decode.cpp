@@ -4,7 +4,9 @@
 // decoder with its DC and AC conditioning), sequential (SOF0/1/9, one
 // scan or several) or progressive (SOF2/10: DC and AC first and
 // refinement scans, EOB runs, successive approximation), 1, 3 or 4
-// components, every integral sampling ratio, restart intervals. As
+// components, every integral sampling ratio, restart intervals; and
+// lossless (SOF3: Huffman-coded DPCM, predictors 1-7, point transforms,
+// precision 2-8, restarts; see decode_lossless). As
 // jdcoefct.c does, a file of several scans (every progressive one)
 // decodes them into a whole-image coefficient buffer and then runs the
 // output pass; a file of one sequential scan decodes into a buffer one
@@ -23,6 +25,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -1279,6 +1282,105 @@ int decode_scan(const uint8_t* data, int64_t len, const int* layout,
   return kOk;
 }
 
+// ---------------- lossless scans (jdlhuff.c, jddiffct.c, jdpred.c) -----
+
+// T.81 Annex H as libjpeg-turbo 3.1 decodes it: the one scan of a
+// lossless (SOF3) file holding every component at 1x1 sampling, so that
+// an MCU is one sample of each scan component in turn. Each sample is a
+// Huffman-coded difference (jdlhuff.c: category 0-15 and that many extra
+// bits, category 16 meaning 32768 with none) added, modulo 2^16, to a
+// prediction from the undifferenced samples (jdpred.c): in the first row
+// of the scan and the first after each restart, the initial value
+// 2^(P - Pt - 1) for the row's first sample and Ra for the others; in
+// every other row Rb for the first sample and the selected predictor
+// (1-7) for the others. The output sample is the undifferenced one
+// shifted left by the point transform Pt, cast to 8 bits (jdlossls.c's
+// scaler). Restart intervals span whole rows (libjpeg-turbo refuses
+// others; Python checks).
+int decode_lossless(const uint8_t* data, int64_t len, const int* layout,
+                    const uint8_t* dc_bits, const uint8_t* dc_vals,
+                    uint8_t* out) {
+  const int ns = layout[0], psv = layout[1], pt = layout[2];
+  const int restart_interval = layout[3];
+  const int width = layout[4], height = layout[5], precision = layout[6];
+  const int ncomp = layout[7];
+  if (ns < 1 || ns > 4 || ncomp < ns || psv < 1 || psv > 7 || width < 1 ||
+      height < 1 || precision < 2 || precision > 8 || pt < 0 ||
+      pt >= precision || restart_interval < 0 ||
+      restart_interval % width != 0)
+    return kBadLayout;
+  HuffTable tables[4];
+  bool built[4] = {false, false, false, false};
+  const HuffTable* tbl[4];
+  int slot[4];
+  for (int s = 0; s < ns; ++s) {
+    const int c = layout[8 + 2 * s], d = layout[9 + 2 * s];
+    if (c < 0 || c >= ncomp || d < 0 || d > 3) return kBadLayout;
+    if (!built[d]) {
+      if (build_table(dc_bits + 17 * d, dc_vals + 256 * d, &tables[d]) != kOk)
+        return kBadHuffmanTable;
+      built[d] = true;
+    }
+    tbl[s] = &tables[d];
+    slot[s] = c;
+  }
+  BitReader br{data, static_cast<size_t>(len)};
+  const int rows_per_restart = restart_interval / width;
+  const int32_t initial = 1 << (precision - pt - 1);
+  std::vector<int32_t> prev(static_cast<size_t>(width) * ns);
+  std::vector<int32_t> cur(static_cast<size_t>(width) * ns);
+  int next_rst = 0;
+  bool first_row = true;
+  for (int y = 0; y < height; ++y) {
+    if (rows_per_restart && y > 0 && y % rows_per_restart == 0) {
+      if (br.restart(next_rst) != kOk) return kBadRestart;
+      next_rst = (next_rst + 1) & 7;
+      first_row = true;
+    }
+    uint8_t* orow = out + static_cast<size_t>(y) * width * ncomp;
+    for (int x = 0; x < width; ++x) {
+      for (int s = 0; s < ns; ++s) {
+        const int sym = decode_symbol(br, *tbl[s]);
+        if (sym < 0) return sym;
+        int32_t diff;
+        if (sym == 0)
+          diff = 0;
+        else if (sym == 16)
+          diff = 32768;
+        else if (sym > 16)
+          return kBadHuffmanCode;
+        else
+          diff = extend(br.get(sym), sym);
+        const size_t at = static_cast<size_t>(x) * ns + s;
+        int32_t pred;
+        if (first_row) {
+          pred = x == 0 ? initial : cur[at - ns];
+        } else if (x == 0) {
+          pred = prev[at];
+        } else {
+          const int32_t ra = cur[at - ns], rb = prev[at], rc = prev[at - ns];
+          switch (psv) {
+            case 1: pred = ra; break;
+            case 2: pred = rb; break;
+            case 3: pred = rc; break;
+            case 4: pred = ra + rb - rc; break;
+            case 5: pred = ra + ((rb - rc) >> 1); break;
+            case 6: pred = rb + ((ra - rc) >> 1); break;
+            default: pred = (ra + rb) >> 1; break;
+          }
+        }
+        cur[at] = (diff + pred) & 0xFFFF;
+        orow[static_cast<size_t>(x) * ncomp + slot[s]] =
+            static_cast<uint8_t>(cur[at] << pt);
+      }
+    }
+    if (br.overrun) return kTruncated;
+    std::swap(prev, cur);
+    first_row = false;
+  }
+  return kOk;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1327,6 +1429,22 @@ int jpeg_decode_output(int ncomp, const int* layout, int16_t* const* coefs,
                        ac_bits, ac_vals, &pass);
   for (int k = 0; k <= pass.last_imcu; ++k) pass.imcu_row(k);
   return kOk;
+}
+
+// Decode the one scan of a lossless (SOF3) file (see decode_lossless).
+//   data/len: the scan's entropy-coded bytes (RST markers included),
+//     and the marker that ends them if one does.
+//   layout: ns, predictor (Ss), point transform (Al), restart interval
+//     (MCUs: a multiple of width), width, height, precision (2-8), the
+//     frame's component count, then per scan component its index among
+//     the frame's components and its DC table (2 ints each).
+//   dc_bits/dc_vals: 4 x 17 BITS and 4 x 256 HUFFVAL arrays.
+//   out: height x width x ncomp uint8, the components interleaved.
+// Returns 0, or a negative error (see Error above).
+int jpeg_decode_lossless(const uint8_t* data, int64_t len, const int* layout,
+                         const uint8_t* dc_bits, const uint8_t* dc_vals,
+                         uint8_t* out) {
+  return decode_lossless(data, len, layout, dc_bits, dc_vals, out);
 }
 
 }  // extern "C"

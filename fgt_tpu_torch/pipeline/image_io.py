@@ -202,6 +202,9 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
+CLI_MODE = "color_or_unchanged"
+
+
 def imread(path: str, mode: str) -> np.ndarray:
     """A PNG or JPEG file, told apart by its signature, as one of the
     reference's readers returns it: ``"color"`` — ``cv2.imread(path,
@@ -210,9 +213,16 @@ def imread(path: str, mode: str) -> np.ndarray:
     ``cv2.imread(path, IMREAD_GRAYSCALE)``, [H, W] uint8, orientation
     applied; ``"unchanged"`` — ``imageio.imread(path)``, orientation
     ignored (the datasets, validation, flow extraction, the evaluation
-    ground truth)."""
+    ground truth); ``"color_or_unchanged"`` — the JAX CLI's ``_imread``:
+    ``"color"``, or ``"unchanged"`` where cv2 gives None (a lossless gray
+    JPEG, which then arrives [H, W])."""
+    if mode == CLI_MODE:
+        try:
+            return imread(path, "color")
+        except jpeg.ChannelMismatch:
+            return imread(path, "unchanged")
     if mode not in jpeg.MODES:
-        raise ValueError(f"mode {mode!r}: one of {jpeg.MODES}")
+        raise ValueError(f"mode {mode!r}: one of {jpeg.MODES + (CLI_MODE,)}")
     with open(path, "rb") as f:
         head = f.read(8)
     if head == _SIG:

@@ -33,8 +33,10 @@ Stages (device work on the card unless the caller asks for the CPU):
 Entry points: :func:`inpaint` (arrays in, arrays out) and
 :func:`video_inpainting` (the CLI: ``.npy`` stacks or PNG / JPEG
 directories in, ``result.npy``, ``result.mp4`` (H.264 I_PCM at 30 fps,
-``core/video_io.py``), PNGs and the synchronized stage seconds in
-``timings.json`` out). The CLI's debug flags write what the JAX CLI
+``core/video_io.py``), PNGs and one line appended to
+``timings.jsonl`` (the JAX CLI's record: synchronized stage seconds,
+their total, minor page faults a stage, the frame count, the mode and
+the OOM back-offs)). The CLI's debug flags write what the JAX CLI
 writes, in the same directories: ``--vis_flows`` (the s1 flows under
 ``flow/``), ``--vis_completed_flows`` (s2's under ``completed_flow/``),
 ``--vis_prop`` (the Poisson frames and the pixels left for FGT);
@@ -74,6 +76,7 @@ import json
 import logging
 import math
 import os
+import resource
 import time
 from typing import Optional
 
@@ -236,13 +239,15 @@ def chunk_backoff(dispatch, chunk: int, stage: str,
 
 
 class StageTimer:
-    """Per-stage wall seconds. On a CUDA device it synchronizes before a
-    stage starts and before it stops, so device work is charged to the
+    """Per-stage wall seconds and minor page faults (``ru_minflt``, as the
+    JAX CLI's timer counts them). On a CUDA device it synchronizes before
+    a stage starts and before it stops, so device work is charged to the
     stage that queued it."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.times: dict = {}
+        self.faults: dict = {}
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -251,6 +256,7 @@ class StageTimer:
     @contextlib.contextmanager
     def stage(self, name: str):
         self._sync()
+        f0 = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
         t0 = time.perf_counter()
         try:
             yield
@@ -258,6 +264,18 @@ class StageTimer:
             self._sync()
             self.times[name] = self.times.get(name, 0.0) + \
                 time.perf_counter() - t0
+            self.faults[name] = self.faults.get(name, 0) + (
+                resource.getrusage(resource.RUSAGE_SELF).ru_minflt - f0)
+
+    def total(self) -> float:
+        return sum(self.times.values())
+
+    def dump(self, path: str, **extra) -> None:
+        """Append one JSON line: the JAX CLI's ``timings.jsonl`` record."""
+        rec = {"stages": self.times, "total": self.total(),
+               "minor_faults": self.faults, **extra}
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
 
 
 # ---------------- models ----------------
@@ -614,7 +632,8 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
             window_batch: Optional[int] = None, host_upscale: bool = False,
             timer: Optional[StageTimer] = None, vis: tuple = (),
             vis_root: Optional[str] = None, exact_windows: bool = False,
-            host_diffusion: bool = False) -> np.ndarray:
+            host_diffusion: bool = False,
+            backoffs: Optional[list] = None) -> np.ndarray:
     """Video inpainting on arrays. frames: [N, H, W, 3], uint8 or float in
     [0, 255] (a resized source); masks: [N, H, W] (nonzero = hole),
     unused by video extrapolation, whose hole is the canvas border.
@@ -633,7 +652,10 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
 
     ``exact_windows`` runs s6 at the reference's per-window shapes on the
     float Poisson frames (:func:`fgt_synthesis_exact`); ``host_diffusion``
-    runs s2's regionfill on the host (:func:`complete_flows`)."""
+    runs s2's regionfill on the host (:func:`complete_flows`).
+
+    ``backoffs`` (a list) receives the ``(stage, chunk, smaller)`` triple
+    of every chunk halved after a device OOM."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if models.mesh is not None:
@@ -646,7 +668,7 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
         raise ValueError(f"vis {vis!r} needs names of {VIS} and a vis_root")
     dev = models.device
     timer = timer or StageTimer(dev)
-    backoffs: list = []
+    backoffs = [] if backoffs is None else backoffs
     video255 = np.asarray(frames, np.float32)
     n, img_h, img_w = video255.shape[:3]
     flow_h, flow_w = ((img_h * 2, img_w * 2) if img_h < 350
@@ -1004,8 +1026,8 @@ def load_frames(path: str, img_h: int, img_w: int,
     (watermark removal), then float cv2-INTER_LINEAR resized to
     img_h x img_w. Returns (float32 [N, img_h, img_w, 3] in [0, 255],
     the last frame's source (H, W))."""
-    frames = image_io.read_frames(path, "color")
-    holes = (image_io.read_frames(premask_path, "color")
+    frames = image_io.read_frames(path, image_io.CLI_MODE)
+    holes = (image_io.read_frames(premask_path, image_io.CLI_MODE)
              if premask_path is not None else None)
     if holes is not None and len(holes) != len(frames):
         raise ValueError(f"{len(frames)} frames but {len(holes)} masks")
@@ -1027,7 +1049,7 @@ def load_masks(path: str, img_h: int, img_w: int) -> np.ndarray:
     return np.stack([
         image_io.resize_nearest((m[..., 0] if m.ndim == 3 else m)[None],
                                 img_h, img_w)[0]
-        for m in image_io.read_frames(path, "color")])
+        for m in image_io.read_frames(path, image_io.CLI_MODE)])
 
 
 def video_inpainting(args, models: Optional[Models] = None) -> str:
@@ -1036,29 +1058,30 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
     where the JAX CLI writes its own) and the PNG frames. Pass a
     resident ``models`` to serve many videos (the batch driver)."""
     timer = StageTimer(torch.device(args.device))
+    backoffs: list = []
     with timer.stage("s0_init"):
         if models is None:
             models = build_models(args)
-    out = inpaint_from_args(args, models, timer)
+    out = inpaint_from_args(args, models, timer, backoffs)
     if dist.rank() == 0:
         with timer.stage("s7_write"):
             image_io.write_frames(args.outroot, out)
             video_io.write_video(os.path.join(args.outroot, "result.mp4"),
                                  out, fps=30)
     n = out.shape[0]
-    total = sum(timer.times.values())
+    total = timer.total()
     logger.info("stages %s; %d frames in %.2f s (%.2f frames/s)",
                 {k: round(v, 3) for k, v in timer.times.items()}, n, total,
                 n / total if total else math.inf)
     if dist.rank() == 0:
-        with open(os.path.join(args.outroot, "timings.json"), "w") as f:
-            json.dump({"mode": args.mode, "frames": n,
-                       "shape": list(out.shape), "stages": timer.times}, f)
+        timer.dump(os.path.join(args.outroot, "timings.jsonl"), n_frames=n,
+                   mode=args.mode, backoffs=[list(b) for b in backoffs])
     return os.path.join(args.outroot, "result.npy")
 
 
 def inpaint_from_args(args, models: Models,
-                      timer: Optional[StageTimer] = None) -> np.ndarray:
+                      timer: Optional[StageTimer] = None,
+                      backoffs: Optional[list] = None) -> np.ndarray:
     """The CLI's frames and masks (``--path``, ``--path_mask``) through
     :func:`inpaint` with the CLI's options. Every rank of a mesh returns
     the output frames; :func:`video_inpainting` writes them from rank 0."""
@@ -1082,7 +1105,7 @@ def inpaint_from_args(args, models: Models,
                    timer=timer, vis_root=args.outroot,
                    vis=tuple(v for v in VIS if getattr(args, f"vis_{v}")),
                    exact_windows=args.exact_windows,
-                   host_diffusion=args.host_diffusion)
+                   host_diffusion=args.host_diffusion, backoffs=backoffs)
 
 
 def main(argv=None):

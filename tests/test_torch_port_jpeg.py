@@ -10,8 +10,15 @@ smoothing runs, DC-only files, sequential files of several scans, RGB,
 CMYK and YCCK); the three readers' semantics (``cv2.imread`` in colour
 and in gray, ``imageio.imread``); EXIF orientations 1-8 applied as cv2
 applies them and ignored as imageio ignores them; samples past the range
-saturate as libjpeg-turbo's SIMD IDCT saturates them; 12-bit, lossless
-(SOF3, SOF11) and hierarchical files raise. The committed fixtures under
+saturate as libjpeg-turbo's SIMD IDCT saturates them; 12-bit,
+arithmetic-coded lossless (SOF11) and hierarchical files raise. Lossless
+files (SOF3) written by libjpeg-turbo 3.1's own encoder (Pillow's bundled
+library, through ``tests/data/jpeg/make_lossless_fixtures.c``): gray, RGB
+and CMYK, predictors 1-7, point transforms 0-7, precision 2-8, restarts,
+sizes 1x1 up to 854x480, bit-equal to Pillow in ``"unchanged"`` and to
+cv2 in its modes, or the named ``ChannelMismatch`` where cv2 gives None;
+each JAX entry that reads frames against its port on gray and RGB
+lossless folders. The committed fixtures under
 ``tests/data/jpeg/`` (which ``chip_smoke.py`` decodes on the card's
 host) still equal cv2's decode; among them arithmetic-coded files (SOF9,
 SOF10, DAC conditioning: 4:2:0 with restarts, gray, 4:4:4 under
@@ -29,7 +36,9 @@ a file in every mode.
 
     python tests/test_torch_port_jpeg.py   # rewrite the fixtures (the
                                            # arithmetic ones need gcc and
-                                           # libjpeg-turbo's libjpeg.a)
+                                           # libjpeg-turbo's libjpeg.a,
+                                           # the lossless ones Pillow's
+                                           # libjpeg-turbo 3.1)
 """
 
 import hashlib
@@ -265,9 +274,10 @@ def _unsupported(case: str) -> bytes:
     "11 blocks an MCU"])
 def test_unsupported_files_raise_naming_file_and_property(tmp_path, case):
     """What the decoder refuses raises ValueError naming the file and the
-    property (the encoders the tests use write no lossless, hierarchical
-    or 12-bit files, so their headers are made by hand); so do a
-    truncated file and one that is not a JPEG."""
+    property (baseline data under a SOF3 header: a lossless frame of 4:2:0
+    components; the encoders write no hierarchical or 12-bit files, so
+    their headers are made by hand); so do a truncated file and one that
+    is not a JPEG."""
     path = tmp_path / "bad.jpg"
     path.write_bytes(_unsupported(case))
     prop = re.escape(case.split(" (")[0] if "SOF" in case else case)
@@ -707,6 +717,7 @@ def write_fixtures(root: str = FIXTURES) -> None:
         blocks, factors, tables, 37, 23,
         [((c,), 0, 63, 0, 0) for c in range(3)], restart=2)
     files.update(_arith_files())
+    write_lossless_fixtures()
     decodes = {}
     for name, data in files.items():
         path = os.path.join(root, name + ".jpg")
@@ -758,6 +769,363 @@ def _arith_files() -> dict:
             with open(out, "rb") as f:
                 files[name] = f.read()
     return files
+
+
+# The lossless fixtures (SOF3), under tests/data/jpeg/lossless: the flags
+# of make_lossless_fixtures.c (p predictor, t point transform, R restart
+# interval in rows, b precision) and the image each codes.
+LOSSLESS = os.path.join(FIXTURES, "lossless")
+LOSSLESS_FIXTURES = {
+    **{f"lossless_gray_p{p}": (f"-p {p}", (29, 33, 40 + p, "gray"))
+       for p in range(1, 8)},
+    **{f"lossless_rgb_p{p}": (f"-p {p}", (23, 37, 50 + p))
+       for p in range(1, 8)},
+    "lossless_gray_p1_pt2": ("-p 1 -t 2", (21, 35, 60, "gray")),
+    "lossless_rgb_p7_pt2": ("-p 7 -t 2", (25, 39, 61)),
+    "lossless_rgb_p4_rst2": ("-p 4 -R 2", (22, 30, 62)),
+    "lossless_gray_p6_rst1": ("-p 6 -R 1", (17, 9, 63, "gray")),
+    "lossless_odd_13x19_p5_pt1": ("-p 5 -t 1", (13, 19, 64)),
+    "lossless_cmyk_p3": ("-p 3", (26, 38, 65, "cmyk")),
+    "lossless_gray_6bit_p2": ("-p 2 -b 6", (19, 27, 66, "gray")),
+    "lossless_rgb_4bit_p3_pt1": ("-p 3 -b 4 -t 1", (18, 26, 67)),
+    "lossless_854_rgb_p1": ("-p 1", "davis"),
+}
+# the reader whose decode each PNG (or, for the 854x480 frame, SHA-256)
+# holds: Pillow's, or cv2's IMREAD_UNCHANGED (as RGB) for the files of
+# fewer than 8 bits, which Pillow cannot identify
+LOSSLESS_DECODES = os.path.join(LOSSLESS, "decodes.json")
+
+
+def _pillow_libjpeg() -> str:
+    """Pillow's bundled libjpeg-turbo (3.1 here: it writes SOF3)."""
+    import glob
+
+    import PIL
+
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                        "pillow.libs")
+    found = glob.glob(os.path.join(libs, "libjpeg-*.so*"))
+    assert found, f"no libjpeg in {libs}"
+    return found[0]
+
+
+def _raw_source(source):
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import davis_clip
+
+    if source == "davis":
+        return davis_clip(n=1)[0][0]
+    h, w, seed, *kind = source
+    img = _image(h, w, seed)
+    if kind == ["gray"]:
+        return img[..., 0].copy()
+    if kind == ["cmyk"]:
+        return np.concatenate([img, _image(h, w, seed + 1)[..., :1]], axis=-1)
+    return img
+
+
+def lossless_writer(d: str) -> str:
+    """Build make_lossless_fixtures.c in ``d`` against Pillow's
+    libjpeg-turbo; returns the program's path."""
+    lib = _pillow_libjpeg()
+    exe = os.path.join(d, "make_lossless_fixtures")
+    subprocess.run(["gcc", "-O2", os.path.join(
+        FIXTURES, "make_lossless_fixtures.c"), lib,
+        f"-Wl,-rpath,{os.path.dirname(lib)}", "-o", exe], check=True)
+    return exe
+
+
+def write_lossless(exe: str, d: str, img: np.ndarray, flags: str) -> bytes:
+    """One file from the writer ``exe``: ``img`` coded under ``flags``
+    (raises CalledProcessError where libjpeg-turbo refuses them)."""
+    raw = os.path.join(d, "in.raw")
+    with open(raw, "wb") as f:
+        ch = 1 if img.ndim == 2 else img.shape[2]
+        f.write(f"{img.shape[1]} {img.shape[0]} {ch}\n".encode()
+                + np.ascontiguousarray(img).tobytes())
+    out = os.path.join(d, "out.jpg")
+    subprocess.run([exe, raw, out] + flags.split(), check=True,
+                   capture_output=True)
+    with open(out, "rb") as f:
+        return f.read()
+
+
+def write_lossless_fixtures(root: str = LOSSLESS) -> None:
+    """(Re)write the lossless fixtures with libjpeg-turbo's own encoder and
+    their decodes: Pillow's as PNG, cv2's where Pillow cannot read the
+    file, a SHA-256 for the 854x480 frame."""
+    os.makedirs(root, exist_ok=True)
+    decodes = {}
+    with tempfile.TemporaryDirectory() as d:
+        exe = lossless_writer(d)
+        for name, (flags, source) in LOSSLESS_FIXTURES.items():
+            data = write_lossless(exe, d, _raw_source(source), flags)
+            path = os.path.join(root, name + ".jpg")
+            with open(path, "wb") as f:
+                f.write(data)
+            if "-b" in flags:
+                got = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+                got = got[..., ::-1] if got.ndim == 3 else got
+                rec = {"reader": "cv2"}
+            else:
+                got = np.asarray(Image.open(path))
+                rec = {"reader": "pillow"}
+            if source == "davis":
+                rec["sha256"] = _decode_sha256(got)
+            else:
+                image_io.write_png(os.path.join(root, name + ".png"), got)
+            decodes[name] = rec
+    with open(LOSSLESS_DECODES if root == LOSSLESS else
+              os.path.join(root, "decodes.json"), "w") as f:
+        json.dump(decodes, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def _lossless_readers(path: str, reader: str, label=""):
+    """Every mode of the port's decode against its reader: ``"unchanged"``
+    against Pillow (a ValueError naming the precision where Pillow cannot
+    identify the file), ``"color"`` / ``"gray"`` against cv2.imread, or
+    ``ChannelMismatch`` where cv2 returns None; ``image_io.imread`` and the
+    CLI's mode alike."""
+    for mode, flag in (("color", cv2.IMREAD_COLOR),
+                       ("gray", cv2.IMREAD_GRAYSCALE)):
+        want = cv2.imread(path, flag)
+        if want is None:
+            with pytest.raises(jpeg.ChannelMismatch, match="lossless"):
+                jpeg.read_jpeg(path, mode)
+            continue
+        want = want[..., ::-1] if want.ndim == 3 else want
+        np.testing.assert_array_equal(jpeg.read_jpeg(path, mode), want,
+                                      err_msg=f"{label} {mode}")
+        np.testing.assert_array_equal(image_io.imread(path, mode), want)
+    if reader == "pillow":
+        want = np.asarray(Image.open(path))
+        got = jpeg.read_jpeg(path, "unchanged")
+        np.testing.assert_array_equal(got, want, err_msg=f"{label}")
+        np.testing.assert_array_equal(image_io.imread(path, "unchanged"),
+                                      imageio.imread(path))
+    else:
+        with pytest.raises(OSError):
+            Image.open(path)
+        with pytest.raises(ValueError, match="lossless .*-bit samples"):
+            jpeg.read_jpeg(path, "unchanged")
+    color = cv2.imread(path, cv2.IMREAD_COLOR)
+    if color is not None:
+        np.testing.assert_array_equal(image_io.imread(path, image_io.CLI_MODE),
+                                      color[..., ::-1])
+    elif reader == "pillow":
+        np.testing.assert_array_equal(image_io.imread(path, image_io.CLI_MODE),
+                                      imageio.imread(path))
+    else:           # the JAX CLI's _imread fails too: cv2 None, then Pillow
+        with pytest.raises(ValueError, match="lossless .*-bit samples"):
+            image_io.imread(path, image_io.CLI_MODE)
+
+
+@pytest.mark.parametrize("name", sorted(LOSSLESS_FIXTURES))
+def test_lossless_fixtures_bit_equal(name):
+    """Each committed lossless fixture (SOF3, one scan, the predictor and
+    point transform of its flags) decodes as its committed decode (a PNG
+    of Pillow's, or cv2's for a file of fewer than 8 bits; a SHA-256 for
+    the 854x480 frame) and as each reader decodes it today."""
+    path = os.path.join(LOSSLESS, name + ".jpg")
+    with open(path, "rb") as f:
+        data = f.read()
+    hdr = jpeg._parse(data, path)
+    flags = LOSSLESS_FIXTURES[name][0].split()
+    assert hdr.lossless and b"\xff\xc3" in data and len(hdr.scans) == 1
+    assert hdr.scans[0].ss == int(flags[flags.index("-p") + 1])
+    assert hdr.scans[0].al == (int(flags[flags.index("-t") + 1])
+                               if "-t" in flags else 0)
+    assert hdr.precision == (int(flags[flags.index("-b") + 1])
+                             if "-b" in flags else 8)
+    with open(LOSSLESS_DECODES) as f:
+        rec = json.load(f)[name]
+    mode = "unchanged" if rec["reader"] == "pillow" else (
+        "gray" if hdr.frame[2][1:] == [] else "color")
+    got = jpeg.read_jpeg(path, mode)
+    if "sha256" in rec:
+        assert _decode_sha256(got) == rec["sha256"]
+    else:
+        np.testing.assert_array_equal(
+            got, image_io.read_png(os.path.join(LOSSLESS, name + ".png")))
+    _lossless_readers(path, rec["reader"], name)
+
+
+@pytest.fixture(scope="module")
+def lossless_exe(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("lossless_writer"))
+    return lossless_writer(d), d
+
+
+@pytest.mark.parametrize("size", [(1, 1), (7, 5), (17, 9), (3, 64)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("kind", ["gray", "rgb", "cmyk"])
+def test_lossless_over_predictors_transforms_and_precisions(
+        lossless_exe, size, kind):
+    """libjpeg-turbo's encoder under every predictor, point transforms 0,
+    1, 3 and 7, precisions 2, 5 and 8 and restarts of 1 and 2 rows:
+    every file decodes as the readers decode it."""
+    exe, d = lossless_exe
+    h, w = size
+    img = _image(h, w, seed=h * 7 + w)
+    if kind == "gray":
+        img = img[..., 0].copy()
+    elif kind == "cmyk":
+        img = np.concatenate([img, _image(h, w, seed=h + w)[..., :1]], -1)
+    cases = [f"-p {p}" for p in range(1, 8)] + [
+        "-p 1 -t 1", "-p 4 -t 3", "-p 7 -t 7", "-p 6 -R 1", "-p 5 -R 2",
+        "-p 2 -b 2 -t 1", "-p 7 -b 5 -R 1", "-p 3 -b 8 -t 2"]
+    if kind == "cmyk":       # Pillow reads 8 bits only; cv2's CMYK alike
+        cases = [c for c in cases if "-b" not in c]
+    for flags in cases:
+        data = write_lossless(exe, d, img, flags)
+        path = os.path.join(d, "case.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        bits = flags.split()
+        reader = "cv2" if "-b" in bits and bits[bits.index("-b") + 1] != \
+            "8" else "pillow"
+        _lossless_readers(path, reader, f"{kind} {size} {flags}")
+
+
+def test_lossless_files_no_reader_decodes_raise(lossless_exe):
+    """SOF11 (arithmetic-coded lossless: libjpeg-turbo's encoder refuses
+    it), a lossless file labelled YCbCr (a JFIF marker) or YCCK (Adobe
+    transform 2), and a restart interval that is not a whole number of
+    rows: Pillow and cv2 fail on each (cv2 gives None), and the port
+    raises ValueError naming it. With no JFIF or Adobe marker and
+    component ids 1-3 (which a lossy file would take for YCbCr) the
+    readers take the samples as RGB, and so does the port."""
+    exe, d = lossless_exe
+    img = _image(13, 19, seed=70)
+    with pytest.raises(subprocess.CalledProcessError) as err:
+        write_lossless(exe, d, img, "-p 1 -a")
+    assert b"arithmetic coding is not implemented" in err.value.stderr
+    rgb = write_lossless(exe, d, img, "-p 1")
+    adobe = rgb.index(b"\xff\xee")
+    ycc = bytearray(rgb[:adobe] + rgb[adobe + 2 + int.from_bytes(
+        rgb[adobe + 2:adobe + 4], "big"):])
+    sof, sos = ycc.index(b"\xff\xc3"), ycc.index(b"\xff\xda")
+    for c in range(3):
+        ycc[sof + 10 + 3 * c] = ycc[sos + 5 + 2 * c] = c + 1
+    unlabelled = os.path.join(d, "unlabelled.jpg")
+    with open(unlabelled, "wb") as f:
+        f.write(ycc)
+    _lossless_readers(unlabelled, "pillow", "ids 1-3, no marker")
+    np.testing.assert_array_equal(jpeg.read_jpeg(unlabelled), img)
+    ycc = ycc[:2] + b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01" \
+        b"\x00\x01\x00\x00" + ycc[2:]
+    cmyk = write_lossless(exe, d, np.concatenate([img, img[..., :1]], -1),
+                          "-p 1")
+    ycck = bytearray(cmyk)
+    ycck[cmyk.index(b"\xff\xee") + 15] = 2
+    dri = bytearray(write_lossless(exe, d, img, "-p 2 -R 1"))
+    at = dri.index(b"\xff\xdd") + 4
+    dri[at:at + 2] = (7).to_bytes(2, "big")
+    cases = {"SOF11": (_relabel(rgb, b"\xff\xc3", b"\xff\xcb"),
+                       "arithmetic-coded lossless \\(SOF11\\)"),
+             "ycc": (bytes(ycc), "lossless JPEG labelled YCbCr"),
+             "ycck": (bytes(ycck), "lossless JPEG labelled YCCK"),
+             "restart": (bytes(dri), "lossless restart interval 7")}
+    for label, (data, what) in cases.items():
+        path = os.path.join(d, f"{label}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        with pytest.raises(OSError):
+            np.asarray(Image.open(path))
+        for mode in jpeg.MODES:
+            if label != "SOF11":
+                assert cv2.imread(path, {"unchanged": cv2.IMREAD_UNCHANGED,
+                                         "color": cv2.IMREAD_COLOR,
+                                         "gray": cv2.IMREAD_GRAYSCALE}[
+                                             mode]) is None, (label, mode)
+            with pytest.raises(ValueError, match=f"{label}.jpg: .*{what}"):
+                image_io.imread(path, mode)
+
+
+def _lossless_folders(tmp_path, lossless_exe):
+    """A gray and an RGB folder of three lossless frames each (40x56, the
+    frames of a panning clip), as the entries' readers take them."""
+    exe, d = lossless_exe
+    frames = np.stack([_image(40, 56 + 4, seed=80)[:, 2 * i:2 * i + 56]
+                       for i in range(3)])
+    dirs = {}
+    for kind in ("gray", "rgb"):
+        root = tmp_path / kind
+        root.mkdir()
+        for i, fr in enumerate(frames):
+            img = fr[..., 0].copy() if kind == "gray" else fr
+            (root / f"{i:05d}.jpg").write_bytes(
+                write_lossless(exe, d, img, f"-p {i + 1}"))
+        dirs[kind] = str(root)
+    return dirs
+
+
+def test_lossless_folders_through_each_entry_as_its_jax_twin(
+        tmp_path, lossless_exe):
+    """Gray and RGB lossless folders through the readers of each entry
+    against the JAX package's: the inference CLI's ``load_frames`` /
+    ``load_masks`` (``_imread``: cv2 in colour, imageio where cv2 gives
+    None, so a gray frame arrives 2-D and is repeated), the datasets'
+    ``read_frame`` and flow extraction (imageio), validation's window
+    frames and the evaluation ground truth (imageio; RGB: on a gray frame
+    the JAX readers slice columns of the 2-D array where the port's
+    repeat it, as for a gray PNG), and the dataset-preparation
+    ``FrameReader`` (cv2 in colour: both refuse a gray frame) and
+    ``MaskReader`` (cv2 in gray: both refuse an RGB one)."""
+    from fgt_tpu.data import datasets as jds
+    from fgt_tpu.data import readers as jreaders
+    from fgt_tpu.pipeline import video_inpainting as jvi
+    from fgt_tpu.train import validate as jval
+    from fgt_tpu_torch.data import datasets as tds
+    from fgt_tpu_torch.data import readers as treaders
+    from fgt_tpu_torch.pipeline import evaluate as tev
+    from fgt_tpu_torch.pipeline import video_inpainting as tvi
+    from fgt_tpu_torch.train import validate as tval
+
+    dirs = _lossless_folders(tmp_path, lossless_exe)
+    for kind, root in dirs.items():
+        files = sorted(os.path.join(root, f) for f in os.listdir(root))
+        got, got_hw = tvi.load_frames(root, 32, 48)
+        want, want_hw = jvi.load_frames(root, 32, 48, 64, 96)
+        np.testing.assert_array_equal(got, want, err_msg=kind)
+        assert tuple(got_hw) == tuple(want_hw) == (40, 56)
+        np.testing.assert_array_equal(
+            tvi.load_masks(root, 32, 48) > 0,
+            jvi.load_masks(root, 32, 48, 0, 0)[0], err_msg=kind)
+        got, _ = tvi.load_frames(root, 32, 48, root)
+        want, _ = jvi.load_frames(root, 32, 48, 64, 96, root, premask=True)
+        np.testing.assert_array_equal(got, want, err_msg=kind)
+        for f in files:
+            np.testing.assert_array_equal(tds.read_frame(f, 24, 40),
+                                          jds.read_frame(f, 24, 40))
+        stack = image_io.read_stack(root, "unchanged")
+        np.testing.assert_array_equal(
+            stack, np.stack([imageio.imread(f) for f in files]))
+        if kind == "rgb":
+            np.testing.assert_array_equal(
+                np.stack(tval._read_window_frames(root, 40, 24, [0, 1, 2])),
+                np.stack(jval._read_window_frames(root, 40, 24, [0, 1, 2])))
+            np.testing.assert_array_equal(
+                tev.ground_truth(root, 3, 24, 40),
+                np.stack([cv2.resize(imageio.imread(f)[..., :3], (40, 24))
+                          for f in files]))
+            np.testing.assert_array_equal(
+                treaders.FrameReader(root).files[0],
+                jreaders.FrameReader(root).files[0])
+            with pytest.raises(ValueError):
+                treaders.MaskReader(root)
+            with pytest.raises(OSError):
+                jreaders.MaskReader(root)
+        else:
+            with pytest.raises(ValueError):
+                treaders.FrameReader(root)
+            with pytest.raises(OSError):
+                jreaders.FrameReader(root)
+            np.testing.assert_array_equal(
+                treaders.MaskReader(root).files[0],
+                jreaders.MaskReader(root).files[0])
 
 
 if __name__ == "__main__":

@@ -530,7 +530,7 @@ def test_inference_cli_under_a_mesh(runs, name):
     assert out.shape == want.shape and out.dtype == np.uint8
     assert np.abs(out.astype(np.int16) - want).max() <= 1
     assert os.path.isfile(os.path.join(root, f"{name}_cwd0", "out",
-                                       "timings.json"))
+                                       "timings.jsonl"))
     assert os.listdir(os.path.join(root, f"{name}_cwd1")) == []
 
 
