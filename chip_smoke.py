@@ -109,9 +109,16 @@ Phases (any failure exits nonzero; nothing is caught):
      --alternate_corr with --fused_corr off (20 launches of K1's f32
      body, no K3), the evaluation driver over 2 PNG videos x 24 frames
      with a random-init I3D for VFID (every number finite, eval.json;
-     I3D features of a clip on the card against the CPU's) and one
-     6-frame run with every debug flag (--vis_*, --profile, an --opt
-     YAML that sets 3 GRU iterations); object removal from a
+     I3D features of a clip on the card against the CPU's), then
+     ``phase_compare_frames``: the evaluation's first video, its result
+     frames and the video again through
+     ``data/readers.CompareFramesReader`` (``col=2``; host numpy, no
+     cv2 imported): 24 canvases [480, 864, 3] u8, black padding, tiles
+     equal outside their titles, the title strips equal to cv2's
+     renders committed in ``tests/data/text``, ms per canvas first and
+     warm; and one 6-frame run with every debug flag (--vis_*,
+     --profile, an --opt YAML that sets 3 GRU iterations); object
+     removal from a
      DAVIS-style JPEG clip (24 frames at 854x480, baseline 4:2:0, PNG
      masks, written by the tests' numpy encoder) at 432x240: the default
      run, --exact_windows (one FGT forward per window of 8, 12, 13, 12
@@ -1457,6 +1464,98 @@ def phase_evaluate(counters, root: str):
     if not err <= 1e-4 * top:
         raise AssertionError("I3D features differ between the card and "
                              "the CPU")
+
+
+TEXT_FIXTURES = os.path.join(REPO, "tests", "data", "text")
+
+
+def phase_compare_frames(root: str, smi: str) -> dict:
+    """``data/readers.CompareFramesReader`` at full size on the card's
+    host (numpy; the port imports no cv2): the evaluation phase's first
+    video (24 frames at 432x240), its result frames and the video again,
+    ``col=2`` (the second row padded). Every canvas [480, 864, 3] u8,
+    the padding black, every pixel outside the title boxes equal to its
+    tile; the title strips of canvas 0 equal to cv2's renders committed
+    in ``tests/data/text`` (``make_text_fixtures.py``): on the frame's
+    own strip for the two input tiles, and for the result tile (whose
+    pixels cv2 never saw) cv2's coverage on black blended over the
+    result strip; the port's "frames" title on the input strip equal to
+    cv2's too. ms per canvas: the first with its titles rasterised from
+    cold caches, then warm (the mean of 24)."""
+    from fgt_tpu_torch.core import text
+    from fgt_tpu_torch.data import readers
+    from fgt_tpu_torch.pipeline import image_io
+
+    video, result = f"{root}/ev/frames/v0", f"{root}/ev/out/v0/frames"
+    dirs = [video, result, video]
+    text.render_text.cache_clear()
+    text.glyph_bitmap.cache_clear()
+    t0 = time.perf_counter()
+    reader = readers.CompareFramesReader(dirs, col=2)
+    build_s = time.perf_counter() - t0
+    text.render_text.cache_clear()
+    text.glyph_bitmap.cache_clear()
+    t0 = time.perf_counter()
+    reader.titles = [text.render_text(n) for n in reader.names]
+    first = reader._canvas(0)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    canvases = [reader._canvas(i) for i in range(len(reader))]
+    warm_ms = (time.perf_counter() - t0) * 1e3 / len(canvases)
+    if reader.names != ["v0", "frames", "v0"] or len(reader) != 24:
+        raise AssertionError(f"compare frames: names {reader.names}, "
+                             f"{len(reader)} canvases, want 24")
+    tiles = [r.files for r in reader.readers]
+    org = readers.CompareFramesReader.TITLE_ORG
+    for i, canvas in enumerate(canvases):
+        if canvas.shape != (480, 864, 3) or canvas.dtype != np.uint8 or \
+                not np.array_equal(canvas, reader[i]):
+            raise AssertionError(f"compare frames: canvas {i} "
+                                 f"{canvas.shape} {canvas.dtype}")
+        if canvas[240:, 432:].any():
+            raise AssertionError(f"compare frames: canvas {i} padding")
+        for k, title in enumerate(reader.titles):
+            got = canvas[240 * (k // 2):240 * (k // 2 + 1),
+                         432 * (k % 2):432 * (k % 2 + 1)].copy()
+            want = tiles[k][i].copy()
+            _, h, w = title.layers.shape
+            box = (slice(org[1] + title.y0, org[1] + title.y0 + h),
+                   slice(org[0] + title.x0, org[0] + title.x0 + w))
+            got[box] = want[box] = 0
+            if not np.array_equal(got, want):
+                raise AssertionError(f"compare frames: canvas {i} tile {k} "
+                                     f"differs outside its title")
+    with open(os.path.join(TEXT_FIXTURES, "titles.json")) as f:
+        files = {(name, fname.split("_")[1]): fname
+                 for fname, name in json.load(f).items()}
+
+    def fixture(name, where):
+        return image_io.imread(os.path.join(
+            TEXT_FIXTURES, files[(name, where)]), "color")
+
+    sh, sw = fixture("v0", "frame").shape[:2]
+    strips = {"v0 tile 0": (first[:sh, :sw], fixture("v0", "frame")),
+              "v0 tile 2": (first[240:240 + sh, :sw],
+                            fixture("v0", "frame"))}
+    cov = fixture("frames", "black")[..., :1].astype(np.int32)
+    bg = tiles[1][0][:sh, :sw].astype(np.int32)
+    color = np.asarray(readers.CompareFramesReader.TITLE_COLOR, np.int32)
+    strips["frames tile 1"] = (first[:sh, 432:432 + sw], (
+        (bg * (255 - cov) + color * cov + 127) // 255).astype(np.uint8))
+    strips["frames on the frame"] = (
+        text.render_text("frames").draw(tiles[0][0][:sh, :sw].copy(), org,
+                                        color), fixture("frames", "frame"))
+    for label, (got, want) in strips.items():
+        if not np.array_equal(got, want):
+            raise AssertionError(f"compare frames: title strip {label} "
+                                 f"differs from cv2's in "
+                                 f"{int((got != want).any(-1).sum())} px")
+    log(f"compare frames: 3 dirs x 24 frames at 432x240, col 2 -> 24 "
+        f"canvases 480x864; reader built in {build_s:.3f} s (72 PNG reads, "
+        f"3 titles, 24 canvases); {first_ms:.3f} ms for the first canvas "
+        f"(titles rasterised cold), {warm_ms:.3f} ms per canvas warm; "
+        f"{len(strips)} title strips equal to cv2's; {smi}")
+    return {"build_s": build_s, "first_ms": first_ms, "warm_ms": warm_ms}
 
 
 def phase_debug_flags(counters, root: str):
@@ -3912,6 +4011,9 @@ def main() -> int:
         phase_small(counters, root)
         phase_alternate(counters, root)
         phase_evaluate(counters, root)
+        t0 = time.perf_counter()
+        phase_compare_frames(root, smi)
+        log(f"phase_compare_frames: {time.perf_counter() - t0:.2f} s")
         phase_debug_flags(counters, root)
         phase_jpeg_clip(counters, root)
         t0 = time.perf_counter()

@@ -11,8 +11,9 @@ through libpng's and libjpeg's own gray conversions); resizes are cv2's
 ``INTER_LINEAR`` (``image_io.resize_linear_u8``); boxes come from
 ``core.raster.external_bboxes``, in cv2's order. Frames are saved as PNG
 and videos as Motion-JPEG AVIs (``core.video_io.write_avi``), as the
-JAX package's cv2 writes them. The JAX package's ``CompareFramesReader``
-(column titles drawn with cv2's Hershey font) has no counterpart.
+JAX package's cv2 writes them. ``CompareFramesReader``'s column titles
+are drawn by ``core.text``, bit-equal to the JAX package's
+``cv2.putText(..., FONT_HERSHEY_SIMPLEX, 0.5, ..., LINE_AA)``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import os
 
 import numpy as np
 
-from fgt_tpu_torch.core import raster, video_io
+from fgt_tpu_torch.core import raster, text, video_io
 from fgt_tpu_torch.pipeline import image_io
 
 logger = logging.getLogger("fgt_tpu_torch")
@@ -182,6 +183,43 @@ class MaskGenerator(Reader):
         for (x0, y0), (x1, y1) in self.bboxeses[i]:
             mask[y0:y1 + 1, x0:x1 + 1] = 255
         return mask
+
+
+class CompareFramesReader(Reader):
+    """Side-by-side comparison canvases from N frame directories, each
+    tile titled with its name at (6, 18) in yellow, ``col`` tiles a row,
+    short rows padded on the right with black (reference
+    readers.py:431-485 evaluation collage). Each title is rasterised
+    once; a canvas costs a blend a tile."""
+
+    TITLE_ORG = (6, 18)
+    TITLE_COLOR = (255, 255, 0)
+
+    def __init__(self, dir_names, col: int | None = None, names=(),
+                 mask_dir=None):
+        self.readers = [FrameReader(d) for d in dir_names]
+        self.names = list(names) or [os.path.basename(d.rstrip("/"))
+                                     for d in dir_names]
+        self.col = col or len(self.readers)
+        self.titles = [text.render_text(name) for name in self.names]
+        super().__init__(None, read=False)
+        n = min(len(r) for r in self.readers)
+        self.files = [self._canvas(i) for i in range(n)]
+
+    def _canvas(self, i):
+        tiles = [title.draw(reader[i].copy(), self.TITLE_ORG,
+                            self.TITLE_COLOR)
+                 for title, reader in zip(self.titles, self.readers)]
+        rows = [np.concatenate(tiles[r:r + self.col], axis=1)
+                for r in range(0, len(tiles), self.col)]
+        width = max(r.shape[1] for r in rows)
+        rows = [np.pad(r, ((0, 0), (0, width - r.shape[1]), (0, 0)))
+                for r in rows]
+        return np.concatenate(rows, axis=0)
+
+    def _save_file(self, output_dir, i, file_):
+        image_io.write_png(os.path.join(output_dir, f"compare_{i:04}.png"),
+                           file_)
 
 
 class BoundingBoxesListReader(Reader):

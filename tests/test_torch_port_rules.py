@@ -57,7 +57,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "fgt_tpu_torch", "csrc")
 FORBIDDEN = {"jax", "jaxlib", "flax", "fgt_tpu", "cv2", "imageio", "yaml",
-             "PIL", "msgpack"}
+             "PIL", "msgpack", "fontTools"}
 
 
 def _port_sources():
@@ -95,7 +95,8 @@ def test_port_imports_no_jax_no_reference_package_no_cv2():
                    "core/video_io.py", "tools/demo.py",
                    "core/jpeg_encode.py", "data/mask_models.py",
                    "data/readers.py", "models/registry.py",
-                   "utils/progress.py", "tools/sustained_train.py"):
+                   "utils/progress.py", "tools/sustained_train.py",
+                   "core/text.py"):
         assert f"fgt_tpu_torch/{module}" in rel, module
     bad = {(os.path.relpath(p, ROOT), m) for p in sources
            for m in _imported_roots(p) if m in FORBIDDEN}
