@@ -1,0 +1,7 @@
+"""Peak device memory allocated over the window, in GiB."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train" or "trace" not in ctx:
+        return None
+    return ctx["peak_bytes"] / 2 ** 30, "GiB"
