@@ -10,12 +10,16 @@ freezing once converged.
 
 The loop checks convergence on the host once per iteration (a device
 sync): the V-cycle keeps the count at O(10-20) independent of hole size.
+The iterations a solve ran are added to the open span's counter
+``pcg_iters`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from fgt_tpu_torch.utils.profiling import count
 
 MAX_ITERS = 600     # per-plane stop: residual below RTOL of the RHS norm
 RTOL = 1e-6
@@ -105,10 +109,12 @@ def _pcg_hole_solve(planes, m, keep, masks):
     p = z
     rz = dot(b, z)
     rs = dot(b, b)
+    iters = 0
     for _ in range(MAX_ITERS):
         live_b = rs > tol2
         if not bool(live_b.any()):
             break
+        iters += 1
         live = live_b.float()
         ap = matvec(p)
         denom = dot(p, ap)
@@ -122,6 +128,7 @@ def _pcg_hole_solve(planes, m, keep, masks):
             rz > 0, rz, torch.ones_like(rz))
         p = z_new + beta * p
         r, z, rz, rs = r_new, z_new, rz_new, dot(r_new, r_new)
+    count("pcg_iters", iters)
     return x
 
 

@@ -19,6 +19,7 @@ from scipy import sparse
 from scipy.sparse.linalg import splu
 
 from fgt_tpu_torch import native
+from fgt_tpu_torch.utils.profiling import count
 
 
 class _PoissonPlan:
@@ -99,7 +100,9 @@ def poisson_blend(img_target: np.ndarray, grad_x: np.ndarray,
 
     img_target: [H, W, 3]; grad_x: [H, W-1, 3]; grad_y: [H-1, W, 3];
     hole_mask, gradient_mask: [H, W] bool-ish.
-    Returns (blended [H, W, 3] f64, unfilled mask [H, W] bool)."""
+    Returns (blended [H, W, 3] f64, unfilled mask [H, W] bool). The
+    unknowns solved (the hole's pixels) are added to the open span's
+    counter ``poisson_px``."""
     H, W, C = img_target.shape
     hole = hole_mask.astype(bool)
     gm = gradient_mask.astype(bool)
@@ -110,6 +113,7 @@ def poisson_blend(img_target: np.ndarray, grad_x: np.ndarray,
     gx[:, :grad_x.shape[1]] = grad_x
     gy[:grad_y.shape[0], :] = grad_y
     plan = _PoissonPlan(hole, gm)
+    count("poisson_px", plan.py.size)
     recon = plan.lu.solve(plan.A.T @ plan.rhs(img_target, gx, gy))
     out = img_target.astype(np.float64).copy()
     out[plan.py, plan.px] = recon

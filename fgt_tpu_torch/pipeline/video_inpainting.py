@@ -41,7 +41,11 @@ writes, in the same directories: ``--vis_flows`` (the s1 flows under
 ``flow/``), ``--vis_completed_flows`` (s2's under ``completed_flow/``),
 ``--vis_prop`` (the Poisson frames and the pixels left for FGT);
 ``--opt`` overrides flags from a YAML file, ``--profile`` writes a
-``torch.profiler`` trace.
+``torch.profiler`` trace and the records of the spans recorded under it
+(``utils/profiling.py``: a root ``inpaint``, a span per stage, inside
+them s1's encode and refine, s2's diffusion and LAFC windows, s6's
+forwards and composites, and the counters ``pcg_iters`` and
+``poisson_px``).
 
 Multi-GPU serving (the JAX CLI's ``--dp``, ``--tp``, ``--sp``; one
 process per card, e.g. ``torchrun --nproc_per_node 2 -m
@@ -103,7 +107,7 @@ from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
                                                 key_frames)
 from fgt_tpu_torch.utils import dist
 from fgt_tpu_torch.utils.config import apply_yaml_over_args, read_flat_yaml
-from fgt_tpu_torch.utils.profiling import maybe_trace
+from fgt_tpu_torch.utils.profiling import maybe_trace, span
 
 logger = logging.getLogger("fgt_tpu_torch")
 
@@ -278,6 +282,14 @@ class StageTimer:
             f.write(json.dumps(rec) + "\n")
 
 
+@contextlib.contextmanager
+def stage(timer, name: str):
+    """Stage ``name`` on ``timer`` (a :class:`StageTimer` or any object
+    with its ``stage``) and as a span of the same name inside it."""
+    with timer.stage(name), span(name):
+        yield
+
+
 # ---------------- models ----------------
 
 class Models:
@@ -431,11 +443,13 @@ def calculate_flows(models: Models, video_u8: torch.Tensor, flow_h: int,
     [N, H, W, 3] on the device, at image or flow resolution."""
     n, h, w = video_u8.shape[:3]
     out_h, out_w = out_hw or (h, w)
-    feats = encode_frames(models, video_u8, flow_h, flow_w)
+    with span("s1.encode"):
+        feats = encode_frames(models, video_u8, flow_h, flow_w)
     ar = torch.arange(n - 1, device=video_u8.device)
-    flows = refine_pairs(models, feats, torch.cat([ar, ar + 1]),
-                         torch.cat([ar + 1, ar]), out_h, out_w, chunk,
-                         models.corr, "s1_raft", backoffs)
+    with span("s1.refine"):
+        flows = refine_pairs(models, feats, torch.cat([ar, ar + 1]),
+                             torch.cat([ar + 1, ar]), out_h, out_w, chunk,
+                             models.corr, "s1_raft", backoffs)
     return flows[:n - 1], flows[n - 1:]
 
 
@@ -474,11 +488,13 @@ def complete_flows(models: Models, flows: torch.Tensor, masks: torch.Tensor,
     cfg = models.lafc_config
     num_flows, interval = cfg["num_flows"], cfg.get("flow_interval", 3)
     t, h, w, _ = flows.shape
-    if host_diffusion:
-        diffused = torch.from_numpy(native.diffuse_flows(
-            flows.cpu().numpy(), masks.cpu().numpy() > 0)).to(flows.device)
-    else:
-        diffused = diffuse_flows_device(flows, masks)
+    with span("s2.diffusion"):
+        if host_diffusion:
+            diffused = torch.from_numpy(native.diffuse_flows(
+                flows.cpu().numpy(), masks.cpu().numpy() > 0)).to(
+                    flows.device)
+        else:
+            diffused = diffuse_flows_device(flows, masks)
     ids = torch.tensor([indices_gen(i, interval, num_flows, t)
                         for i in range(t)], device=flows.device)
     mf = masks.float()
@@ -500,7 +516,8 @@ def complete_flows(models: Models, flows: torch.Tensor, masks: torch.Tensor,
             outs.append(out * pm + flows[piv] * (1 - pm))
         return torch.cat(outs, dim=0)
 
-    out, _ = chunk_backoff(dispatch, chunk, "s2_lafc", backoffs)
+    with span("s2.lafc_net"):
+        out, _ = chunk_backoff(dispatch, chunk, "s2_lafc", backoffs)
     return out
 
 
@@ -539,17 +556,20 @@ def fgt_synthesis(models: Models, video_u8: torch.Tensor,
             fr = fr * 2.0 - 1.0
             m = masks_u8[flat].to(models.dtype).reshape(b, t, h, w, 1)
             fl = flows[flat].reshape(b, t, h, w, 2)
-            out = models.fgt(fr * (1 - m), fl, m)
-            out_u8 = ((out.float() + 1.0) / 2.0 * 255.0).to(torch.uint8)
+            with span("s6.forward"):
+                out = models.fgt(fr * (1 - m), fl, m)
+                out_u8 = ((out.float() + 1.0) / 2.0 * 255.0).to(torch.uint8)
             if share is not None:
                 out_u8 = models.dp_gather(out_u8)
-            for j in range(ib.shape[0]):
-                nb = ib[j, :t_n]
-                mj = mf[nb]
-                new = out_u8[j, :t_n].float() * mj + vf[nb] * (1 - mj)
-                sj = seen[nb][:, None, None, None]
-                comp[nb] = torch.where(sj, 0.5 * comp[nb] + 0.5 * new, new)
-                seen[nb] = True
+            with span("s6.composite"):
+                for j in range(ib.shape[0]):
+                    nb = ib[j, :t_n]
+                    mj = mf[nb]
+                    new = out_u8[j, :t_n].float() * mj + vf[nb] * (1 - mj)
+                    sj = seen[nb][:, None, None, None]
+                    comp[nb] = torch.where(sj, 0.5 * comp[nb] + 0.5 * new,
+                                           new)
+                    seen[nb] = True
         return comp.to(torch.uint8)
 
     comp, _ = chunk_backoff(dispatch, max(1, min(window_batch, w_total)),
@@ -587,13 +607,17 @@ def fgt_synthesis_exact(models: Models, frames: np.ndarray,
         sel = torch.tensor(ids, device=dev)
         m = mf[sel]
         masked = (normed[sel] * (1 - m)).to(models.dtype)[None]
-        out = models.fgt(masked, flows[sel][None], m.to(models.dtype)[None])[0]
-        out_u8 = ((out.float() + 1.0) / 2.0 * 255.0).to(torch.uint8)
-        for k, idx in enumerate(neighbor_ids):
-            new = out_u8[k].float() * mf[idx] + valid[idx].float() * (
-                1 - mf[idx])
-            comp[idx] = 0.5 * comp[idx] + 0.5 * new if idx in seen else new
-            seen.add(idx)
+        with span("s6.forward"):
+            out = models.fgt(masked, flows[sel][None],
+                             m.to(models.dtype)[None])[0]
+            out_u8 = ((out.float() + 1.0) / 2.0 * 255.0).to(torch.uint8)
+        with span("s6.composite"):
+            for k, idx in enumerate(neighbor_ids):
+                new = out_u8[k].float() * mf[idx] + valid[idx].float() * (
+                    1 - mf[idx])
+                comp[idx] = (0.5 * comp[idx] + 0.5 * new if idx in seen
+                             else new)
+                seen.add(idx)
     return comp.to(torch.uint8)
 
 
@@ -681,8 +705,8 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
         """The JAX pipeline's host flow-resolution frames, rounded."""
         return to_u8(image_io.resize_linear(video255, flow_h, flow_w))
 
-    with torch.inference_mode():
-        with timer.stage("s1_raft"):
+    with span("inpaint", device=dev, frames=n), torch.inference_mode():
+        with stage(timer, "s1_raft"):
             rgb = flow_frames() if host_upscale else to_u8(video255)
             flows_f, flows_b = calculate_flows(
                 models, torch.from_numpy(rgb).to(dev), flow_h, flow_w,
@@ -692,7 +716,7 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
                        flows_b.cpu().numpy(), subdir="flow")
         video = video255 / 255.0
         if mode == "video_extrapolation":
-            with timer.stage("s1b_extrapolation"):
+            with stage(timer, "s1b_extrapolation"):
                 video, flows_f, flows_b, fm2d, md2d = extrapolation(
                     video, flows_f, flows_b, h_scale, w_scale)
                 img_h, img_w = video.shape[1:3]
@@ -715,7 +739,7 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
         window_batch = max(window_batch or max(1, int(6 * pixel_scale)),
                            models.dp)
 
-        with timer.stage("s2_lafc"):
+        with stage(timer, "s2_lafc"):
             fm = torch.from_numpy(flow_mask.astype(np.uint8)).to(dev)
             comp_f = complete_flows(models, flows_f, fm[:-1], lafc_chunk,
                                     backoffs, host_diffusion)
@@ -726,18 +750,18 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
         if "completed_flows" in vis:
             save_flows(vis_root, flow_f_np, flow_b_np)
 
-        with timer.stage("s3_gradients"):
+        with stage(timer, "s3_gradients"):
             video, gx, gy = prepare_gradients(video, mask, mask_dilated)
         nl = None
         if use_nonlocal:
-            with timer.stage("s3b_nonlocal_flows"):
+            with stage(timer, "s3b_nonlocal_flows"):
                 nl_f, nl_b = calculate_nonlocal_flows(
                     models, torch.from_numpy(flow_frames()).to(dev), img_h,
                     img_w, raft_chunk, backoffs)
                 # propagation layout [H, W, 2, 3, N]
                 nl = [a.cpu().numpy().transpose(2, 3, 4, 1, 0)
                       for a in (nl_f, nl_b)]
-        with timer.stage("s4_flownn"):
+        with stage(timer, "s4_flownn"):
             pcfg = PropagationConfig(consistency_thres, alpha)
             if nl is None:
                 gx, gy, mask_tofill = get_flownn_gradient_frames(
@@ -749,7 +773,7 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
                     flow_b_np.transpose(1, 2, 3, 0), *nl)
                 gx, gy = gx.transpose(3, 0, 1, 2), gy.transpose(3, 0, 1, 2)
                 mask_tofill = mask_tofill.transpose(2, 0, 1)
-        with timer.stage("s5_poisson"):
+        with stage(timer, "s5_poisson"):
             mask_tofill = np.stack([scipy.ndimage.binary_fill_holes(m)
                                     for m in mask_tofill])
             mask_cur = mask.copy()
@@ -768,7 +792,7 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
         if "prop" in vis:
             save_prop(vis_root, blends, mask_cur)
 
-        with timer.stage("s6_fgt"):
+        with stage(timer, "s6_fgt"):
             if exact_windows:
                 comp = fgt_synthesis_exact(
                     models, np.stack(blends),
@@ -974,7 +998,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "are always written as frames/NNNNN.png")
     p.add_argument("--profile", default="",
                    help="write a torch.profiler trace (trace.json) of the "
-                        "run to this directory")
+                        "run and its spans' records (spans.jsonl) to this "
+                        "directory")
     p.add_argument("--dp", action="store_true",
                    help="shard batched stage calls over the ranks of the "
                         "process group (multi-GPU serving, one process a "
@@ -1059,12 +1084,12 @@ def video_inpainting(args, models: Optional[Models] = None) -> str:
     resident ``models`` to serve many videos (the batch driver)."""
     timer = StageTimer(torch.device(args.device))
     backoffs: list = []
-    with timer.stage("s0_init"):
+    with stage(timer, "s0_init"):
         if models is None:
             models = build_models(args)
     out = inpaint_from_args(args, models, timer, backoffs)
     if dist.rank() == 0:
-        with timer.stage("s7_write"):
+        with stage(timer, "s7_write"):
             image_io.write_frames(args.outroot, out)
             video_io.write_video(os.path.join(args.outroot, "result.mp4"),
                                  out, fps=30)
@@ -1086,7 +1111,7 @@ def inpaint_from_args(args, models: Models,
     :func:`inpaint` with the CLI's options. Every rank of a mesh returns
     the output frames; :func:`video_inpainting` writes them from rank 0."""
     timer = timer or StageTimer(torch.device(args.device))
-    with timer.stage("s0_load_frames"):
+    with stage(timer, "s0_load_frames"):
         frames, src_hw = load_frames(
             args.path, args.imgH, args.imgW,
             args.path_mask if args.mode == "watermark_removal" else None)

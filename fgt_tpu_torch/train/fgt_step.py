@@ -52,6 +52,10 @@ Mixed precision (``train/precision.py``, as the JAX step's
 ``compute_dtype``): the generator and oracle forwards run on bf16 copies
 of their parameters and inputs and their outputs come back as f32; D,
 the optimizer state and the losses stay f32.
+
+Under a profiler or ``enable_spans`` (``utils/profiling.py``) a step is
+a root span ``fgt_step`` over the phases ``oracle`` (1-2),
+``g_forward``, ``d_update`` (3), ``g_backward`` (4) and ``g_adam``.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ import torch.nn as nn
 from fgt_tpu_torch.train import losses, precision
 from fgt_tpu_torch.train.schedules import set_lr
 from fgt_tpu_torch.utils.dist import average_grads, sum_grads
+from fgt_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -148,40 +153,54 @@ class FGTTrainStep:
         return (loss_r + loss_f) / 2.0, loss_r, loss_f
 
     def __call__(self, batch: dict) -> dict:
-        w = self.weights
         frames, masks = batch["frames"], batch["masks"]
-        flows = norm_flows_nhwc(self._flows(batch, masks))
+        with span("fgt_step", device=frames.device, step=self.step):
+            return self._step(batch, frames, masks)
+
+    def _step(self, batch: dict, frames: torch.Tensor,
+              masks: torch.Tensor) -> dict:
+        w = self.weights
+        with span("oracle"):
+            flows = norm_flows_nhwc(self._flows(batch, masks))
         lr = self.schedule(self.step) if self.schedule else None
 
-        filled = precision.forward(self.gen, self.mixed_precision,
-                                   frames * (1 - masks), flows, masks).float()
-        comp_detached = (filled * masks + frames * (1 - masks)).detach()
+        with span("g_forward"):
+            filled = precision.forward(self.gen, self.mixed_precision,
+                                       frames * (1 - masks), flows,
+                                       masks).float()
+            comp_detached = (filled * masks + frames * (1 - masks)).detach()
 
-        self.d_opt.zero_grad(set_to_none=True)
-        dis_loss, d_real, d_fake = self._d_loss(frames, comp_detached)
-        dis_loss.backward()
-        average_grads(self.disc.parameters(), self.group)
-        if lr is not None:
-            set_lr(self.d_opt, lr)
-        self.d_opt.step()
+        with span("d_update"):
+            self.d_opt.zero_grad(set_to_none=True)
+            dis_loss, d_real, d_fake = self._d_loss(frames, comp_detached)
+            dis_loss.backward()
+            average_grads(self.disc.parameters(), self.group)
+            if lr is not None:
+                set_lr(self.d_opt, lr)
+            self.d_opt.step()
 
-        comp = filled * masks + frames * (1 - masks)
-        gan = losses.adversarial_loss(self.disc(comp, sn_update=False),
-                                      True, False, w.gan_kind)
-        l1_valid = losses.l1_normalized(filled, frames, 1 - masks, self.group)
-        l1_masked = losses.l1_normalized(filled, frames, masks, self.group)
-        # the reference swaps L1M/L1V between the terms (module docstring)
-        gen_loss = l1_valid * w.L1M + l1_masked * w.L1V + gan * w.adv
-        grads = torch.autograd.grad(gen_loss, self.g_params,
-                                    materialize_grads=True)
-        for p, g in zip(self.g_params, grads):
-            p.grad = g
-        if self.sp_group is not None:
-            sum_grads(self.g_params, self.sp_group)
-        average_grads(self.g_params, self.group)
-        if lr is not None:
-            set_lr(self.g_opt, lr)
-        self.g_opt.step()
+        with span("g_backward"):
+            comp = filled * masks + frames * (1 - masks)
+            gan = losses.adversarial_loss(self.disc(comp, sn_update=False),
+                                          True, False, w.gan_kind)
+            l1_valid = losses.l1_normalized(filled, frames, 1 - masks,
+                                            self.group)
+            l1_masked = losses.l1_normalized(filled, frames, masks,
+                                             self.group)
+            # the reference swaps L1M/L1V between the terms (module
+            # docstring)
+            gen_loss = l1_valid * w.L1M + l1_masked * w.L1V + gan * w.adv
+            grads = torch.autograd.grad(gen_loss, self.g_params,
+                                        materialize_grads=True)
+            for p, g in zip(self.g_params, grads):
+                p.grad = g
+            if self.sp_group is not None:
+                sum_grads(self.g_params, self.sp_group)
+            average_grads(self.g_params, self.group)
+        with span("g_adam"):
+            if lr is not None:
+                set_lr(self.g_opt, lr)
+            self.g_opt.step()
         self.step += 1
         return {k: v.detach() for k, v in (
             ("dis_loss", dis_loss), ("dis_real", d_real),

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from fgt_tpu_torch.utils.profiling import span
+
 
 def forward(module: nn.Module, mixed_precision: bool, *inputs, **kwargs):
     """``module(*inputs, **kwargs)``; with ``mixed_precision`` on bf16
@@ -25,7 +27,8 @@ def forward(module: nn.Module, mixed_precision: bool, *inputs, **kwargs):
     def bf16(t):
         return t.to(torch.bfloat16) if t.is_floating_point() else t
 
-    state = {k: bf16(v) for k, v in (*module.named_parameters(),
-                                      *module.named_buffers())}
+    with span("cast"):
+        state = {k: bf16(v) for k, v in (*module.named_parameters(),
+                                          *module.named_buffers())}
     return torch.func.functional_call(
         module, state, tuple(bf16(a) for a in inputs), kwargs)

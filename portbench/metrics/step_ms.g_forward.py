@@ -1,0 +1,10 @@
+"""Milliseconds a step in the generator's forward and the detached
+composite (``g_forward``), from the program's ``device_ms`` (the span's
+interval on the card's timeline, busy or waiting; its host duration
+where it has none) over the profiled steps."""
+
+from portbench.spans import span_ms
+
+
+def read(ctx):
+    return span_ms(ctx, "train", "g_forward")
