@@ -36,7 +36,12 @@ Phases (any failure exits nonzero; nothing is caught):
      outpainting canvas's shapes, N=16 at L=9360 (24 frames) and
      L=22320 (208 frames), against the plain version in chunks of N
      whose scores fit, timed beside SDPA and the chunked plain version,
-     with the bound;
+     with the bound; then kernel K6 (s5's Poisson CG, f64) on the removal
+     cells' clips (24 x 432x240, the stroke cell's mask seed 0 and a
+     56x56 square, tests/torch_port_poisson_cases.py): one launch a
+     clip, equal to scipy splu within 1e-6 and to its plain version
+     within 1e-7 on every filled pixel, timed beside the plain version,
+     with its bound and the iterations;
   4. kernels K4 (dq) and K5 (dk, dv), the flash backward, at training's
      N=32, L=900, ch=128, in f32 and bf16: against their plain versions
      and against autograd of the plain forward; SDPA's backward (forward
@@ -63,7 +68,7 @@ Phases (any failure exits nonzero; nothing is caught):
      (default) and the all-pairs pyramid (K3); per pass the synchronized
      per-stage seconds, frames/s, peak memory and the kernels' launch
      counts (reset before the pass, read after it: 20 per video of the
-     path's correlation kernel, none of the other's, K2 > 0; K1's route
+     path's correlation kernel, none of the other's, K2 > 0, K6 1; K1's route
      counts on the K1 path); output
      checked to be [24, 240, 432, 3] u8 and byte-identical to the input
      outside the hole; the two warm s1 times side by side;
@@ -312,7 +317,8 @@ def resource_usage() -> dict:
                               capture_output=True, text=True).stdout
         for fn, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:[^\n]*)",
                                     dump):
-            kernel = re.search(r"(flash_(fwd|dq|dkv)|corr_fused|corr_lookup)"
+            kernel = re.search(r"(flash_(fwd|dq|dkv)|corr_fused|corr_lookup"
+                               r"|poisson_pcg)"
                                r"(_bf16|_warp)?_kernel", fn).group(0)
             args = re.search(
                 kernel + r"I((?:f|13__nv_bfloat16|S1_|Li\d+E)+)E", fn)
@@ -566,6 +572,84 @@ def phase_k2_canvas(stats: dict, smi: str):
                              bound_by=b_by, max_abs_err=err,
                              library_ms=library_ms)
         del q, k, v
+        torch.cuda.empty_cache()
+
+
+# K6 at the removal cells' clips (tests/torch_port_poisson_cases.py):
+# 24 frames of 432x240, the stroke cell's mask seed 0 and a 56x56 square
+K6_CLIPS = (("strokes", (24, 240, 432)), ("square", (24, 240, 432)))
+# bytes an iteration moves per unknown and channel, each once: x, r and
+# p read and written, the diagonal and four neighbour indices read
+K6_BYTES_PER_UNKNOWN = 6 * 8 + 8 + 16
+
+
+def phase_k6(stats: dict, smi: str):
+    """K6 on each of ``K6_CLIPS``: the clip path (``poisson_blend_clip``,
+    one launch) against the pipeline's per-frame splu loop, the kernel's
+    solution against its plain version's on the same device tensors,
+    then the kernel's own device time (profiler, 3 calls), the plain
+    version's, the host's splu loop and the bound: the bytes of each
+    plane's iterations at the HBM rate."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fgt_tpu_torch.ops import poisson as k6
+    from fgt_tpu_torch.pipeline import poisson as tpoisson
+
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_port_poisson_cases import case, splu_clip, worst_filled_gap
+
+    for kind, shape in K6_CLIPS:
+        video, gx, gy, holes, gms = case(kind, *shape)
+        counts = holes.reshape(len(holes), -1).sum(1)
+        before = k6.poisson_pcg.launches
+        t0 = time.perf_counter()
+        got, left = tpoisson.poisson_blend_clip(video, gx, gy, holes, gms,
+                                                torch.device("cuda"))
+        clip_s = time.perf_counter() - t0
+        launches = k6.poisson_pcg.launches - before
+        t0 = time.perf_counter()
+        want, want_left = splu_clip(video, gx, gy, holes, gms)
+        splu_s = time.perf_counter() - t0
+        gap = worst_filled_gap(got, want, holes, left)
+        ops = ([torch.from_numpy(a).cuda().double() for a in (video, gx, gy)]
+               + [torch.from_numpy(a).cuda() for a in (holes, gms)])
+        x, iters = k6.poisson_pcg(*ops, counts).result()
+        x_twin, it_twin = k6.poisson_pcg_plain(*ops)
+        twin_gap = float(np.abs(x - x_twin.cpu().numpy())[holes & ~left]
+                         .max())
+        log(f"K6 {kind}: {int(counts.sum())} unknowns, {launches} launch, "
+            f"iterations {iters.min()}-{iters.max()} (plain "
+            f"{int(it_twin.min())}-{int(it_twin.max())}), max gap to splu "
+            f"{gap:.3g} (tol 1e-6), to the plain version {twin_gap:.3g} "
+            f"(tol 1e-7), pixels left equal "
+            f"{bool(np.array_equal(left, want_left))}")
+        if launches != 1 or not np.array_equal(left, want_left) or \
+                gap > 1e-6 or twin_gap > 1e-7:
+            raise AssertionError(f"K6 {kind} disagrees with splu or its "
+                                 f"plain version")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                k6.poisson_pcg(*ops, counts).result()
+        kernel_ms = sum(e.self_device_time_total for e in kernel_events(prof)
+                        if "poisson_pcg" in e.key) / 1e3 / 3
+        plain_ms = cuda_ms(lambda: k6.poisson_pcg_plain(*ops), 1, warmup=0)
+        nbytes = float((iters * counts[:, None]).sum()) * K6_BYTES_PER_UNKNOWN
+        b_ms = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"K6 {kind}: kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+            f"bound_ms {b_ms:.4f} (bytes, {nbytes / 1e9:.3f} GB) "
+            f"{b_ms / kernel_ms:.3f} of the bound; clip path "
+            f"{clip_s * 1e3:.1f} ms (upload, unfilled_mask, read-back), "
+            f"splu loop {splu_s * 1e3:.1f} ms; {smi}")
+        stats[kind] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           iters=[int(iters.min()), int(iters.max())],
+                           max_abs_err=gap, clip_ms=clip_s * 1e3,
+                           splu_ms=splu_s * 1e3)
+        del ops, x_twin
         torch.cuda.empty_cache()
 
 
@@ -3951,7 +4035,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fgt_tpu_torch import native
     from fgt_tpu_torch.ops import (_build, corr_fused, corr_lookup,
-                                   flash_attention)
+                                   flash_attention, poisson)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3987,18 +4071,22 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_k2_canvas(k2, smi)
     log(f"phase_k2_canvas: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    phase_k6({}, smi)
+    log(f"phase_k6: {time.perf_counter() - t0:.2f} s")
     phase_k1(torch.bfloat16, k1, C=128, r=3)     # RAFT --small
     phase_k3_small(k3)
     phase_pyramid_build()
     phase_refine_bf16()
     counters = (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
-                flash_attention.flash_mhsa)
+                flash_attention.flash_mhsa, poisson.poisson_pcg)
     launches, fused_s, fused_peak = phase_main_path(
         counters, "fused", {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
-                            "flash_mhsa": None})
+                            "flash_mhsa": None, "poisson_pcg": 1})
     pyr_launches, pyr_s, _ = phase_main_path(
         counters, "pyramid", {"lookup_corr_fused": 0,
-                              "lookup_corr_pyramid": 20, "flash_mhsa": None})
+                              "lookup_corr_pyramid": 20, "flash_mhsa": None,
+                              "poisson_pcg": 1})
     log(f"s1 RAFT, warm, same run: K1 path {fused_s['s1_raft']:.4f} s, "
         f"pyramid path (K3) {pyr_s['s1_raft']:.4f} s")
     with tempfile.TemporaryDirectory() as root:

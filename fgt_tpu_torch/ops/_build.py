@@ -35,6 +35,7 @@ CUDA_SOURCES = {
     "corr_lookup": "corr_lookup.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "poisson_pcg": "poisson_pcg.cu",
 }
 
 # host libraries: name -> source under csrc/; -march=native code is only

@@ -10,15 +10,22 @@ solved through its normal equations with one sparse LU factorization
 (scipy ``splu``) shared by the RGB channels. Unknowns are the hole
 pixels only. The connectivity check (hole pixels unreachable through
 gradient-valid paths) is the native ``unfilled_mask``.
+
+On a CUDA device the pipeline takes :func:`poisson_blend_clip` instead:
+the same normal equations of every frame, solved on the card in one
+launch of kernel K6 (``ops/poisson.py``), with no factorization.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.ndimage
+import torch
 from scipy import sparse
 from scipy.sparse.linalg import splu
 
 from fgt_tpu_torch import native
+from fgt_tpu_torch.ops.poisson import poisson_pcg
 from fgt_tpu_torch.utils.profiling import count
 
 
@@ -118,3 +125,52 @@ def poisson_blend(img_target: np.ndarray, grad_x: np.ndarray,
     out = img_target.astype(np.float64).copy()
     out[plan.py, plan.px] = recon
     return out, plan.unfilled.copy()
+
+
+def fill_holes(masks: np.ndarray) -> np.ndarray:
+    """``scipy.ndimage.binary_fill_holes`` of every frame of [n, H, W]
+    bool masks at once: a pixel outside the mask is filled where its
+    4-connected component outside the mask, within its frame, touches no
+    border of the frame. One labelling pass over the clip instead of a
+    dilation to convergence a frame (a third of the time on a stroke
+    clip)."""
+    plane_cross = np.zeros((3, 3, 3), bool)
+    plane_cross[1] = scipy.ndimage.generate_binary_structure(2, 1)
+    labels, n = scipy.ndimage.label(~np.asarray(masks, bool), plane_cross)
+    outside = np.zeros(n + 1, bool)
+    for edge in (labels[:, 0], labels[:, -1], labels[:, :, 0],
+                 labels[:, :, -1]):
+        outside[edge] = True
+    outside[0] = False
+    return ~outside[labels]
+
+
+def poisson_blend_clip(video: np.ndarray, gx: np.ndarray, gy: np.ndarray,
+                       holes: np.ndarray, gms: np.ndarray, device):
+    """Blend gradients into the holes of every frame of a clip at once,
+    through K6 on ``device`` (its plain twin on the CPU).
+
+    video, gx, gy: [n, H, W, 3] (gx's last column and gy's last row are
+    not read); holes, gms: [n, H, W] bool. Returns (blends: per frame the
+    [H, W, 3] f64 blend clipped to [0, 1], or the frame itself where it
+    has no hole; the pixels left unfilled [n, H, W] bool), what the
+    per-frame :func:`poisson_blend` loop of the pipeline gives. The
+    unknowns are added to the open span's counter ``poisson_px``, the
+    most iterations of any plane to ``poisson_iters``."""
+    holes = np.asarray(holes, bool)
+    gms = np.asarray(gms, bool)
+    counts = holes.reshape(len(holes), -1).sum(1)
+    count("poisson_px", int(counts.sum()))
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device).to(dtype)
+
+    solve = poisson_pcg(up(video, torch.float64), up(gx, torch.float64),
+                        up(gy, torch.float64), up(holes, torch.bool),
+                        up(gms, torch.bool), counts)
+    left = holes.copy()         # the card solves meanwhile
+    for i in np.flatnonzero(counts):
+        left[i] = native.unfilled_mask(holes[i], gms[i])
+    frames, iters = solve.result()
+    count("poisson_iters", int(iters.max(initial=0)))
+    return [frames[i] if c else video[i] for i, c in enumerate(counts)], left

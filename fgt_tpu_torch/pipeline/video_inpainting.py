@@ -24,7 +24,8 @@ Stages (device work on the card unless the caller asks for the CPU):
               frames [0, N//2, N-1], on the pyramid path (K3), or K1 in
               f32 under ``--alternate_corr``
   s4 host     flowNN gradient propagation (native OpenMP kernels)
-  s5 host     Poisson blending (scipy splu)
+  s5          Poisson blending: on the card every frame in one launch of
+              kernel K6 (f64 CG), on the CPU scipy splu a frame
   s6 FGT      batched windows, temporal attention through kernel K2,
               ordered 50/50 composite in pivot order, trunc-cast to u8;
               under ``--exact_windows`` one forward per window at the
@@ -44,8 +45,8 @@ writes, in the same directories: ``--vis_flows`` (the s1 flows under
 ``torch.profiler`` trace and the records of the spans recorded under it
 (``utils/profiling.py``: a root ``inpaint``, a span per stage, inside
 them s1's encode and refine, s2's diffusion and LAFC windows, s6's
-forwards and composites, and the counters ``pcg_iters`` and
-``poisson_px``).
+forwards and composites, and the counters ``pcg_iters``,
+``poisson_px`` and ``poisson_iters``).
 
 Multi-GPU serving (the JAX CLI's ``--dp``, ``--tp``, ``--sp``; one
 process per card, e.g. ``torchrun --nproc_per_node 2 -m
@@ -100,14 +101,15 @@ from fgt_tpu_torch.parallel.collectives import gather_frames
 from fgt_tpu_torch.parallel.mesh import make_mesh
 from fgt_tpu_torch.parallel.partition import shard_module, tp_param_fraction
 from fgt_tpu_torch.pipeline import image_io
-from fgt_tpu_torch.pipeline.poisson import poisson_blend
+from fgt_tpu_torch.pipeline.poisson import (fill_holes, poisson_blend,
+                                            poisson_blend_clip)
 from fgt_tpu_torch.pipeline.propagation import (PropagationConfig,
                                                 get_flownn_gradient,
                                                 get_flownn_gradient_frames,
                                                 key_frames)
 from fgt_tpu_torch.utils import dist
 from fgt_tpu_torch.utils.config import apply_yaml_over_args, read_flat_yaml
-from fgt_tpu_torch.utils.profiling import maybe_trace, span
+from fgt_tpu_torch.utils.profiling import count, maybe_trace, span
 
 logger = logging.getLogger("fgt_tpu_torch")
 
@@ -774,19 +776,24 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
                 gx, gy = gx.transpose(3, 0, 1, 2), gy.transpose(3, 0, 1, 2)
                 mask_tofill = mask_tofill.transpose(2, 0, 1)
         with stage(timer, "s5_poisson"):
-            mask_tofill = np.stack([scipy.ndimage.binary_fill_holes(m)
-                                    for m in mask_tofill])
-            mask_cur = mask.copy()
-            blends = []   # f64 where Poisson ran, as the JAX pipeline keeps
-            for i in range(n):
-                if mask_cur[i].any():
-                    blend, unfilled = poisson_blend(
-                        video[i], gx[i][:, :img_w - 1], gy[i][:img_h - 1],
-                        mask_cur[i], mask_tofill[i])
-                    blends.append(np.clip(blend, 0, 1.0))
-                    mask_cur[i] = unfilled
-                else:
-                    blends.append(video[i])
+            mask_tofill = fill_holes(mask_tofill)
+            # blends: f64 where Poisson ran, as the JAX pipeline keeps
+            if dev.type == "cuda":      # every frame in one launch of K6
+                blends, mask_cur = poisson_blend_clip(
+                    video, gx, gy, mask, mask_tofill, dev)
+            else:               # scipy factors each frame: no iterations
+                mask_cur = mask.copy()
+                count("poisson_iters", 0)
+                blends = []
+                for i in range(n):
+                    if mask_cur[i].any():
+                        blend, unfilled = poisson_blend(
+                            video[i], gx[i][:, :img_w - 1],
+                            gy[i][:img_h - 1], mask_cur[i], mask_tofill[i])
+                        blends.append(np.clip(blend, 0, 1.0))
+                        mask_cur[i] = unfilled
+                    else:
+                        blends.append(video[i])
             logger.info("poisson blending done; %d px left for FGT",
                         int(mask_cur.sum()))
         if "prop" in vis:

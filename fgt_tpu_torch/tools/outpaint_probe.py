@@ -6,7 +6,7 @@ The JAX tool's protocol (208 frames of 432x240 onto an 864x480 canvas),
 its flags and its last line: one JSON object with s/frame, the stage
 split (the last line of the CLI's ``timings.jsonl``) and the peak host
 RSS. The lines before it give the card, the peak device memory, the OOM
-back-offs and the launches of kernels K1 (s1) and K2 (s6).
+back-offs and the launches of kernels K1 (s1), K2 (s6) and K6 (s5).
 
     python -m fgt_tpu_torch.tools.outpaint_probe               # 208 frames
     python -m fgt_tpu_torch.tools.outpaint_probe --frames 24   # quicker
@@ -35,7 +35,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from fgt_tpu_torch.ops import corr_fused, flash_attention
+from fgt_tpu_torch.ops import corr_fused, flash_attention, poisson
 from fgt_tpu_torch.pipeline import image_io
 from fgt_tpu_torch.pipeline import video_inpainting as vi
 from fgt_tpu_torch.tools.overfit_gate import box_filter9, card
@@ -90,7 +90,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         on_card = torch.device(cli.device).type == "cuda"
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        kernels = (corr_fused.lookup_corr_fused, flash_attention.flash_mhsa)
+        kernels = (corr_fused.lookup_corr_fused, flash_attention.flash_mhsa,
+                   poisson.poisson_pcg)
         for k in kernels:
             k.launches = 0
         t0 = time.perf_counter()

@@ -1,16 +1,20 @@
-"""The port's CUDA kernels (K1-K5) against their plain versions. These need a
+"""The port's CUDA kernels (K1-K6) against their plain versions. These need a
 GPU and nvcc: marked ``cuda``; they skip on machines without a card and
 run there with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda
 """
 
+import numpy as np
 import pytest
 import torch
 
 from fgt_tpu_torch.ops import corr_fused as cf
 from fgt_tpu_torch.ops import corr_lookup as cl
 from fgt_tpu_torch.ops import flash_attention as fa
+from fgt_tpu_torch.ops import poisson as k6
+from fgt_tpu_torch.pipeline import poisson as tpoisson
+from torch_port_poisson_cases import case, splu_clip, worst_filled_gap
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -321,3 +325,54 @@ def test_flash_attend_gradients_on_the_card(dev):
     (want * base[3]).sum().backward()
     for a, b in zip(ours, ref):
         assert (a.grad - b.grad).abs().max().item() <= 1e-5
+
+
+def _k6_operands(dev, video, gx, gy, holes, gms):
+    return ([torch.from_numpy(a).to(dev).double() for a in (video, gx, gy)]
+            + [torch.from_numpy(a).to(dev) for a in (holes, gms)])
+
+
+# the stroke cell's clip (mask seed 0) and one 2x outpainting canvas frame
+@pytest.mark.parametrize("kind,shape", [("strokes", (24, 240, 432)),
+                                        ("ring", (1, 480, 864))])
+def test_k6_matches_twin_and_splu(dev, kind, shape):
+    video, gx, gy, holes, gms = case(kind, *shape)
+    before = k6.poisson_pcg.launches
+    got, left = tpoisson.poisson_blend_clip(video, gx, gy, holes, gms,
+                                            torch.device(dev))
+    assert k6.poisson_pcg.launches == before + 1
+    want, want_left = splu_clip(video, gx, gy, holes, gms)
+    np.testing.assert_array_equal(left, want_left)
+    assert worst_filled_gap(got, want, holes, left) <= 1e-6
+    ops = _k6_operands(dev, video, gx, gy, holes, gms)
+    x, iters = k6.poisson_pcg(*ops, holes.reshape(len(holes), -1).sum(1)
+                              ).result()
+    x_twin, it_twin = k6.poisson_pcg_plain(*ops)
+    assert np.abs(x - x_twin.cpu().numpy())[holes & ~left].max() <= 1e-7
+    np.testing.assert_array_equal(x[~holes], video.astype(np.float64)[~holes])
+    it_twin = it_twin.cpu().numpy()
+    assert (iters > 0).all()
+    assert np.abs(iters - it_twin).max() <= max(3, 0.05 * it_twin.max())
+
+
+def test_k6_refuses_bad_operands(dev):
+    video, gx, gy, holes, gms = case("square")
+    img, gxt, gyt, hole, gm = _k6_operands(dev, video, gx, gy, holes, gms)
+    counts = holes.reshape(2, -1).sum(1)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        k6.poisson_pcg(img, gxt.cpu(), gyt, hole, gm, counts)
+    with pytest.raises(TypeError, match="float32"):
+        k6.poisson_pcg(img, gxt.float(), gyt, hole, gm, counts)
+    strided = torch.cat([gyt, gyt], -1)[..., :3]
+    with pytest.raises(ValueError, match="not contiguous"):
+        k6.poisson_pcg(img, gxt, strided, hole, gm, counts)
+    with pytest.raises(RuntimeError, match="another number of hole pixels"):
+        k6.poisson_pcg(img, gxt, gyt, hole, gm, counts + 1).result()
+
+
+def test_k6_unconverged_plane_raises(dev):
+    ops = _k6_operands(dev, *case("ring"))
+    solve = k6.poisson_pcg(*ops, ops[3].flatten(1).sum(1).tolist(),
+                           max_iters=5)
+    with pytest.raises(RuntimeError, match="did not converge within 5"):
+        solve.result()

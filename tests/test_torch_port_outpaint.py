@@ -82,7 +82,8 @@ def test_the_jax_tools_cpu_smoke_through_the_port(capsys):
         set(last["stages_s"])
     extra = json.loads(lines[-2])
     assert extra["backoffs"] == [] and extra["peak_device_gib"] is None
-    assert extra["launches"] == {"lookup_corr_fused": 0, "flash_mhsa": 0}
+    assert extra["launches"] == {"lookup_corr_fused": 0, "flash_mhsa": 0,
+                                 "poisson_pcg": 0}
     assert json.loads(lines[-3]) == {"device": "cpu"}
 
 

@@ -222,7 +222,9 @@ def test_clip_counters_agree_with_independent_counts(clip):
     assert len(pcg) == 2 and all(n > 0 for n in pcg)
     assert sum(pcg) == top_cycles - 2
     s5 = [r for r in recs if r["name"] == "s5_poisson"]
-    assert hole_px > 0 and s5[0]["counters"] == {"poisson_px": hole_px}
+    # the CPU's splu loop: no CG iterations
+    assert hole_px > 0 and s5[0]["counters"] == {"poisson_px": hole_px,
+                                                 "poisson_iters": 0}
 
 
 def test_pcg_iters_counts_the_loop_on_one_hole(monkeypatch):
