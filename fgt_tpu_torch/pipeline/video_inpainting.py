@@ -45,8 +45,10 @@ writes, in the same directories: ``--vis_flows`` (the s1 flows under
 ``torch.profiler`` trace and the records of the spans recorded under it
 (``utils/profiling.py``: a root ``inpaint``, a span per stage, inside
 them s1's encode and refine, s2's diffusion and LAFC windows, s6's
-forwards and composites, and the counters ``pcg_iters``,
-``poisson_px`` and ``poisson_iters``).
+forwards and composites, and the counters ``flow_hole_px`` (the
+flow-hole pixels s2 completes, both directions), ``pcg_iters``,
+``poisson_px``, ``poisson_iters`` and ``fgt_px`` (the hole pixels s5
+leaves to FGT)).
 
 Multi-GPU serving (the JAX CLI's ``--dp``, ``--tp``, ``--sp``; one
 process per card, e.g. ``torchrun --nproc_per_node 2 -m
@@ -742,6 +744,8 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
                            models.dp)
 
         with stage(timer, "s2_lafc"):
+            count("flow_hole_px", lambda: int(np.count_nonzero(
+                flow_mask[:-1])) + int(np.count_nonzero(flow_mask[1:])))
             fm = torch.from_numpy(flow_mask.astype(np.uint8)).to(dev)
             comp_f = complete_flows(models, flows_f, fm[:-1], lafc_chunk,
                                     backoffs, host_diffusion)
@@ -800,6 +804,7 @@ def inpaint(frames: np.ndarray, masks: Optional[np.ndarray], models: Models,
             save_prop(vis_root, blends, mask_cur)
 
         with stage(timer, "s6_fgt"):
+            count("fgt_px", lambda: int(np.count_nonzero(mask_cur)))
             if exact_windows:
                 comp = fgt_synthesis_exact(
                     models, np.stack(blends),

@@ -22,7 +22,10 @@ no open span. A recorded span keeps, in memory (the last
 * ``start_ns`` and ``end_ns``: host times in the profiler's own time
   base (the epoch nanoseconds of its events' ``start_ns()``), converted
   from ``time.perf_counter_ns`` by an anchor pair taken as each root
-  opens;
+  opens (:func:`_anchor`); the start is read before the span's
+  ``record_function`` range opens, since the first range a process
+  opens under a profiler returns a millisecond or more after the
+  profiler stamps its start;
 * ``device_ms``: on a CUDA device (a root's ``device``, inherited by its
   children) the interval between two timing events recorded on the
   current stream at the span's edges, busy or waiting; resolved when the
@@ -74,6 +77,20 @@ class _Recorder:
 _REC = _Recorder()
 
 
+def _anchor(tries: int = 3) -> tuple:
+    """(epoch ns, ``perf_counter_ns``) of one instant: each try reads
+    the wall clock between two monotonic reads, and the tightest try is
+    kept, so a preemption between two reads does not shift a root."""
+    best = None
+    for _ in range(tries):
+        p0 = time.perf_counter_ns()
+        wall = time.time_ns()
+        p1 = time.perf_counter_ns()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, wall, (p0 + p1) // 2)
+    return best[1], best[2]
+
+
 class _Span:
     """One recorded span (see the module docstring)."""
 
@@ -91,7 +108,7 @@ class _Span:
         rec.next_id += 1
         if up is None:
             # the profiler's time base (epoch ns) against perf_counter_ns
-            self.anchor = (time.time_ns(), time.perf_counter_ns())
+            self.anchor = _anchor()
             self.parent, self.root = None, self.id
         else:
             self.parent, self.root, self.anchor = up.id, up.root, up.anchor
@@ -99,6 +116,7 @@ class _Span:
                 self.device = up.device
         self.counters = {}
         self.range = None
+        self.t0 = time.perf_counter_ns()
         if _profiler_enabled():
             self.range = record_function(self.name)
             self.range.__enter__()
@@ -109,7 +127,6 @@ class _Span:
                            torch.cuda.Event(enable_timing=True), stream)
             self.events[0].record(stream)
         rec.open.append(self)
-        self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
@@ -140,10 +157,13 @@ def span(name: str, device=None, **attrs):
 
 def count(name: str, n) -> None:
     """Add ``n`` to counter ``name`` of the innermost open span, if any.
-    Call it once per solve or call, not once per loop iteration."""
+    ``n`` may be a function of no arguments that returns the count, called
+    only when a span is open, so a count that costs work is free when
+    spans are off. Call it once per solve or call, not once per loop
+    iteration."""
     if _REC.open:
         counters = _REC.open[-1].counters
-        counters[name] = counters.get(name, 0) + n
+        counters[name] = counters.get(name, 0) + (n() if callable(n) else n)
 
 
 def enable_spans(on: bool = True) -> None:
