@@ -41,7 +41,14 @@ Phases (any failure exits nonzero; nothing is caught):
      56x56 square, tests/torch_port_poisson_cases.py): one launch a
      clip, equal to scipy splu within 1e-6 and to its plain version
      within 1e-7 on every filled pixel, timed beside the plain version,
-     with its bound and the iterations;
+     with its bound and the iterations; then kernel K7 (s2's diffusion,
+     the multigrid-preconditioned CG, f32) at the three inference cells'
+     shapes (46 planes of 240x432 with the stroke cell's strokes and with
+     a square, 46 of the 2x canvas's 480x864 with its border as the hole,
+     tests/torch_port_diffusion_cases.py): within 1e-4 of the flows'
+     scale of its plain version inside the hole, the input's bits
+     outside, the iterations within 2, one launch a solve, timed beside
+     the plain version with its bound (``phase_k7``);
   4. kernels K4 (dq) and K5 (dk, dv), the flash backward, at training's
      N=32, L=900, ch=128, in f32 and bf16: against their plain versions
      and against autograd of the plain forward; SDPA's backward (forward
@@ -68,20 +75,21 @@ Phases (any failure exits nonzero; nothing is caught):
      (default) and the all-pairs pyramid (K3); per pass the synchronized
      per-stage seconds, frames/s, peak memory and the kernels' launch
      counts (reset before the pass, read after it: 20 per video of the
-     path's correlation kernel, none of the other's, K2 > 0, K6 1; K1's route
-     counts on the K1 path); output
+     path's correlation kernel, none of the other's, K2 > 0, K6 1, K7 2;
+     K1's route counts on the K1 path); output
      checked to be [24, 240, 432, 3] u8 and byte-identical to the input
      outside the hole; the two warm s1 times side by side;
   7. through the CLI at full width: watermark removal from PNG
      directories with premasked frames (default path), video
      extrapolation to a 1.2x canvas of 288x516 (pyramid path; the centre
-     must be the input) and --Nonlocal on 12 frames (pyramid path);
+     must be the input) and --Nonlocal on 12 frames (pyramid path), K7
+     twice in each (a solve a flow direction);
      the outpainting probe's path (``phase_outpaint``: its ``make_pan``
      frames, then the CLI with its arguments) onto the full 2x canvas of
      480x864, 24 frames (the probe's 208 cut to 24): output [24, 480,
      864, 3] u8, the centre equal to the input, K1 20 a refine chunk as
      the back-offs in ``timings.jsonl`` imply, K2 20 launches each at N=16
-     L=9360, the last line of ``timings.jsonl`` with the JAX CLI's keys;
+     L=9360, K7 2, the last line of ``timings.jsonl`` with the JAX CLI's keys;
      stage seconds, peak device memory and s/frame beside the card;
      offline flow extraction of a PNG and a JPEG video x 8 frames (28
      .flo files, K3 160 launches); the batch driver over a PNG and a
@@ -129,8 +137,9 @@ Phases (any failure exits nonzero; nothing is caught):
      run, --exact_windows (one FGT forward per window of 8, 12, 13, 12
      and 11 frames: 20 K2 launches, each window's K2 shape then held
      against its plain version in f32 and bf16 and timed) and
-     --host_diffusion (s2 on the host's multigrid solve), s6 and s2
-     seconds side by side;
+     --host_diffusion (s2 on the host's multigrid solve; K7 twice in
+     the other two runs, never in this one), s6 and s2 seconds side by
+     side;
      then dataset preparation (``phase_dataset_prep``): a 24-frame
      432x240 folder written by the port's tools (frames through
      ``data/readers.save_frames_to_dir``, moving-stroke masks of
@@ -318,7 +327,7 @@ def resource_usage() -> dict:
         for fn, usage in re.findall(r"Function (\S+):\s*\n\s*(REG:[^\n]*)",
                                     dump):
             kernel = re.search(r"(flash_(fwd|dq|dkv)|corr_fused|corr_lookup"
-                               r"|poisson_pcg)"
+                               r"|poisson_pcg|k7_[a-z]+)"
                                r"(_bf16|_warp)?_kernel", fn).group(0)
             args = re.search(
                 kernel + r"I((?:f|13__nv_bfloat16|S1_|Li\d+E)+)E", fn)
@@ -650,6 +659,108 @@ def phase_k6(stats: dict, smi: str):
                            max_abs_err=gap, clip_ms=clip_s * 1e3,
                            splu_ms=splu_s * 1e3)
         del ops, x_twin
+        torch.cuda.empty_cache()
+
+
+K7_CASES = (("strokes", (46, 240, 432)), ("square", (46, 240, 432)),
+            ("ring", (46, 480, 864)))
+
+
+def k7_bytes(hole, plane_iters) -> float:
+    """Least bytes of K7's iterations on ``hole`` ([P, H, W] bool) with
+    each plane's iterations: each level's mask read once an iteration
+    (u8, n_l pixels at level l), and every pass reading its vectors and
+    writing its outputs once at its level's hole pixels (f32, H_l at
+    level l). Per plane and iteration: the masks sum(n_l); direction
+    12 H_0 (z, p_old, p); update 20 H_0 (p, x, r; x, r); down 4 H_l +
+    4 H_l+1; up 4 H_l + 4 H_l+1 + 4 H_l (and z's old value, 4 H_0, at
+    the top); the coarsest level 8 H. The design itself reads a mask in
+    every pass that touches its level (4 n_0 an iteration at the top)."""
+    from fgt_tpu_torch.ops import diffusion as k7
+
+    masks = k7._mask_pyramid(hole.cpu().float())
+    n = [m[0].numel() for m in masks]
+    hp = [m.sum((1, 2)).double() for m in masks]
+    top = len(masks) - 1
+    per = sum(n) + 32 * hp[0] + 8 * hp[top]
+    for lv in range(top):
+        per = per + (4 * hp[lv] + 4 * hp[lv + 1])
+        per = per + (8 * hp[lv] + 4 * hp[lv + 1]
+                     + (4 * hp[0] if lv == 0 else 0))
+    return float((per * plane_iters.double().cpu()).sum())
+
+
+def phase_k7(stats: dict, smi: str):
+    """K7 on each of ``K7_CASES`` against its plain version (inside the
+    hole within 1e-4 of the flows' scale, outside the input's bits,
+    iterations within 2, one launch, the host's reads of the flag), then
+    its kernels' device time (profiler, 3 solves), its wall time a solve
+    (events, host reads included), the plain version's, the launches a
+    solve and the bound: :func:`k7_bytes` at the HBM rate."""
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fgt_tpu_torch.ops import diffusion as k7
+
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from torch_port_diffusion_cases import case, counted
+
+    for kind, shape in K7_CASES:
+        planes, hole = case(kind, *shape)
+        before = k7.diffusion_mg.launches
+        got, mine = counted(k7.laplace_fill_planes, planes, hole)
+        launches = k7.diffusion_mg.launches - before
+        want, plain = counted(k7.laplace_fill_planes_plain, planes, hole)
+        scale = planes.abs().max().item()
+        gap = (got - want)[hole].abs().max().item()
+        outside = torch.equal(got.view(torch.int32)[~hole],
+                              planes.view(torch.int32)[~hole])
+        _, plane_iters = k7.diffusion_mg(planes, hole, plane_iters=True)
+        log(f"K7 {kind} {shape}: {int(hole.sum())} hole px, {launches} "
+            f"launch, iterations {mine['pcg_iters']} (plain "
+            f"{plain['pcg_iters']}), a plane's {int(plane_iters.min())}-"
+            f"{int(plane_iters.max())}, host reads {mine['pcg_syncs']} "
+            f"(plain {plain['pcg_syncs']}), max gap to the plain version "
+            f"{gap:.3g} (tol {1e-4 * scale:.3g}), outside bit-equal "
+            f"{outside}, coarsest level in shared memory "
+            f"{k7.coarse_in_shared(*shape[1:], 'cuda')}")
+        if launches != 1 or not outside or gap > 1e-4 * scale or \
+                abs(mine["pcg_iters"] - plain["pcg_iters"]) > 2 or \
+                mine["pcg_syncs"] > math.ceil(mine["pcg_iters"] / k7.CHUNK) + 2:
+            raise AssertionError(f"K7 {kind} disagrees with its plain "
+                                 f"version")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                k7.laplace_fill_planes(planes, hole)
+            torch.cuda.synchronize()
+        mine_k = [e for e in kernel_events(prof) if "k7_" in e.key]
+        kernel_ms = sum(e.self_device_time_total for e in mine_k) / 1e3 / 3
+        kernels_a_solve = sum(e.count for e in mine_k) / 3
+        wall_ms = cuda_ms(lambda: k7.laplace_fill_planes(planes, hole), 3)
+        plain_ms = cuda_ms(lambda: k7.laplace_fill_planes_plain(planes, hole),
+                           1, warmup=0)
+        nbytes = k7_bytes(hole, plane_iters)
+        b_ms = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"K7 {kind}: kernel_ms {kernel_ms:.4f} wall_ms {wall_ms:.4f} "
+            f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} (bytes, "
+            f"{nbytes / 1e9:.3f} GB) {b_ms / kernel_ms:.3f} of the bound; "
+            f"{kernels_a_solve:.0f} kernel launches a solve "
+            f"({kernels_a_solve / max(1, mine['pcg_iters']):.1f} an "
+            f"iteration); " + ", ".join(
+                f"{e.key} {e.self_device_time_total / 1e3 / 3:.3f} ms "
+                f"x{e.count // 3}" for e in sorted(
+                    mine_k, key=lambda e: -e.self_device_time_total)) +
+            f"; {smi}")
+        stats[kind] = dict(ms=kernel_ms, wall_ms=wall_ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, iters=mine["pcg_iters"],
+                           plain_iters=plain["pcg_iters"],
+                           syncs=mine["pcg_syncs"], max_abs_err=gap,
+                           kernels_a_solve=kernels_a_solve)
+        del planes, hole, got, want
         torch.cuda.empty_cache()
 
 
@@ -1250,7 +1361,7 @@ def phase_modes(counters, root: str):
         "--mode", "watermark_removal", "--path", fdir, "--path_mask", mdir,
         "--outroot", f"{root}/wm/out"],
         {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
-         "flash_mhsa": None})
+         "flash_mhsa": None, "diffusion_mg": 2})
     if out.shape != frames.shape or out.dtype != np.uint8:
         raise AssertionError(f"watermark output {out.shape} {out.dtype}")
     if not np.array_equal(out[~hole], frames[~hole]):
@@ -1265,7 +1376,7 @@ def phase_modes(counters, root: str):
         "1.2", "--fused_corr", "off", "--path", f"{root}/frames.npy",
         "--outroot", f"{root}/ex/out"],
         {"lookup_corr_fused": 0, "lookup_corr_pyramid": 20,
-         "flash_mhsa": None})
+         "flash_mhsa": None, "diffusion_mg": 2})
     if out.shape != (24, 288, 516, 3) or out.dtype != np.uint8:
         raise AssertionError(f"extrapolation output {out.shape} {out.dtype}")
     y0, x0 = (288 - 240) // 2, (516 - 432) // 2
@@ -1283,7 +1394,7 @@ def phase_modes(counters, root: str):
         f"{root}/frames12.npy", "--path_mask", f"{root}/masks12.npy",
         "--outroot", f"{root}/nl/out"],
         {"lookup_corr_fused": 0, "lookup_corr_pyramid": 60,
-         "flash_mhsa": None})
+         "flash_mhsa": None, "diffusion_mg": 2})
     if out.shape != (12, 240, 432, 3) or not np.array_equal(
             out[~hole[:12]], frames[:12][~hole[:12]]):
         raise AssertionError("--Nonlocal output wrong outside the hole")
@@ -1302,7 +1413,7 @@ def phase_outpaint(counters, root: str, smi: str) -> dict:
     u8 whose centre is the input byte for byte; K1 20 launches a refine
     chunk (46 pairs in one chunk, or as many chunks as the s1 back-offs
     in ``timings.jsonl`` imply); K2 4 a window x 5 windows, each launch
-    at (N, L) = (16, 9360); the last line of ``timings.jsonl`` with the
+    at (N, L) = (16, 9360); K7 2; the last line of ``timings.jsonl`` with the
     JAX CLI's keys. Logs the stage seconds, the peak device memory and
     s/frame (the probe's: CLI wall over frames) beside the card."""
     from fgt_tpu_torch.pipeline import image_io
@@ -1319,7 +1430,7 @@ def phase_outpaint(counters, root: str, smi: str) -> dict:
             "outpaint 2x", counters,
             probe.cli_argv(frames_dir, out_dir, args, []),
             {"lookup_corr_fused": None, "lookup_corr_pyramid": 0,
-             "flash_mhsa": 20})
+             "flash_mhsa": 20, "diffusion_mg": 2})
     import torch
 
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1842,8 +1953,9 @@ def phase_jpeg_clip(counters, root: str) -> dict:
     PCG), then ``--exact_windows`` (one FGT forward per window: 8, 12,
     13, 12 and 11 frames, so 5 x 4 = 20 K2 launches, each of whose shapes
     is then held against K2's plain version in f32 and bf16), then
-    ``--host_diffusion`` (s2's regionfill by the host's multigrid solve).
-    Each output [24, 240, 432, 3] u8, within 1 of the resized source
+    ``--host_diffusion`` (s2's regionfill by the host's multigrid solve:
+    K7 launched twice in the other two runs, never in this one). Each
+    output [24, 240, 432, 3] u8, within 1 of the resized source
     outside the hole."""
     from fgt_tpu_torch.pipeline import video_inpainting as vi
 
@@ -1853,15 +1965,16 @@ def phase_jpeg_clip(counters, root: str) -> dict:
     source = vi.load_frames(jdir, 240, 432)[0]
     hole = vi.load_masks(mdir, 240, 432) > 0
     stats = {}
-    for label, flags, k2 in (("default", [], 4),
-                             ("--exact_windows", ["--exact_windows"], 20),
-                             ("--host_diffusion", ["--host_diffusion"], 4)):
+    for label, flags, k2, k7 in (
+            ("default", [], 4, 2),
+            ("--exact_windows", ["--exact_windows"], 20, 2),
+            ("--host_diffusion", ["--host_diffusion"], 4, 0)):
         out_dir = f"{root}/davis/out_{label.strip('-')}"
         with k2_shapes_recorded([]) as shapes:
             out, _, _ = run_cli(f"JPEG clip {label}", counters, [
                 "--path", jdir, "--path_mask", mdir, "--outroot", out_dir]
                 + flags, {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
-                          "flash_mhsa": k2})
+                          "flash_mhsa": k2, "diffusion_mg": k7})
         stats[label] = dict(last_timings(out_dir)["stages"],
                             k2_shapes=list(shapes))
         err = np.abs(out.astype(np.float64) - source)[~hole].max()
@@ -4035,7 +4148,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fgt_tpu_torch import native
     from fgt_tpu_torch.ops import (_build, corr_fused, corr_lookup,
-                                   flash_attention, poisson)
+                                   diffusion, flash_attention, poisson)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4074,19 +4187,26 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_k6({}, smi)
     log(f"phase_k6: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    k7 = {}
+    phase_k7(k7, smi)
+    log(f"phase_k7: {time.perf_counter() - t0:.2f} s")
     phase_k1(torch.bfloat16, k1, C=128, r=3)     # RAFT --small
     phase_k3_small(k3)
     phase_pyramid_build()
     phase_refine_bf16()
     counters = (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
-                flash_attention.flash_mhsa, poisson.poisson_pcg)
+                flash_attention.flash_mhsa, poisson.poisson_pcg,
+                diffusion.diffusion_mg)
+    # K7: one solve a flow direction
     launches, fused_s, fused_peak = phase_main_path(
         counters, "fused", {"lookup_corr_fused": 20, "lookup_corr_pyramid": 0,
-                            "flash_mhsa": None, "poisson_pcg": 1})
+                            "flash_mhsa": None, "poisson_pcg": 1,
+                            "diffusion_mg": 2})
     pyr_launches, pyr_s, _ = phase_main_path(
         counters, "pyramid", {"lookup_corr_fused": 0,
                               "lookup_corr_pyramid": 20, "flash_mhsa": None,
-                              "poisson_pcg": 1})
+                              "poisson_pcg": 1, "diffusion_mg": 2})
     log(f"s1 RAFT, warm, same run: K1 path {fused_s['s1_raft']:.4f} s, "
         f"pyramid path (K3) {pyr_s['s1_raft']:.4f} s")
     with tempfile.TemporaryDirectory() as root:
@@ -4176,6 +4296,9 @@ def main() -> int:
              replaces="fgt_tpu/ops/flash_attention.py:105",
              launches=train_launches["flash_attention_dkv"],
              **k45["dkv"][bf16]),
+        dict(name="diffusion_mg", route="cuda",
+             source="fgt_tpu_torch/csrc/diffusion_mg.cu", replaces=None,
+             launches=launches["diffusion_mg"], **k7["strokes"]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 CUDA_SOURCES = {
     "corr_fused": "corr_fused.cu",
     "corr_lookup": "corr_lookup.cu",
+    "diffusion_mg": "diffusion_mg.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "poisson_pcg": "poisson_pcg.cu",

@@ -1,9 +1,11 @@
-"""The port's CUDA kernels (K1-K6) against their plain versions. These need a
+"""The port's CUDA kernels (K1-K7) against their plain versions. These need a
 GPU and nvcc: marked ``cuda``; they skip on machines without a card and
 run there with
 
     python -m pytest tests/test_torch_port_cuda.py -m cuda
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -11,9 +13,12 @@ import torch
 
 from fgt_tpu_torch.ops import corr_fused as cf
 from fgt_tpu_torch.ops import corr_lookup as cl
+from fgt_tpu_torch.ops import diffusion as k7
 from fgt_tpu_torch.ops import flash_attention as fa
 from fgt_tpu_torch.ops import poisson as k6
 from fgt_tpu_torch.pipeline import poisson as tpoisson
+from torch_port_diffusion_cases import case as k7_case
+from torch_port_diffusion_cases import counted
 from torch_port_poisson_cases import case, splu_clip, worst_filled_gap
 
 pytestmark = pytest.mark.cuda
@@ -376,3 +381,51 @@ def test_k6_unconverged_plane_raises(dev):
                            max_iters=5)
     with pytest.raises(RuntimeError, match="did not converge within 5"):
         solve.result()
+
+
+# the removal cells' flows, the 2x canvas's ring, a coarsest level too
+# large for shared memory, a single level (no side of 32 px) and odd
+# extents at every level
+@pytest.mark.parametrize("kind,shape,shared", [
+    ("strokes", (46, 240, 432), True), ("ring", (46, 480, 864), True),
+    ("square", (4, 1280, 1280), False), ("square", (4, 24, 200), True),
+    ("strokes", (6, 121, 203), True)])
+def test_k7_matches_plain(dev, kind, shape, shared):
+    planes, hole = k7_case(kind, *shape)
+    assert k7.coarse_in_shared(*shape[1:], dev) == shared
+    before = k7.diffusion_mg.launches
+    got, mine = counted(k7.laplace_fill_planes, planes, hole)
+    assert k7.diffusion_mg.launches == before + 1
+    want, plain = counted(k7.laplace_fill_planes_plain, planes, hole)
+    scale = planes.abs().max().item()
+    assert (got - want)[hole].abs().max().item() <= 1e-4 * scale
+    bits = got.view(torch.int32)[~hole]
+    assert torch.equal(bits, planes.view(torch.int32)[~hole])
+    assert abs(mine["pcg_iters"] - plain["pcg_iters"]) <= 2
+    assert 0 < mine["pcg_iters"] < k7.MAX_ITERS
+    assert plain["pcg_syncs"] == plain["pcg_iters"] + 1
+    assert mine["pcg_syncs"] <= math.ceil(mine["pcg_iters"] / k7.CHUNK) + 2
+
+
+def test_k7_is_deterministic(dev):
+    planes, hole = k7_case("strokes", 46, 240, 432)
+    a, ia = k7.diffusion_mg(planes, hole, plane_iters=True)
+    b, ib = k7.diffusion_mg(planes, hole, plane_iters=True)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(ia, ib) and int(ia.max()) > 0
+
+
+def test_k7_refuses_bad_operands(dev):
+    planes, hole = k7_case("square", 2, 64, 96)
+    with pytest.raises(TypeError, match="float32"):
+        k7.diffusion_mg(planes.double(), hole)
+    with pytest.raises(TypeError, match="bool"):
+        k7.diffusion_mg(planes, hole.float())
+    with pytest.raises(ValueError, match="not contiguous"):
+        k7.diffusion_mg(planes.transpose(1, 2), hole.transpose(1, 2))
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        k7.diffusion_mg(planes, hole.cpu())
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        k7.laplace_fill_planes(planes, hole.cpu())
+    with pytest.raises(ValueError, match="alike"):
+        k7.diffusion_mg(planes, hole[:1].contiguous())

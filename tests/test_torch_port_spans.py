@@ -2,8 +2,8 @@
 on the CPU at tiny sizes: off they record nothing and build nothing;
 under ``torch.profiler`` a clip and two GAN steps record their stages
 and phases with the right parents, one root each, in the profiler's
-clock; ``pcg_iters`` and ``poisson_px`` agree with counts taken apart
-from the program. One test, marked ``cuda``, checks ``device_ms`` on a
+clock; ``pcg_iters``, ``pcg_syncs`` and ``poisson_px`` agree with
+counts taken apart from the program. One test, marked ``cuda``, checks ``device_ms`` on a
 card and skips elsewhere."""
 
 import json
@@ -250,6 +250,35 @@ def test_pcg_iters_counts_the_loop_on_one_hole(monkeypatch):
     # one V-cycle before the loop, one per iteration
     assert cycles.count(0) == 1 + rec["counters"]["pcg_iters"]
     assert 0 < rec["counters"]["pcg_iters"] < diffusion.MAX_ITERS
+
+
+def test_pcg_syncs_reads_the_flag_once_an_iteration_on_the_cpu():
+    from portbench import common
+
+    plane = torch.rand(2, 40, 48, generator=torch.Generator().manual_seed(3))
+    hole = torch.zeros(2, 40, 48)
+    hole[:, 10:30, 12:36] = 1
+    profiling.enable_spans(True)
+    profiling.reset_spans()
+    try:
+        with profiling.span("inpaint"):
+            with profiling.span("s2.diffusion"):
+                diffusion.laplace_fill_planes(plane, hole)
+    finally:
+        profiling.enable_spans(False)
+    root, solve = profiling.spans()
+    counters = solve["counters"]
+    # the plain version reads the flag before every iteration and once
+    # more to stop
+    assert 0 < counters["pcg_iters"] < diffusion.MAX_ITERS
+    assert counters["pcg_syncs"] == counters["pcg_iters"] + 1
+    ctx = {"kind": "infer", "trace": {}}
+    assert common.metric_reader("pcg_syncs.s2")(ctx) == (
+        counters["pcg_syncs"], "syncs/clip")
+    assert common.metric_reader("pcg_iters.s2")(ctx) == (
+        counters["pcg_iters"], "iterations/clip")
+    assert common.metric_reader("pcg_syncs.s2")({"kind": "train",
+                                                 "trace": {}}) is None
 
 
 def test_poisson_px_counts_the_unknowns():
