@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``fgt_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py
 
 Phases (any failure exits nonzero; nothing is caught):
   1. print the card's name and power limit; build the CUDA kernels
@@ -23,53 +23,28 @@ Phases (any failure exits nonzero; nothing is caught):
      arithmetic progressive, and an 854x480 lossless RGB one; print
      every kernel's
      registers, stack, static shared memory and spills (cuobjdump);
-  2. kernel K1 (RAFT corner-dot correlation) against its plain PyTorch
-     version at the main-path shape, in f32 and bf16 (bf16 level 0, f32
-     coarser levels); in bf16 on noisy coords (the general route) and on
-     a smooth flow (the box route), each timed, with the (tile, level)
-     route counts, which must equal ``tile_routes``'; again in bf16 at
-     RAFT small's shape (C = 128, r = 3); the f32 numbers are also the
-     --alternate_corr contract's;
-  3. kernel K2 (flash attention) against its plain version at
-     N=80, L=2340, ch=128, in f32 and bf16; F.scaled_dot_product_attention
-     is timed beside it as a yardstick only; then in bf16 at the
-     outpainting canvas's shapes, N=16 at L=9360 (24 frames) and
-     L=22320 (208 frames), against the plain version in chunks of N
-     whose scores fit, timed beside SDPA and the chunked plain version,
-     with the bound; then kernel K6 (s5's Poisson CG, f64) on the removal
-     cells' clips (24 x 432x240, the stroke cell's mask seed 0 and a
-     56x56 square, tests/torch_port_poisson_cases.py): one launch a
-     clip, equal to scipy splu within 1e-6 and to its plain version
-     within 1e-7 on every filled pixel, timed beside the plain version,
-     with its bound and the iterations; then kernel K7 (s2's diffusion,
-     the multigrid-preconditioned CG, f32) at the three inference cells'
-     shapes (46 planes of 240x432 with the stroke cell's strokes and with
-     a square, 46 of the 2x canvas's 480x864 with its border as the hole,
-     tests/torch_port_diffusion_cases.py): within 1e-4 of the flows'
-     scale of its plain version inside the hole, the input's bits
-     outside, the iterations within 2, one launch a solve, timed beside
-     the plain version with its bound (``phase_k7``);
-  4. kernels K4 (dq) and K5 (dk, dv), the flash backward, at training's
-     N=32, L=900, ch=128, in f32 and bf16: against their plain versions
-     and against autograd of the plain forward; SDPA's backward (forward
-     + backward minus forward) is timed beside them as a yardstick only;
-     K4's tensor-core body's registers, shared memory and spills;
-  5. kernel K3 (RAFT all-pairs pyramid lookup) against its plain version
-     at the main-path shape (one GRU iteration, 46 pairs x 60x108 pixels,
-     4 levels), f32 and bf16 storage, f32 and bf16 taps, radius 4 and 3,
-     with coords on, past and far outside the level edges (equal, bf16
-     taps being the f32 taps rounded once); timed at radius 4 in both
-     tap dtypes beside the warp-per-pixel body it replaced (kept in
-     the source as the yardstick), its bound and its sector floor (the
-     32-byte sectors of this run's window rows); F.grid_sample, one call
-     per level, timed beside it as a yardstick only; then the all-pairs
-     pyramid build of
-     one refine (TF32 product of bf16 features against the f32 product);
-     K3 at r = 3 on the bf16 pyramid of C = 128 features (RAFT small),
-     equal to its plain version, timed beside grid_sample;
-     then RAFT refine in bf16 on a 64x64 pair with K1 and with its plain
-     version in its place, whose flows must agree;
-  6. the object-removal main path at full model width (random weights
+  2. every kernel held to its plain version and timed at the shapes the
+     port runs it, one row each (``kernel_rows``: inputs and checks from
+     tests/torch_port_kernel_cases.py and the solvers' case modules,
+     whose checks ``tests/test_torch_port_cuda.py`` makes too): K1 at the
+     main path (46 pairs x 60x108 px, C = 256, r = 4; f32, the
+     --alternate_corr body, and bf16 on a smooth flow and on noisy
+     coords) and at RAFT small's C = 128, r = 3; K2 at N = 80, L = 2340
+     (f32, bf16) and on the outpainting canvas (bf16, N = 16 at L = 9360
+     and 22320); K4 and K5 at training's N = 32, L = 900 (f32, bf16); K3
+     on the main path's f32 and bf16 all-pairs maps and RAFT small's
+     pyramid, f32 and bf16 taps; K6 on the removal cells' clips; K7 on
+     the inference cells' flows. Each row prints the kernel's time (the
+     solvers': their kernels' device time from the profiler, and the
+     calls' wall time with the host reads), its plain version's, a
+     library call's that does the same work as a yardstick
+     (F.scaled_dot_product_attention for K2, K4 and K5; F.grid_sample
+     for K3), the bound (K1, K2, K4, K5 from ``portbench/counts.py``; K3,
+     K6 and K7 from their counts here), the share of it reached and the
+     check's deviations from the plain version; then the TF32 pyramid
+     build against the f32 one and RAFT's bf16 refine through K1 against
+     its plain version (the same module's checks);
+  3. the object-removal main path at full model width (random weights
      from seed 0, bf16): 24 synthetic panning frames at 432x240 with a
      moving 56x56 hole, run twice (cold, then warm) on each s1 path, K1
      (default) and the all-pairs pyramid (K3); per pass the synchronized
@@ -79,7 +54,7 @@ Phases (any failure exits nonzero; nothing is caught):
      K1's route counts on the K1 path); output
      checked to be [24, 240, 432, 3] u8 and byte-identical to the input
      outside the hole; the two warm s1 times side by side;
-  7. through the CLI at full width: watermark removal from PNG
+  4. through the CLI at full width: watermark removal from PNG
      directories with premasked frames (default path), video
      extrapolation to a 1.2x canvas of 288x516 (pyramid path; the centre
      must be the input) and --Nonlocal on 12 frames (pyramid path), K7
@@ -94,15 +69,15 @@ Phases (any failure exits nonzero; nothing is caught):
      offline flow extraction of a PNG and a JPEG video x 8 frames (28
      .flo files, K3 160 launches); the batch driver over a PNG and a
      JPEG video (every row ok);
-  8. stage-1 training at the full width of configs/lafc_train.yaml
+  5. stage-1 training at the full width of configs/lafc_train.yaml
      (LAFC: batch 4 x 3 flows at 256x256, cnum 48, resBlocks 1, bf16,
      the global-norm clip) and configs/lafc_single_train.yaml
      (LAFC-single: batch 4 at 256x256, 4-D items) through
      ``LAFCTrainer``, on a batch made on the card (smooth flows with
      moving blocks, moving holes, diffused flows from ``ops/diffusion``,
      Canny edges from ``core/edge``, a frame pair warped by the flow):
-     2 cold steps, then 10 timed steps (steps/s, peak memory, TFLOP of
-     convolutions a step, the card's name and power limit); every loss
+     2 cold steps, then 10 timed steps (steps/s, peak memory, the
+     card's name and power limit); every loss
      term finite, the total falling; a resume check under deterministic
      algorithms (bit-equal losses and weights); no launch of K1-K5. The
      LAFC trainer's ``latest`` directory is then ``--lafc_ckpts`` of a
@@ -135,8 +110,8 @@ Phases (any failure exits nonzero; nothing is caught):
      DAVIS-style JPEG clip (24 frames at 854x480, baseline 4:2:0, PNG
      masks, written by the tests' numpy encoder) at 432x240: the default
      run, --exact_windows (one FGT forward per window of 8, 12, 13, 12
-     and 11 frames: 20 K2 launches, each window's K2 shape then held
-     against its plain version in f32 and bf16 and timed) and
+     and 11 frames: 20 K2 launches at N = 16, each window's K2 shape
+     then timed) and
      --host_diffusion (s2 on the host's multigrid solve; K7 twice in
      the other two runs, never in this one), s6 and s2 seconds side by
      side;
@@ -147,7 +122,7 @@ Phases (any failure exits nonzero; nothing is caught):
      rasterised by ``MaskGenerator``), read back equal, and object
      removal through the CLI on both mask folders (output [24, 240, 432,
      3] u8, byte-identical to the input outside the hole, K1 20 and K2 4
-     launches each; frames/s and peak memory beside phase 6's warm
+     launches each; frames/s and peak memory beside phase 3's warm
      pass); the stroke run's result written as an MJPG AVI
      (``FrameReader.write_files_to_video``) and read back by
      ``core/video_io.read_video``: 24 frames at >= 36 dB PSNR;
@@ -203,26 +178,23 @@ Phases (any failure exits nonzero; nothing is caught):
      PyTorch's default TF32): each must raise its PSNR, with K1 40, K2
      408, K4 and K5 400 launches a protocol;
      then the conv-block library (``phase_conv_types``): gated LAFC and
-     FGT under norm None, BN, IN and SN at phase 9's small size, card
+     FGT under norm None, BN, IN and SN at phase 6's small size, card
      against CPU; gated BN object removal at full width (LAFC cnum 48,
      FGT 512 hidden / 8 blocks / 4 heads, bf16, the K1 path) from
      JAX-layout ``.msgpack`` directories the port writes from seeded
      weights and reads back strictly, cold then warm (output shape and
      bytes outside the hole, K1 20 and K2 4), its warm stage seconds and
-     frames/s beside phase 6's vanilla warm pass; 6 steps each of gated
+     frames/s beside phase 3's vanilla warm pass; 6 steps each of gated
      configs/lafc_single_train.yaml and lafc_train.yaml, then 6 GAN steps
      of configs/fgt_train.yaml gated under norm SN and again under BN on
      the gated LAFC-single's checkpoint (losses finite, K2/K4/K5 4 a
      step, the decoder's BN statistics moved, SN's u and v unchanged),
      steps/s beside this run's vanilla rates;
-  9. small inputs through the port on the card and on the CPU (plain
+  6. small inputs through the port on the card and on the CPU (plain
      versions), which must agree: object-removal runs on the K1 path, on
      the pyramid path with --Nonlocal and with RAFT --small, one SGD
      GAN step and one SGD LAFC step (losses and parameter deltas);
- 10. one JSON line with every kernel's numbers, then the result line.
-
-``--profile`` adds a torch.profiler trace of two training steps after
-phase 8 and prints the device time by kernel.
+  7. one JSON line with every kernel's numbers, then the result line.
 
 Needs torch with CUDA, nvcc and g++; imports nothing of JAX (the JPEG
 trees are written by the port's ``core/jpeg_encode``, the progressive
@@ -239,14 +211,12 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 JPEG_FIXTURES = os.path.join(REPO, "tests", "data", "jpeg")
-H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12       # dense tensor-core peak
-H100_F32_FLOPS = 67e12         # f32 outside the tensor cores
 
 
 def log(*a):
@@ -269,21 +239,14 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def kernel_events(prof) -> list:
-    """The device kernels of a torch.profiler trace (key averages),
-    without user-annotation ranges."""
-    from torch.autograd import DeviceType
-
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-
-
-def kernel_ms(fn, reps: int) -> float:
-    """Device time of the kernels ``fn`` launches, per call, from a
-    torch.profiler trace: unlike events around a loop, it does not count
-    the gaps where the card waits for a host-bound caller."""
+def device_events(fn, reps: int, match: str = "") -> list:
+    """The device kernels whose name holds ``match`` that ``reps`` calls
+    of ``fn`` launch, after one call outside the trace (torch.profiler's
+    key averages, without user-annotation ranges): unlike events around
+    a loop, their time leaves out the gaps where the card waits for a
+    host-bound caller."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -293,15 +256,15 @@ def kernel_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and match in e.key
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def kernel_ms(fn, reps: int, match: str = "") -> float:
+    """Device time a call of the kernels :func:`device_events` finds."""
     return sum(e.self_device_time_total
-               for e in kernel_events(prof)) / 1e3 / reps
-
-
-def bound(nbytes: float, flops: float, peak_flops: float):
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations")
+               for e in device_events(fn, reps, match)) / 1e3 / reps
 
 
 def resource_usage() -> dict:
@@ -328,7 +291,7 @@ def resource_usage() -> dict:
                                     dump):
             kernel = re.search(r"(flash_(fwd|dq|dkv)|corr_fused|corr_lookup"
                                r"|poisson_pcg|k7_[a-z]+)"
-                               r"(_bf16|_warp)?_kernel", fn).group(0)
+                               r"(_bf16)?_kernel", fn).group(0)
             args = re.search(
                 kernel + r"I((?:f|13__nv_bfloat16|S1_|Li\d+E)+)E", fn)
             if args:  # template arguments: types (S1_ repeats one) and ints
@@ -341,329 +304,82 @@ def resource_usage() -> dict:
     return found
 
 
-def smooth_coords(b, h, w, gen, nodes=(4, 7), amp=8.0):
-    """The pixel grid plus a smooth random flow: a low-resolution field
-    of ``amp`` px, bilinearly upsampled. [b, h, w, 2] f32 (x, y) on the
-    generator's device."""
+def call_bound(count, args, _=None) -> tuple:
+    """(bytes, operations, peak) of one of ``portbench.counts``' per-call
+    counts (``k1_call``, ``k2_call``, ``k4_call``, ``k5_call``) on
+    ``args``. Those return only seconds, so the three are read from the
+    ``counts.bound_s`` call the count makes: this needs each count to
+    make exactly one such call and to take its time from it."""
+    from unittest import mock
+    from portbench import counts
+
+    real = counts.bound_s
+    seen = []
+
+    def recorded(nbytes, flops, peak):
+        seen.append((nbytes, flops, peak))
+        return real(nbytes, flops, peak)
+
+    with mock.patch.object(counts, "bound_s", recorded):
+        count(*args)
+    (call,) = seen
+    return call
+
+
+def k3_window_counts(pyr, coords, r: int) -> int:
+    """This run's in-level window cells of K3 (each read once), summed
+    over pixels and levels."""
     import torch
-    import torch.nn.functional as F
 
-    dev = gen.device
-    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
-                            torch.arange(w, device=dev), indexing="ij")
-    grid = torch.stack([xs, ys], -1).float()[None].repeat(b, 1, 1, 1)
-    field = amp * torch.randn(b, 2, *nodes, device=dev, generator=gen)
-    flow = F.interpolate(field, size=(h, w), mode="bilinear",
-                         align_corners=True)
-    return grid + flow.permute(0, 2, 3, 1)
-
-
-def k1_bound(f1, pyr, coords, out, r: int, dtype):
-    """K1's bound on this run's inputs: each input byte read once at its
-    own element size (in bf16 level 0 is bf16, the coarser levels f32),
-    the taps written once; the in-bounds corner dots of every level."""
-    import torch
-
-    valid = 0
-    for lvl, lv in enumerate(pyr):
-        c0 = torch.floor(coords / 2 ** lvl).clamp(-1e6, 1e6)
-        d = torch.arange(-r, r + 2, device="cuda")
-        vx = ((c0[..., :1] + d >= 0) & (c0[..., :1] + d <= lv.shape[2] - 1))
-        vy = ((c0[..., 1:] + d >= 0) & (c0[..., 1:] + d <= lv.shape[1] - 1))
-        valid += (vx.sum(-1) * vy.sum(-1)).sum().item()
-    nbytes = (f1.numel() * f1.element_size()
-              + sum(lv.numel() * lv.element_size() for lv in pyr)
-              + coords.numel() * 4 + out.numel() * out.element_size())
-    flops = 2 * f1.shape[-1] * valid + 7 * out.numel()
-    return nbytes, flops, bound(nbytes, flops, H100_BF16_FLOPS if dtype ==
-                                torch.bfloat16 else H100_F32_FLOPS)
+    flat = coords.reshape(-1, 2)
+    dd = torch.arange(-r, r + 2, device=coords.device)
+    cells = 0
+    for lvl, vol in enumerate(pyr):
+        hl, wl = vol.shape[1:]
+        c0 = torch.floor(flat / 2 ** lvl).clamp(-1e6, 1e6).long()
+        xlo = (c0[:, :1] - r).clamp(min=0)
+        ncol = ((c0[:, :1] + r + 2).clamp(max=wl) - xlo).clamp(min=0)
+        ys = c0[:, 1:] + dd                                   # [n, k+1]
+        rows = (ys >= 0) & (ys < hl) & (ncol > 0)
+        cells += (rows * ncol).sum().item()
+    return cells
 
 
-def phase_k1(dtype, stats: dict, C: int = 256, r: int = 4):
-    """K1 at the main-path shape: 46 pairs x 60x108 pixels, C=256, r=4,
-    4 levels (60x108, 30x54, 15x27, 7x13 — odd sizes floor-pooled), or at
-    RAFT small's (C=128, r=3). Coords
-    are the pixel grid plus 8 px of noise per pixel (in bf16, level 0's
-    tile boxes overflow: the general route) with far-out-of-range rows;
-    in bf16 also a smooth flow (a 4x7 field of 8 px, upsampled: the box
-    route), both timed, with the routes each took. Stats go under
-    ``stats[str(dtype)]`` at the main-path shape, under
-    ``stats[f"{dtype} C{C} r{r}"]`` at another."""
-    import torch
-    from fgt_tpu_torch.ops import corr_fused as cf
+def k3_count(args, _=None) -> tuple:
+    """K3's (bytes, operations, peak): each in-level window cell read
+    once, the coords read and the taps written once; 9 operations a tap
+    (6 multiplies, 3 adds) at the f32 peak."""
+    from portbench import counts
 
-    g = torch.Generator(device="cuda").manual_seed(1 + C + r)
-    B, H, W, L = 46, 60, 108, 4
-    key = str(dtype) if (C, r) == (256, 4) else f"{dtype} C{C} r{r}"
-    f1 = torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
-    f2 = torch.randn(B, H, W, C, device="cuda", generator=g)
-    pyr = cf.build_fmap_pyramid(f2, L, dtype=dtype)
-    ys, xs = torch.meshgrid(torch.arange(H, device="cuda"),
-                            torch.arange(W, device="cuda"), indexing="ij")
-    coords = torch.stack([xs, ys], -1).float()[None].repeat(B, 1, 1, 1)
-    coords = coords + 8 * torch.randn(B, H, W, 2, device="cuda", generator=g)
-    coords[:, :4] = 1e4                       # far out of range: zero taps
-    coords[:, 4:8] = -3e3
-    inputs = [("noisy", coords, 8)]           # (label, coords, far rows)
-    if dtype == torch.bfloat16:
-        smooth = smooth_coords(B, H, W, g)
-        smooth[:, :2] = 1e4
-        inputs.append(("smooth", smooth, 2))
-    name = str(dtype)[6:] + ("" if (C, r) == (256, 4) else f" C={C} r={r}")
-    if dtype == torch.bfloat16 and (C, r) == (256, 4):
-        # the K1 path's memory: the pyramid of bf16 features (as RAFT's
-        # bf16 encoder hands them over) and one lookup, above the features
-        f2b = f2.to(dtype)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        pyr_b = cf.build_fmap_pyramid(f2b, L, dtype=dtype)
-        taps = cf.lookup_corr_fused(f1, pyr_b, coords, r)
-        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-        stored = [lv.numel() * lv.element_size() / 1e9 for lv in pyr_b]
-        log(f"K1 {name} pyramid: levels stored {sum(stored):.4f} GB (level 0 "
-            f"{stored[0]:.4f} GB bf16, levels 1-{L - 1} {sum(stored[1:]):.4f} "
-            f"GB f32); build + one lookup peak {peak:.4f} GiB above the "
-            f"features")
-        del f2b, pyr_b, taps
-    for label, cxy, far_rows in inputs:
-        cf.reset_route_tiles()
-        got = cf.lookup_corr_fused(f1, pyr, cxy, r)
-        routes = cf.route_tiles()
-        want = cf.lookup_corr_plain(f1, pyr, cxy, r)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        top = want.float().abs().max().item()
-        # f32: reassociation of 256-term dots only; bf16 output: the two
-        # f32 sums may round to neighbouring bf16 values (1 ulp of the
-        # largest tap)
-        tol = 1e-4 * max(1.0, top) if dtype == torch.float32 else \
-            top * 2 ** -7
-        far = got[:, :far_rows].float().abs().max().item()
-        log(f"K1 {name} ({label} coords): max_abs_err {err:.3g} (tol "
-            f"{tol:.3g}, max |tap| {top:.3g}); far-coord taps max {far}")
-        if not err <= tol or far != 0.0:
-            raise AssertionError("K1 disagrees with its plain version")
-        if dtype == torch.bfloat16:
-            sizes = [lv.shape[1:3] for lv in pyr]
-            if routes != cf.tile_routes(cxy, sizes, r):
-                raise AssertionError(f"K1 route counts {routes} differ from "
-                                     "tile_routes'")
-            share = routes["box"] / max(1, sum(routes.values()))
-            log(f"K1 {name} ({label} coords): routes of the (tile, level) "
-                f"pairs {routes}, box share {share:.4f}")
-        kernel_ms = cuda_ms(lambda: cf.lookup_corr_fused(f1, pyr, cxy, r), 20)
-        plain_ms = cuda_ms(lambda: cf.lookup_corr_plain(f1, pyr, cxy, r), 2)
-        nbytes, flops, (b_ms, b_by) = k1_bound(f1, pyr, cxy, got, r, dtype)
-        log(f"K1 {name} ({label} coords): kernel_ms {kernel_ms:.4f} plain_ms "
-            f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e9:.3f} "
-            f"GB, {flops / 1e9:.2f} GFLOP)")
-        stats.setdefault(key, {})[label] = dict(
-            ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=err, library_ms=None)
+    pyr, coords, r, out_dtype = args
+    taps = coords.numel() // 2 * len(pyr) * (2 * r + 1) ** 2
+    nbytes = (k3_window_counts(pyr, coords, r) * pyr[0].element_size()
+              + coords.numel() * 4 + taps * out_dtype.itemsize)
+    return nbytes, 9 * taps, counts.PEAK_F32_FLOPS
 
 
-def plain_chunk(l: int) -> int:
-    """Sequences a call of K2's plain version takes at length ``l``: as
-    many as keep the f32 [N, L, L] scores within ~2.2 GB (one at L
-    22320)."""
-    return max(1, int(2.2e9 // (4 * l * l)))
-
-
-def check_k2(q, k, v, scale: float, label: str) -> float:
-    """K2 against its plain version on the same inputs (the plain version
-    over chunks of ``plain_chunk`` sequences); returns the largest output
-    deviation. f32: online vs one-shot softmax reassociation (2e-5); bf16
-    output: 1 ulp of the largest entry (the kernel rounds p against the
-    running max, the plain version against the row max). lse within 1e-4
-    in both."""
-    import torch
-    from fgt_tpu_torch.ops import flash_attention as fa
-
-    out, lse = fa.flash_mhsa(q, k, v, scale)
-    chunk = plain_chunk(q.shape[1])
-    err = err_lse = top = 0.0
-    for s in range(0, q.shape[0], chunk):
-        want, want_lse = fa.flash_attention_plain(
-            q[s:s + chunk], k[s:s + chunk], v[s:s + chunk], scale)
-        err = max(err, (out[s:s + chunk].float() - want.float()).abs()
-                  .max().item())
-        err_lse = max(err_lse, (lse[s:s + chunk] - want_lse).abs()
-                      .max().item())
-        top = max(top, want.float().abs().max().item())
-        del want, want_lse
-    tol = 2e-5 if q.dtype == torch.float32 else top * 2 ** -7
-    log(f"K2 {label}: max_abs_err {err:.3g} (tol {tol:.3g}), "
-        f"lse err {err_lse:.3g} (tol 1e-4)")
-    if not (err <= tol and err_lse <= 1e-4):
-        raise AssertionError(f"K2 {label} disagrees with its plain version")
-    return err
-
-
-def phase_k2(dtype, stats: dict):
-    """K2 at the main-path shape: 5 windows x 4 groups x 4 heads = 80
-    sequences of 13 frames x 10 x 18 = 2340 tokens, head dim 128 (ragged:
-    the last 64-row query and key tiles hold 36 rows); in bf16 also at
-    L = 65, one row past a tile edge."""
-    import torch
-    import torch.nn.functional as F
-    from fgt_tpu_torch.ops import flash_attention as fa
-
-    g = torch.Generator(device="cuda").manual_seed(2)
-    n, l, ch = 80, 2340, 128
-    scale = ch ** -0.5
-    name = str(dtype)[6:]
-    if dtype == torch.bfloat16:
-        check_k2(*(torch.randn(4, 65, ch, device="cuda", generator=g)
-                   .to(dtype) for _ in range(3)), scale, f"{name} L=65")
-    q, k, v = (torch.randn(n, l, ch, device="cuda", generator=g).to(dtype)
-               for _ in range(3))
-    err = check_k2(q, k, v, scale, f"{name} N={n} L={l}")
-    kernel_ms = cuda_ms(lambda: fa.flash_mhsa(q, k, v, scale), 10)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale), 3)
-    # [1, N, L, ch]: batch 1 and N heads, the layout SDPA's fused paths take
-    q4, k4, v4 = q[None], k[None], v[None]
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(q4, k4, v4), 10)
-    item = q.element_size()
-    nbytes = 4 * n * l * ch * item + n * l * 4
-    flops = 4.0 * n * l * l * ch
-    b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS if dtype ==
-                       torch.bfloat16 else H100_F32_FLOPS)
-    log(f"K2 {name}: kernel_ms {kernel_ms:.4f} plain_ms "
-        f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms {b_ms:.4f} "
-        f"({b_by}); {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
-        f"{b_ms / kernel_ms:.3f} of the bound")
-    stats[str(dtype)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=err,
-                             library_ms=library_ms)
-
-
-# K2's shapes at the outpainting canvas (480x864, 20x36 tokens a frame,
-# window_batch 1, so N = 4 groups x 4 heads): the 24-frame probe's 5
-# windows of 13 frames and the 208-frame probe's 42 windows of 31
-CANVAS_K2 = ((16, 9360), (16, 22320))
-
-
-def phase_k2_canvas(stats: dict, smi: str):
-    """K2 in bf16 at the outpainting canvas's shapes (``CANVAS_K2``):
-    against its plain version (in chunks of N), timed beside
-    F.scaled_dot_product_attention (a yardstick only), the plain
-    version's time over all N in those chunks, and the bound
-    (4·N·L²·128 FLOP over the bf16 dense peak)."""
-    import torch
-    import torch.nn.functional as F
-    from fgt_tpu_torch.ops import flash_attention as fa
-
-    g = torch.Generator(device="cuda").manual_seed(6)
-    ch = 128
-    scale = ch ** -0.5
-    for n, l in CANVAS_K2:
-        q, k, v = (torch.randn(n, l, ch, device="cuda", generator=g)
-                   .to(torch.bfloat16) for _ in range(3))
-        err = check_k2(q, k, v, scale, f"bfloat16 canvas N={n} L={l}")
-        kernel_ms = cuda_ms(lambda: fa.flash_mhsa(q, k, v, scale), 5)
-        chunk = plain_chunk(l)
-        plain_ms = cuda_ms(lambda: [fa.flash_attention_plain(
-            q[s:s + chunk], k[s:s + chunk], v[s:s + chunk], scale)
-            for s in range(0, n, chunk)], 1)
-        torch.cuda.empty_cache()
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q[None], k[None], v[None]), 5)
-        nbytes = 4 * n * l * ch * q.element_size() + n * l * 4
-        flops = 4.0 * n * l * l * ch
-        b_ms, b_by = bound(nbytes, flops, H100_BF16_FLOPS)
-        log(f"K2 bfloat16 canvas N={n} L={l}: kernel_ms {kernel_ms:.4f} "
-            f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
-            f"{b_ms:.4f} ({b_by}); {flops / kernel_ms / 1e9:.1f} TFLOP/s, "
-            f"{b_ms / kernel_ms:.3f} of the bound; {smi}")
-        stats[(n, l)] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, max_abs_err=err,
-                             library_ms=library_ms)
-        del q, k, v
-        torch.cuda.empty_cache()
-
-
-# K6 at the removal cells' clips (tests/torch_port_poisson_cases.py):
-# 24 frames of 432x240, the stroke cell's mask seed 0 and a 56x56 square
-K6_CLIPS = (("strokes", (24, 240, 432)), ("square", (24, 240, 432)))
-# bytes an iteration moves per unknown and channel, each once: x, r and
-# p read and written, the diagonal and four neighbour indices read
+# bytes an iteration of K6 moves per unknown and channel, each once: x, r
+# and p read and written, the diagonal and four neighbour indices read
 K6_BYTES_PER_UNKNOWN = 6 * 8 + 8 + 16
 
 
-def phase_k6(stats: dict, smi: str):
-    """K6 on each of ``K6_CLIPS``: the clip path (``poisson_blend_clip``,
-    one launch) against the pipeline's per-frame splu loop, the kernel's
-    solution against its plain version's on the same device tensors,
-    then the kernel's own device time (profiler, 3 calls), the plain
-    version's, the host's splu loop and the bound: the bytes of each
-    plane's iterations at the HBM rate."""
-    import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from fgt_tpu_torch.ops import poisson as k6
-    from fgt_tpu_torch.pipeline import poisson as tpoisson
+def k6_count(args, plane_iters) -> tuple:
+    """K6's (bytes, operations, peak) on a clip: ``K6_BYTES_PER_UNKNOWN``
+    an unknown, channel and iteration, with each plane's iterations
+    (``plane_iters``, [frames, channels], from the row's check)."""
+    from portbench import counts
 
-    tests = os.path.join(REPO, "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    from torch_port_poisson_cases import case, splu_clip, worst_filled_gap
-
-    for kind, shape in K6_CLIPS:
-        video, gx, gy, holes, gms = case(kind, *shape)
-        counts = holes.reshape(len(holes), -1).sum(1)
-        before = k6.poisson_pcg.launches
-        t0 = time.perf_counter()
-        got, left = tpoisson.poisson_blend_clip(video, gx, gy, holes, gms,
-                                                torch.device("cuda"))
-        clip_s = time.perf_counter() - t0
-        launches = k6.poisson_pcg.launches - before
-        t0 = time.perf_counter()
-        want, want_left = splu_clip(video, gx, gy, holes, gms)
-        splu_s = time.perf_counter() - t0
-        gap = worst_filled_gap(got, want, holes, left)
-        ops = ([torch.from_numpy(a).cuda().double() for a in (video, gx, gy)]
-               + [torch.from_numpy(a).cuda() for a in (holes, gms)])
-        x, iters = k6.poisson_pcg(*ops, counts).result()
-        x_twin, it_twin = k6.poisson_pcg_plain(*ops)
-        twin_gap = float(np.abs(x - x_twin.cpu().numpy())[holes & ~left]
-                         .max())
-        log(f"K6 {kind}: {int(counts.sum())} unknowns, {launches} launch, "
-            f"iterations {iters.min()}-{iters.max()} (plain "
-            f"{int(it_twin.min())}-{int(it_twin.max())}), max gap to splu "
-            f"{gap:.3g} (tol 1e-6), to the plain version {twin_gap:.3g} "
-            f"(tol 1e-7), pixels left equal "
-            f"{bool(np.array_equal(left, want_left))}")
-        if launches != 1 or not np.array_equal(left, want_left) or \
-                gap > 1e-6 or twin_gap > 1e-7:
-            raise AssertionError(f"K6 {kind} disagrees with splu or its "
-                                 f"plain version")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                k6.poisson_pcg(*ops, counts).result()
-        kernel_ms = sum(e.self_device_time_total for e in kernel_events(prof)
-                        if "poisson_pcg" in e.key) / 1e3 / 3
-        plain_ms = cuda_ms(lambda: k6.poisson_pcg_plain(*ops), 1, warmup=0)
-        nbytes = float((iters * counts[:, None]).sum()) * K6_BYTES_PER_UNKNOWN
-        b_ms = nbytes / H100_BYTES_PER_S * 1e3
-        log(f"K6 {kind}: kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-            f"bound_ms {b_ms:.4f} (bytes, {nbytes / 1e9:.3f} GB) "
-            f"{b_ms / kernel_ms:.3f} of the bound; clip path "
-            f"{clip_s * 1e3:.1f} ms (upload, unfilled_mask, read-back), "
-            f"splu loop {splu_s * 1e3:.1f} ms; {smi}")
-        stats[kind] = dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                           iters=[int(iters.min()), int(iters.max())],
-                           max_abs_err=gap, clip_ms=clip_s * 1e3,
-                           splu_ms=splu_s * 1e3)
-        del ops, x_twin
-        torch.cuda.empty_cache()
+    unknowns = args[5]
+    nbytes = float((plane_iters * unknowns[:, None]).sum())
+    return nbytes * K6_BYTES_PER_UNKNOWN, 0.0, counts.PEAK_F32_FLOPS
 
 
-K7_CASES = (("strokes", (46, 240, 432)), ("square", (46, 240, 432)),
-            ("ring", (46, 480, 864)))
+def k7_count(args, plane_iters) -> tuple:
+    """K7's (bytes, operations, peak): :func:`k7_bytes` with each
+    plane's iterations (from the row's check)."""
+    from portbench import counts
+
+    return k7_bytes(args[1], plane_iters), 0.0, counts.PEAK_F32_FLOPS
 
 
 def k7_bytes(hole, plane_iters) -> float:
@@ -690,335 +406,23 @@ def k7_bytes(hole, plane_iters) -> float:
     return float((per * plane_iters.double().cpu()).sum())
 
 
-def phase_k7(stats: dict, smi: str):
-    """K7 on each of ``K7_CASES`` against its plain version (inside the
-    hole within 1e-4 of the flows' scale, outside the input's bits,
-    iterations within 2, one launch, the host's reads of the flag), then
-    its kernels' device time (profiler, 3 solves), its wall time a solve
-    (events, host reads included), the plain version's, the launches a
-    solve and the bound: :func:`k7_bytes` at the HBM rate."""
-    import math
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from fgt_tpu_torch.ops import diffusion as k7
-
-    tests = os.path.join(REPO, "tests")
-    if tests not in sys.path:
-        sys.path.insert(0, tests)
-    from torch_port_diffusion_cases import case, counted
-
-    for kind, shape in K7_CASES:
-        planes, hole = case(kind, *shape)
-        before = k7.diffusion_mg.launches
-        got, mine = counted(k7.laplace_fill_planes, planes, hole)
-        launches = k7.diffusion_mg.launches - before
-        want, plain = counted(k7.laplace_fill_planes_plain, planes, hole)
-        scale = planes.abs().max().item()
-        gap = (got - want)[hole].abs().max().item()
-        outside = torch.equal(got.view(torch.int32)[~hole],
-                              planes.view(torch.int32)[~hole])
-        _, plane_iters = k7.diffusion_mg(planes, hole, plane_iters=True)
-        log(f"K7 {kind} {shape}: {int(hole.sum())} hole px, {launches} "
-            f"launch, iterations {mine['pcg_iters']} (plain "
-            f"{plain['pcg_iters']}), a plane's {int(plane_iters.min())}-"
-            f"{int(plane_iters.max())}, host reads {mine['pcg_syncs']} "
-            f"(plain {plain['pcg_syncs']}), max gap to the plain version "
-            f"{gap:.3g} (tol {1e-4 * scale:.3g}), outside bit-equal "
-            f"{outside}, coarsest level in shared memory "
-            f"{k7.coarse_in_shared(*shape[1:], 'cuda')}")
-        if launches != 1 or not outside or gap > 1e-4 * scale or \
-                abs(mine["pcg_iters"] - plain["pcg_iters"]) > 2 or \
-                mine["pcg_syncs"] > math.ceil(mine["pcg_iters"] / k7.CHUNK) + 2:
-            raise AssertionError(f"K7 {kind} disagrees with its plain "
-                                 f"version")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                k7.laplace_fill_planes(planes, hole)
-            torch.cuda.synchronize()
-        mine_k = [e for e in kernel_events(prof) if "k7_" in e.key]
-        kernel_ms = sum(e.self_device_time_total for e in mine_k) / 1e3 / 3
-        kernels_a_solve = sum(e.count for e in mine_k) / 3
-        wall_ms = cuda_ms(lambda: k7.laplace_fill_planes(planes, hole), 3)
-        plain_ms = cuda_ms(lambda: k7.laplace_fill_planes_plain(planes, hole),
-                           1, warmup=0)
-        nbytes = k7_bytes(hole, plane_iters)
-        b_ms = nbytes / H100_BYTES_PER_S * 1e3
-        log(f"K7 {kind}: kernel_ms {kernel_ms:.4f} wall_ms {wall_ms:.4f} "
-            f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} (bytes, "
-            f"{nbytes / 1e9:.3f} GB) {b_ms / kernel_ms:.3f} of the bound; "
-            f"{kernels_a_solve:.0f} kernel launches a solve "
-            f"({kernels_a_solve / max(1, mine['pcg_iters']):.1f} an "
-            f"iteration); " + ", ".join(
-                f"{e.key} {e.self_device_time_total / 1e3 / 3:.3f} ms "
-                f"x{e.count // 3}" for e in sorted(
-                    mine_k, key=lambda e: -e.self_device_time_total)) +
-            f"; {smi}")
-        stats[kind] = dict(ms=kernel_ms, wall_ms=wall_ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, iters=mine["pcg_iters"],
-                           plain_iters=plain["pcg_iters"],
-                           syncs=mine["pcg_syncs"], max_abs_err=gap,
-                           kernels_a_solve=kernels_a_solve)
-        del planes, hole, got, want
-        torch.cuda.empty_cache()
-
-
-def check_k45_ragged(q, k, v, do, scale: float):
-    """K4 and K5 in bf16 at a ragged L against their plain versions on
-    the plain forward's lse and dsum: 1 ulp of the largest entry."""
-    import torch
-    from fgt_tpu_torch.ops import flash_attention as fa
-
-    out, lse = fa.flash_attention_plain(q, k, v, scale)
-    dsum = (do.float() * out.float()).sum(-1)
-    got = (fa.flash_attention_dq(q, k, v, do, lse, dsum, scale),
-           *fa.flash_attention_dkv(q, k, v, do, lse, dsum, scale))
-    want = (fa.flash_attention_dq_plain(q, k, v, do, lse, dsum, scale),
-            *fa.flash_attention_dkv_plain(q, k, v, do, lse, dsum, scale))
-    torch.cuda.synchronize()
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        top = b.float().abs().max().item()
-        err = (a.float() - b.float()).abs().max().item()
-        log(f"K4/K5 bfloat16 L={q.shape[1]} {name}: max_abs_err {err:.3g} "
-            f"(tol {top * 2 ** -7:.3g})")
-        if not err <= top * 2 ** -7:
-            raise AssertionError(f"K4/K5 {name} at L={q.shape[1]} "
-                                 "disagrees")
-
-
-def phase_k45(dtype, stats: dict, resources: dict):
-    """K4 and K5 at the training shape: batch 2 x 4 groups x 4 heads = 32
-    sequences of 5 frames x 10 x 18 = 900 tokens, head dim 128 (ragged:
-    the last 64-row tile holds 4 rows); in bf16 also at L = 65, and K4's
-    tensor-core body's registers, shared memory and spills."""
+def grid_sample_ms(pyr, coords, r: int, _) -> float:
+    """F.grid_sample over K3's windows, one call per level on [N, 1,
+    H_l, W_l] with a [N, k, k, 2] grid: the reference bilinear_sampler
+    (align_corners=True, zero padding; dx on the slow axis of the grid,
+    corr.py:37-43), K3's library yardstick."""
     import torch
     import torch.nn.functional as F
-    from fgt_tpu_torch.ops import flash_attention as fa
 
-    if dtype == torch.bfloat16:
-        log("K4 bfloat16 body flash_dq_bf16_kernel: "
-            f"{resources.get('flash_dq_bf16_kernel', 'not measured')}; "
-            "dynamic shared memory 98304 B a block (q, dO, two k/v stages)")
-
-    g = torch.Generator(device="cuda").manual_seed(4)
-    n, l, ch = 32, 900, 128
-    scale = ch ** -0.5
-    if dtype == torch.bfloat16:
-        check_k45_ragged(*(torch.randn(4, 65, ch, device="cuda", generator=g)
-                           .to(dtype) for _ in range(4)), scale)
-    q, k, v, do = (torch.randn(n, l, ch, device="cuda", generator=g).to(dtype)
-                   for _ in range(4))
-    out, lse = fa.flash_mhsa(q, k, v, scale)
-    dsum = (do.float() * out.float()).sum(-1)
-    got = (fa.flash_attention_dq(q, k, v, do, lse, dsum, scale),
-           *fa.flash_attention_dkv(q, k, v, do, lse, dsum, scale))
-    plain = (fa.flash_attention_dq_plain(q, k, v, do, lse, dsum, scale),
-             *fa.flash_attention_dkv_plain(q, k, v, do, lse, dsum, scale))
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-    ref_out = fa.flash_attention_plain(*leaves, scale)[0]
-    auto = torch.autograd.grad(ref_out, leaves, do)
-    torch.cuda.synchronize()
-    errs = {}
-    for name, a, b, c in zip(("dq", "dk", "dv"), got, plain, auto):
-        top = b.float().abs().max().item()
-        err = (a.float() - b.float()).abs().max().item()
-        err_auto = (a.float() - c.float()).abs().max().item()
-        # f32: reassociated sums over 900 keys/queries; bf16 outputs:
-        # 1 ulp of the largest entry against the plain version, 2 ulp
-        # against autograd (whose dsum comes from the unrounded output)
-        f32 = dtype == torch.float32
-        tol = 1e-5 * max(1.0, top) if f32 else top * 2 ** -7
-        tol_auto = 1e-5 * max(1.0, top) if f32 else top * 2 ** -6
-        log(f"K4/K5 {str(dtype)[6:]} {name}: max_abs_err {err:.3g} "
-            f"(tol {tol:.3g}), vs autograd {err_auto:.3g} "
-            f"(tol {tol_auto:.3g}), max |{name}| {top:.3g}")
-        if not (err <= tol and err_auto <= tol_auto):
-            raise AssertionError(f"K4/K5 {name} disagrees")
-        errs[name] = err
-    dq_ms = cuda_ms(lambda: fa.flash_attention_dq(q, k, v, do, lse, dsum,
-                                                  scale), 10)
-    dkv_ms = cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, do, lse, dsum,
-                                                    scale), 50)
-    dq_plain = cuda_ms(lambda: fa.flash_attention_dq_plain(
-        q, k, v, do, lse, dsum, scale), 5)
-    dkv_plain = cuda_ms(lambda: fa.flash_attention_dkv_plain(
-        q, k, v, do, lse, dsum, scale), 5)
-    # SDPA on [1, N, L, ch]: backward = (forward + backward) - forward,
-    # from the kernels' device time (its autograd call is host-bound)
-    q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
-    do4 = do[None]
-    fwd_ms = kernel_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
-                       10)
-    fb_ms = kernel_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4), do4), 10)
-    lib_ms = fb_ms - fwd_ms
-    item = q.element_size()
-    rows = 2 * n * l * 4                              # lse, dsum (f32)
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
-    for name, ms, pms, n_out, mats in (("dq", dq_ms, dq_plain, 1, 3),
-                                       ("dkv", dkv_ms, dkv_plain, 2, 4)):
-        nbytes = (4 + n_out) * n * l * ch * item + rows
-        flops = 2.0 * mats * n * l * l * ch
-        b_ms, b_by = bound(nbytes, flops, peak)
-        err = errs["dq"] if name == "dq" else max(errs["dk"], errs["dv"])
-        log(f"K{4 if name == 'dq' else 5} {str(dtype)[6:]}: kernel_ms "
-            f"{ms:.4f} plain_ms {pms:.4f} library_ms {lib_ms:.4f} (SDPA "
-            f"backward, dq+dk+dv) bound_ms {b_ms:.4f} ({b_by}; "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
-            f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound")
-        stats.setdefault(name, {})[str(dtype)] = dict(
-            ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=err, library_ms=lib_ms)
-
-
-def k3_window_counts(pyr, coords, r: int):
-    """This run's in-level window cells of K3 (each read once) and the
-    32-byte sectors their rows touch (the layout's own floor: a row of
-    k+1 cells starts at any element), summed over pixels and levels."""
-    import torch
-
-    n = coords.shape[0] * coords.shape[1] * coords.shape[2]
-    flat = coords.reshape(n, 2)
-    item = pyr[0].element_size()
-    dd = torch.arange(-r, r + 2, device=coords.device)
-    pix = torch.arange(n, device=coords.device)[:, None]
-    cells = sectors = 0
-    for lvl, vol in enumerate(pyr):
-        hl, wl = vol.shape[1:]
-        c0 = torch.floor(flat / 2 ** lvl).clamp(-1e6, 1e6).long()
-        xlo = (c0[:, :1] - r).clamp(min=0)
-        ncol = ((c0[:, :1] + r + 2).clamp(max=wl) - xlo).clamp(min=0)
-        ys = c0[:, 1:] + dd                                   # [n, k+1]
-        rows = (ys >= 0) & (ys < hl) & (ncol > 0)
-        cells += (rows * ncol).sum().item()
-        start = ((pix * hl + ys.clamp(0, hl - 1)) * wl + xlo) * item
-        end = start + ncol * item
-        sectors += torch.where(rows, (end - 1) // 32 - start // 32 + 1,
-                               0).sum().item()
-    return cells, sectors
-
-
-def k3_inputs(dtype, levels: int, B=46, H=60, W=108):
-    """K3's main-path inputs: ``levels`` random all-pairs maps of 46 pairs
-    x 60x108 pixels in ``dtype`` and f32 coords (a 8 px random flow) with
-    far-out-of-range pixels and pixels on and past the level edges."""
-    import torch
-    from fgt_tpu_torch.ops import corr_lookup as cl
-
-    g = torch.Generator(device="cuda").manual_seed(3)
-    n = B * H * W
-    pyr = [torch.randn(n, h, w, device="cuda", generator=g).to(dtype)
-           for h, w in cl.pyramid_sizes(H, W, levels)]
-    ys, xs = torch.meshgrid(torch.arange(H, device="cuda"),
-                            torch.arange(W, device="cuda"), indexing="ij")
-    coords = torch.stack([xs, ys], -1).float()[None].repeat(B, 1, 1, 1)
-    coords = coords + 8 * torch.randn(B, H, W, 2, device="cuda", generator=g)
-    coords[:, :4] = 1e4                       # far out of range: zero taps
-    coords[:, 4:8] = -3e3
-    coords[:, 8, :, 0] = W - 1                # on the right edge
-    coords[:, 9, :, 0] = -0.5                 # straddling the left edge
-    coords[:, 10, :, 1] = H - 0.75            # straddling the bottom edge
-    return pyr, coords
-
-
-def phase_k3(dtype, stats: dict):
-    """K3 at the main-path shape: one GRU iteration over 46 pairs x
-    60x108 pixels, 4 levels of all-pairs maps (60x108, 30x54, 15x27,
-    7x13 — odd sizes floor-pooled) in ``dtype``, f32 coords that include
-    far-out-of-range pixels and pixels on and past the level edges.
-    Radius 4 and 3, f32 and bf16 taps: equal to the plain version (bf16:
-    the plain f32 taps rounded once). Timed at radius 4 in both output
-    dtypes, with the warp-per-pixel body it replaced beside it (and that
-    body plus the cast
-    the bf16 refine used to run after it), the plain version, the bound
-    and the sector floor. F.grid_sample (align_corners=True, zero
-    padding), one call per level on [N, 1, H_l, W_l] with a [N, k, k, 2]
-    grid — the reference bilinear_sampler — is timed beside it as a
-    yardstick only."""
-    import torch
-    from fgt_tpu_torch.ops import corr_lookup as cl
-
-    r, L = 4, 4
-    pyr, coords = k3_inputs(dtype, L)
-    name = str(dtype)[6:]
-    bf16 = torch.bfloat16
-    for radius in (4, 3):
-        want = cl.lookup_corr_pyramid_plain(pyr, coords, radius)
-        top = want.abs().max().item()
-        # same arithmetic in the same order, each product and sum rounded
-        # on its own: equal; one f32 ulp of the largest tap is the bound
-        tol = top * 2 ** -23
-        outs = {"f32": cl.lookup_corr_pyramid(pyr, coords, radius),
-                "bf16": cl.lookup_corr_pyramid(pyr, coords, radius,
-                                               out_dtype=bf16)}
-        if radius == r:
-            outs["warp-per-pixel"] = cl.lookup_corr_pyramid_warp(pyr, coords,
-                                                                r)
-        torch.cuda.synchronize()
-        for label, got in outs.items():
-            ref = want.to(bf16) if got.dtype == bf16 else want
-            diff = (got.float() - ref.float()).abs()
-            err = diff.max().item()
-            far = got[:, :8].abs().max().item()
-            log(f"K3 {name} r {radius}, {label} taps: max_abs_err {err:.3g} "
-                f"(tol {tol:.3g}{'; bf16: equal' if got.dtype == bf16 else ''}"
-                f"; {int((diff > 0).sum())} of {got.numel()} taps differ; max "
-                f"|tap| {top:.3g}); far-coord taps max {far}")
-            if (got.dtype != (bf16 if label == "bf16" else torch.float32)
-                    or not err <= (0.0 if got.dtype == bf16 else tol)
-                    or far != 0.0):
-                raise AssertionError(f"K3 ({label} taps, r {radius}) "
-                                     f"disagrees with its plain version")
-        if radius == r:
-            errs = {"f32": (outs["f32"] - want).abs().max().item(),
-                    "bf16": (outs["bf16"].float()
-                             - want.to(bf16).float()).abs().max().item()}
-        del outs, want
-    times = {
-        "warp": cuda_ms(lambda: cl.lookup_corr_pyramid_warp(pyr, coords, r),
-                        20),
-        "warp_cast": cuda_ms(lambda: cl.lookup_corr_pyramid_warp(
-            pyr, coords, r).to(bf16), 20)}
-    out = k3_numbers(pyr, coords, r, errs, name)
-    log(f"K3 {name}: warp-per-pixel body {times['warp']:.4f} ms (f32 taps), "
-        f"{times['warp_cast']:.4f} ms with the cast to bf16 after it; the "
-        f"redesign {times['warp'] / out['f32']['ms']:.2f}x (f32 taps), "
-        f"{times['warp_cast'] / out['bf16']['ms']:.2f}x (bf16 taps against "
-        f"body + cast)")
-    stats[str(dtype)] = out
-
-
-def k3_numbers(pyr, coords, r: int, errs: dict, name: str) -> dict:
-    """K3's times at radius ``r`` on ``pyr`` and ``coords``, with f32 and
-    bf16 taps: the kernel, its plain version, F.grid_sample (one call per
-    level on [N, 1, H_l, W_l] with a [N, k, k, 2] grid — the reference
-    bilinear_sampler, align_corners=True, zero padding — a yardstick
-    only), the bound and the sector floor of this run's windows.
-    ``errs``: the kernel's max |err| per tap dtype. Returns {tap dtype:
-    the kernel line's numbers}."""
-    import torch
-    import torch.nn.functional as F
-    from fgt_tpu_torch.ops import corr_lookup as cl
-
-    bf16 = torch.bfloat16
-    n, k, L = coords.numel() // 2, 2 * r + 1, len(pyr)
-    times = {o: cuda_ms(lambda: cl.lookup_corr_pyramid(
-        pyr, coords, r, out_dtype=odt), 20)
-        for o, odt in (("f32", torch.float32), ("bf16", bf16))}
-    plain = {o: cuda_ms(lambda: cl.lookup_corr_pyramid_plain(
-        pyr, coords, r, out_dtype=odt), 2)
-        for o, odt in (("f32", torch.float32), ("bf16", bf16))}
-    # the reference bilinear_sampler: dx on the slow axis of the [k, k]
-    # grid (corr.py:37-43), coordinates normalized to [-1, 1]
-    d = torch.arange(-r, r + 1, device="cuda", dtype=torch.float32)
+    n = coords.numel() // 2
+    d = torch.arange(-r, r + 1, device=coords.device, dtype=torch.float32)
     delta = torch.stack(torch.meshgrid(d, d, indexing="ij"), -1)
     grids, vols = [], []
     for lvl, vol in enumerate(pyr):
         hl, wl = vol.shape[1:]
         c = coords.reshape(n, 1, 1, 2) / 2 ** lvl + delta
         scale = torch.tensor([2.0 / max(wl - 1, 1), 2.0 / max(hl - 1, 1)],
-                             device="cuda")
+                             device=coords.device)
         grids.append((c * scale - 1).to(vol.dtype))
         vols.append(vol[:, None])
 
@@ -1029,181 +433,225 @@ def k3_numbers(pyr, coords, r: int, errs: dict, name: str) -> dict:
                                   padding_mode="zeros", align_corners=True)
                     for v, gr in zip(vols, grids)]
 
-    want = cl.lookup_corr_pyramid_plain(pyr, coords, r)
-    lib = torch.cat([o.reshape(n, k * k) for o in library()], -1)
-    lib_err = (lib.float() - want.reshape(n, -1)).abs().max().item()
-    library_ms = cuda_ms(library, 10)
-    del grids, vols, lib, want
-    # bytes this run's data needs: each in-level window cell read once,
-    # the coords, the taps written once; the sector floor counts the
-    # 32-byte sectors of the window rows in place of their cells
-    cells, sectors = k3_window_counts(pyr, coords, r)
-    item = pyr[0].element_size()
-    taps = n * L * k * k
-    flops = 9 * taps                          # 6 multiplies, 3 adds per tap
-    out = {}
-    for o, tap_bytes in (("f32", 4), ("bf16", 2)):
-        rest = coords.numel() * 4 + taps * tap_bytes
-        b_ms, b_by = bound(cells * item + rest, flops, H100_F32_FLOPS)
-        floor_ms = (sectors * 32 + rest) / H100_BYTES_PER_S * 1e3
-        log(f"K3 {name} r {r}, {o} taps: kernel_ms {times[o]:.4f} plain_ms "
-            f"{plain[o]:.4f} library_ms {library_ms:.4f} (grid_sample, {L} "
-            f"calls; max |diff| to the plain taps {lib_err:.3g}) bound_ms "
-            f"{b_ms:.4f} ({b_by}; {(cells * item + rest) / 1e9:.3f} GB, "
-            f"{flops / 1e9:.2f} GFLOP; {b_ms / times[o]:.3f} of the bound) "
-            f"sector floor {floor_ms:.4f} ms ({(sectors * 32 + rest) / 1e9:.3f}"
-            f" GB)")
-        out[o] = dict(ms=times[o], plain_ms=plain[o], bound_ms=b_ms,
-                      bound_by=b_by, max_abs_err=errs[o],
-                      library_ms=library_ms)
-    log(f"K3 {name} r {r}: windows {cells * item / 1e9:.4f} GB in cells, "
-        f"{sectors * 32 / 1e9:.4f} GB in sectors "
-        f"({sectors * 32 / n / 1e3:.3f} KB a pixel)")
-    return out
+    return cuda_ms(library, 10)
 
 
-def phase_k3_small(stats: dict):
-    """K3 at RAFT small's shape: the bf16 all-pairs pyramid of one refine
-    built from C = 128 features (46 pairs x 60x108 pixels, 4 levels), a
-    smooth 8 px flow with far-out-of-range rows, radius 3. Equal to the
-    plain version with f32 and bf16 taps; timed with its bound, the
-    plain version and grid_sample."""
+def sdpa_ms(reps: int):
+    """F.scaled_dot_product_attention on [1, N, L, ch] (batch 1, N
+    heads: the layout its fused paths take), K2's library yardstick."""
+    import torch.nn.functional as F
+
+    def ms(q, k, v, _):
+        return cuda_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None]), reps)
+    return ms
+
+
+def sdpa_backward_ms(q, k, v, do, *_) -> float:
+    """SDPA's backward (dq, dk and dv) on [1, N, L, ch]: forward and
+    backward less forward, from the kernels' device time (its autograd
+    call is host-bound), K4's and K5's library yardstick."""
     import torch
-    from fgt_tpu_torch.ops import corr_lookup as cl
+    import torch.nn.functional as F
 
-    g = torch.Generator(device="cuda").manual_seed(7)
-    B, H, W, C, r = 46, 60, 108, 128, 3
-    f1, f2 = (torch.randn(B, H, W, C, device="cuda", generator=g)
-              .to(torch.bfloat16) for _ in range(2))
-    pyr = cl.build_corr_pyramid(f1, f2, 4, dtype=torch.bfloat16)
-    del f1, f2
-    coords = smooth_coords(B, H, W, g)
-    coords[:, :2] = 1e4
-    want = cl.lookup_corr_pyramid_plain(pyr, coords, r)
-    errs = {}
-    for o, odt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        got = cl.lookup_corr_pyramid(pyr, coords, r, out_dtype=odt)
-        ref = want.to(odt)
-        errs[o] = (got.float() - ref.float()).abs().max().item()
-        far = got[:, :2].abs().max().item()
-        log(f"K3 bfloat16 C=128 r {r}, {o} taps: max_abs_err {errs[o]:.3g} "
-            f"(tol 0: equal); far-coord taps max {far}")
-        if got.dtype != odt or errs[o] != 0.0 or far != 0.0:
-            raise AssertionError(f"K3 at r {r} ({o} taps) disagrees with "
-                                 "its plain version")
-    del want
-    stats["bfloat16 C128 r3"] = k3_numbers(pyr, coords, r, errs,
-                                           "bfloat16 C=128")
-    del pyr
-    torch.cuda.empty_cache()
+    q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+    fwd_ms = kernel_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                       10)
+    fb_ms = kernel_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(q4, k4, v4), (q4, k4, v4),
+        do[None]), 10)
+    return fb_ms - fwd_ms
 
 
-def phase_pyramid_build():
-    """The all-pairs pyramid of one refine at the main-path shape (46
-    pairs x 60x108 pixels, C = 256, bf16 storage), built 8 pairs at a
-    time: from bf16 features (f32 product on TF32 tensor cores, exact for
-    bf16-valued inputs — the port's path) and from the same values in
-    f32 features (full-f32 product), which must agree."""
+class Row(typing.NamedTuple):
+    """One kernel of the timing table. ``case()`` makes (args, check):
+    the arguments that ``kernel``, ``plain`` and ``library`` take, and a
+    call that holds the kernel to its plain version on those inputs (one
+    of the checks beside the inputs in tests/, which raise on a miss) and
+    returns its deviations. ``count(args, plane_iters)``: the call's
+    (bytes, operations, peak); ``plane_iters`` is the solvers' per-plane
+    iterations from the check. ``library``: the time of a library call
+    doing the same work (ms), a yardstick, or None. ``reps``: timed calls
+    of the kernel and of the plain version. ``device``: for the solvers,
+    which read the host between launches, the name their kernels share;
+    their time is then those kernels' device time, and ``wall_ms`` the
+    calls' with the host reads."""
+    name: str
+    case: typing.Callable
+    kernel: typing.Callable
+    plain: typing.Callable
+    count: typing.Callable
+    reps: tuple
+    library: typing.Callable | None = None
+    device: str | None = None
+
+
+def kernel_rows() -> list:
+    """Every kernel at the shapes the port runs it: K1 at the main path
+    (f32 on noisy coords, the --alternate_corr body; bf16 on a smooth
+    flow, the box route, and on noisy coords, the general route) and at
+    RAFT small's C 128 r 3; K2 at the main path (f32, bf16) and on the
+    outpainting canvas; K4 and K5 at training's; K3 on the main path's
+    f32 and bf16 all-pairs maps and RAFT small's pyramid, f32 and bf16
+    taps; K6 on the removal cells' clips; K7 on the inference cells'
+    flows. Inputs and checks from ``tests/torch_port_kernel_cases.py``
+    and the solvers' case modules, which the card tests use too."""
+    import functools
+
     import torch
-    from fgt_tpu_torch.ops import corr_lookup as cl
-
-    g = torch.Generator(device="cuda").manual_seed(5)
-    f1, f2 = (torch.randn(46, 60, 108, 256, device="cuda", generator=g)
-              .to(torch.bfloat16) for _ in range(2))
-    times = {}
-    for label, a, b in (("bf16 features, TF32 product", f1, f2),
-                        ("f32 features, f32 product", f1.float(),
-                         f2.float())):
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        pyr = cl.build_corr_pyramid(a, b, 4, dtype=torch.bfloat16)
-        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-        times[label] = cuda_ms(lambda: cl.build_corr_pyramid(
-            a, b, 4, dtype=torch.bfloat16), 3)
-        if label.startswith("bf16"):
-            ref = pyr
-        else:
-            err = max((p.float() - q.float()).abs().max().item()
-                      for p, q in zip(pyr, ref))
-        log(f"pyramid build ({label}): {times[label]:.3f} ms; "
-            f"{sum(p.numel() * 2 for p in pyr) / 1e9:.3f} GB stored, peak "
-            f"{peak:.2f} GiB above the features")
-        del pyr
-    del ref
-    top = 2 ** -7 * 16                        # bf16 ulp near the largest maps
-    log(f"pyramid build: the two products' pyramids differ by at most "
-        f"{err:.3g} (one bf16 ulp at |corr| ~ 16: {top:.3g})")
-    if not err <= top:
-        raise AssertionError("TF32 and f32 pyramid builds disagree")
-    return times
-
-
-def phase_refine_bf16():
-    """RAFT refine in bf16 on a 64x64 pair (8x8 features; levels 8x8,
-    4x4, 2x2, 1x1) at full width (random weights from seed 0), 20
-    iterations, on the K1 path: with the kernel, then with its plain
-    version in its place. Tolerance: the bf16 GRU on random weights
-    carries a one-ulp tap difference through 20 iterations; on the CPU,
-    flipping 0.5% of the taps by one bf16 ulp every iteration moved the
-    upsampled flow by 0.45% of its largest value at most and 0.1% on the
-    mean, so max |diff| <= 2^-5 and mean |diff| <= 2^-8 of the largest
-    |flow|. Returns the kernel's (box, general) route counts."""
-    import torch
-    from fgt_tpu_torch.models import raft as raft_mod
+    import torch_port_kernel_cases as kc
+    import torch_port_poisson_cases as k6c
     from fgt_tpu_torch.ops import corr_fused as cf
+    from fgt_tpu_torch.ops import corr_lookup as cl
+    from fgt_tpu_torch.ops import diffusion as k7
+    from fgt_tpu_torch.ops import flash_attention as fa
+    from fgt_tpu_torch.ops import poisson as k6
+    from portbench import counts
+    from torch_port_diffusion_cases import case as k7_case
+    from torch_port_diffusion_cases import check_k7
 
-    frames, _ = synthetic_video(n=2, h=64, w=64, hole=8, y0=8, x0=8)
-    model = raft_mod.init_raft(raft_mod.RAFT(),
-                               torch.Generator().manual_seed(0))
-    model = model.to("cuda", torch.bfloat16).eval()
-    flows = []
-    with torch.no_grad():
-        fmap, net, inp = model.encode(torch.from_numpy(frames).cuda())
-        for lookup in (cf.lookup_corr_fused, cf.lookup_corr_plain):
-            raft_mod.lookup_corr_fused = lookup
-            try:
-                cf.reset_route_tiles()
-                reset([cf.lookup_corr_fused])
-                flows.append(model.refine(fmap[:1], fmap[1:], net[:1],
-                                          inp[:1], 20)[1].float())
-                torch.cuda.synchronize()
-                if lookup is cf.lookup_corr_fused:
-                    routes = cf.route_tiles()
-                    launches = cf.lookup_corr_fused.launches
-            finally:
-                raft_mod.lookup_corr_fused = cf.lookup_corr_fused
-    top = flows[1].abs().max().item()
-    diff = (flows[0] - flows[1]).abs()
-    log(f"RAFT refine bf16 64x64: K1 vs plain flow max |diff| "
-        f"{diff.max().item():.4g} (tol {top * 2 ** -5:.4g}), mean "
-        f"{diff.mean().item():.4g} (tol {top * 2 ** -8:.4g}); max |flow| "
-        f"{top:.4g} px; K1 launches {launches}, routes {routes}")
-    if launches != 20 or routes["box"] == 0:
-        raise AssertionError("the bf16 refine did not run K1's box route")
-    if not (diff.max().item() <= top * 2 ** -5
-            and diff.mean().item() <= top * 2 ** -8):
-        raise AssertionError("RAFT refine: K1 and its plain version disagree")
-    return routes
+    f32, bf16 = torch.float32, torch.bfloat16
+    part = functools.partial
+
+    def k1_case(dt, c, r, kind):
+        f1, pyr, coords, far = kc.k1_inputs(dt, c, r, kind)
+        return (f1, pyr, coords, r), part(kc.check_k1, f1, pyr, coords, r,
+                                          far)
+
+    def k2_case(dt, n, l):
+        args = (*kc.qkv(n, l, dt, 2), kc.SCALE)
+        return args, part(kc.check_k2, *args)
+
+    def k45_case(dt, check):
+        args = kc.k45_inputs(*kc.K45_TRAIN, dt, 4)
+        return args, part(check, *args, autograd=True)
+
+    def k3_case(inputs, r, out):
+        pyr, coords, far = inputs()
+        return (pyr, coords, r, out), part(kc.check_k3, pyr, coords, r, out,
+                                           far)
+
+    def k6_case(kind):
+        clip = k6c.case(kind, 24, 240, 432)
+        return k6c.k6_operands(*clip), part(k6c.check_k6, *clip)
+
+    def k7_row_case(kind, p, h, w):
+        args = k7_case(kind, p, h, w)
+        return args, part(check_k7, *args)
+
+    rows = [Row(f"K1 {str(dt)[6:]} C{c} r{r} {kind}",
+                part(k1_case, dt, c, r, kind), cf.lookup_corr_fused,
+                cf.lookup_corr_plain, part(call_bound, counts.k1_call),
+                (20, 2))
+            for dt, c, r, kind in ((f32, 256, 4, "noisy"),
+                                   (bf16, 256, 4, "smooth"),
+                                   (bf16, 256, 4, "noisy"),
+                                   (bf16, 128, 3, "smooth"),
+                                   (bf16, 128, 3, "noisy"))]
+    rows += [Row(f"K2 {str(dt)[6:]} N{n} L{l}", part(k2_case, dt, n, l),
+                 fa.flash_mhsa, kc.k2_plain, part(call_bound, counts.k2_call),
+                 reps, sdpa_ms(reps[0]))
+             for dt, (n, l), reps in ((f32, kc.K2_MAIN, (10, 3)),
+                                      (bf16, kc.K2_MAIN, (10, 3)),
+                                      *((bf16, s, (5, 1))
+                                        for s in kc.K2_CANVAS))]
+    for dt in (f32, bf16):
+        rows += [Row(f"K4 {str(dt)[6:]} N32 L900", part(k45_case, dt,
+                                                         kc.check_k4),
+                     fa.flash_attention_dq, fa.flash_attention_dq_plain,
+                     part(call_bound, counts.k4_call), (10, 5),
+                     sdpa_backward_ms),
+                 Row(f"K5 {str(dt)[6:]} N32 L900", part(k45_case, dt,
+                                                         kc.check_k5),
+                     fa.flash_attention_dkv, fa.flash_attention_dkv_plain,
+                     part(call_bound, counts.k5_call), (50, 5),
+                     sdpa_backward_ms)]
+    for label, inputs, r in (("float32 r4", part(kc.k3_inputs, f32), 4),
+                             ("bfloat16 r4", part(kc.k3_inputs, bf16), 4),
+                             ("bfloat16 C128 r3", kc.k3_small_inputs, 3)):
+        rows += [Row(f"K3 {label} {str(out)[6:]} taps",
+                     part(k3_case, inputs, r, out), cl.lookup_corr_pyramid,
+                     cl.lookup_corr_pyramid_plain, k3_count, (20, 2),
+                     grid_sample_ms) for out in (f32, bf16)]
+    rows += [Row(f"K6 {kind}", part(k6_case, kind),
+                 lambda *a: k6.poisson_pcg(*a).result(),
+                 lambda *a: k6.poisson_pcg_plain(*a[:5]), k6_count, (3, 1),
+                 device="poisson_pcg")
+             for kind in ("strokes", "square")]
+    rows += [Row(f"K7 {kind} {p}x{h}x{w}", part(k7_row_case, kind, p, h, w),
+                 k7.laplace_fill_planes, k7.laplace_fill_planes_plain,
+                 k7_count, (3, 1), device="k7_")
+             for kind, (p, h, w) in (("strokes", (46, 240, 432)),
+                                     ("square", (46, 240, 432)),
+                                     ("ring", (46, 480, 864)))]
+    return rows
 
 
-def synthetic_video(n=24, h=240, w=432, hole=56, y0=90, x0=160, pan=2,
-                    seed=0):
-    """bench.py's data: a smoothed-noise background panning 2 px/frame and
-    a square hole at (y0, x0) moving with it (uniform_filter in place of
-    cv2)."""
-    import scipy.ndimage
+def time_kernels(rows: list, smi: str) -> dict:
+    """Each row's kernel held to its plain version on the row's inputs
+    (the row's check, which raises on a miss), then the kernel's time,
+    the plain version's, the library yardstick's, the bound and the
+    share of it the kernel reaches. Returns {row name: numbers}."""
+    import torch
+    from portbench import common, counts
 
-    rng = np.random.RandomState(seed)
-    base = (rng.rand(h + 8, w + pan * n + 8, 3) * 255).astype(np.uint8)
-    base = scipy.ndimage.uniform_filter(base.astype(np.float32),
-                                        size=(9, 9, 1), mode="mirror")
-    base = base.astype(np.uint8)
-    frames = np.stack([base[4:4 + h, 4 + pan * i:4 + pan * i + w]
-                       for i in range(n)])
-    masks = np.zeros((n, h, w), np.uint8)
-    for i in range(n):
-        masks[i, y0:y0 + hole, x0 + pan * i:x0 + pan * i + hole] = 1
-    return frames, masks
+    stats = {}
+    for row in rows:
+        args, check = row.case()
+        out = check()
+        plane_iters = out.pop("plane_iters", None)
+
+        def call():
+            return row.kernel(*args)
+        note = ""
+        if row.device:
+            events = device_events(call, row.reps[0], row.device)
+            ms = sum(e.self_device_time_total
+                     for e in events) / 1e3 / row.reps[0]
+            out.update(wall_ms=cuda_ms(call, row.reps[0]),
+                       kernels_a_solve=sum(e.count
+                                           for e in events) / row.reps[0])
+            note = "; " + ", ".join(
+                f"{e.key} {e.self_device_time_total / 1e3 / row.reps[0]:.3f}"
+                f" ms x{e.count // row.reps[0]}" for e in sorted(
+                    events, key=lambda e: -e.self_device_time_total))
+        else:
+            ms = cuda_ms(call, row.reps[0])
+        plain_ms = cuda_ms(lambda: row.plain(*args), row.reps[1], warmup=0)
+        torch.cuda.empty_cache()
+        library_ms = row.library(*args) if row.library else None
+        nbytes, flops, peak = row.count(args, plane_iters)
+        b_ms = counts.bound_s(nbytes, flops, peak) * 1e3
+        b_by = ("bytes" if nbytes / common.PEAK_BYTES_PER_S >= flops / peak
+                else "operations")
+        stats[row.name] = dict(ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms, bound_ms=b_ms,
+                               bound_by=b_by, **out)
+        log(f"{row.name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"library_ms " + ("none" if library_ms is None else
+                              f"{library_ms:.4f}") +
+            f" bound_ms {b_ms:.4f} ({b_by}; {nbytes / 1e9:.4f} GB, "
+            f"{flops / 1e9:.2f} GFLOP) {b_ms / ms:.3f} of the bound; " +
+            ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in out.items()) + note + f"; {smi}")
+        del args, check
+        torch.cuda.empty_cache()
+    return stats
+
+
+def square_clip(n: int = 24, seed: int = 0):
+    """A clip of the square removal cell's traffic
+    (``portbench/traffic/removal_square_24f.json``) of ``n`` frames drawn
+    from ``seed`` (at n = 24 its first clip): (frames [n, 240, 432, 3]
+    u8, masks [n, 240, 432] u8 {0, 1})."""
+    from portbench import traffic
+
+    mix = traffic.load_mix("removal_square_24f")
+    h, w, pan, hole = mix["height"], mix["width"], mix["pan_px"], mix["hole"]
+    return (traffic.panning_background(np.random.RandomState(seed), n, h, w,
+                                       pan),
+            traffic.square_masks(n, h, w, hole["size"], hole["y0"],
+                                 hole["x0"], pan))
 
 
 def reset(counters):
@@ -1232,7 +680,7 @@ def phase_main_path(counters, corr: str, want: dict):
     from fgt_tpu_torch.ops import corr_fused as cf
     from fgt_tpu_torch.pipeline import video_inpainting as vi
 
-    frames, masks = synthetic_video()
+    frames, masks = square_clip()
     t0 = time.perf_counter()
     models = vi.Models("cuda", bf16=True, seed=0, corr=corr)
     torch.cuda.synchronize()
@@ -1352,7 +800,7 @@ def phase_modes(counters, root: str):
     watermark removal from PNG directories (frames premasked, default
     path), video extrapolation to a 1.2x canvas on the pyramid path, and
     --Nonlocal on a 12-frame clip on the pyramid path."""
-    frames, masks = synthetic_video()
+    frames, masks = square_clip()
     hole = masks > 0
     premasked = frames * (~hole)[..., None].astype(np.uint8)
     fdir = write_pngs(f"{root}/wm/frames", premasked)
@@ -1482,7 +930,7 @@ def phase_flow_extract(counters, root: str):
     from fgt_tpu_torch.pipeline import flow_extract
 
     for v, write in enumerate((write_pngs, write_jpegs)):
-        frames, _ = synthetic_video(n=8, seed=10 + v)
+        frames, _ = square_clip(8, seed=10 + v)
         write(f"{root}/fx/data/video{v}", frames)
     reset(counters)
     t0 = time.perf_counter()
@@ -1514,7 +962,7 @@ def phase_batch(counters, root: str):
     from fgt_tpu_torch.pipeline import batch
 
     for v, write in enumerate((write_pngs, write_jpegs)):
-        frames, masks = synthetic_video(n=8, seed=20 + v)
+        frames, masks = square_clip(8, seed=20 + v)
         write(f"{root}/bt/videos/v{v}", frames)
         write_pngs(f"{root}/bt/masks/v{v}", masks * 255)
     reset(counters)
@@ -1542,7 +990,7 @@ def phase_small(counters, root: str):
     warm runs' s1 seconds by path."""
     from fgt_tpu_torch.ops import corr_fused as cf
 
-    frames, masks = synthetic_video()
+    frames, masks = square_clip()
     hole = masks > 0
     np.save(f"{root}/sm_frames.npy", frames)
     np.save(f"{root}/sm_masks.npy", masks)
@@ -1580,7 +1028,7 @@ def phase_alternate(counters, root: str):
     no K3 and no bf16 K1 (whose route counters stay 0)."""
     from fgt_tpu_torch.ops import corr_fused as cf
 
-    frames, masks = synthetic_video()
+    frames, masks = square_clip()
     hole = masks > 0
     np.save(f"{root}/alt_frames.npy", frames)
     np.save(f"{root}/alt_masks.npy", masks)
@@ -1614,7 +1062,7 @@ def phase_evaluate(counters, root: str):
     from fgt_tpu_torch.pipeline import evaluate
 
     for v in range(2):
-        frames, masks = synthetic_video(seed=30 + v)
+        frames, masks = square_clip(seed=30 + v)
         write_pngs(f"{root}/ev/frames/v{v}", frames)
         write_pngs(f"{root}/ev/masks/v{v}", masks * 255)
     model = vfid.init_i3d(vfid.I3D(), torch.Generator().manual_seed(0))
@@ -1644,7 +1092,7 @@ def phase_evaluate(counters, root: str):
     expect_launches("evaluation", launches, {"lookup_corr_fused": 40,
                                              "lookup_corr_pyramid": 0,
                                              "flash_mhsa": None})
-    frames, _ = synthetic_video(seed=30)
+    frames, _ = square_clip(seed=30)
     clip = vfid.VFIDScorer(clip_len=16, device="cpu").clips(
         frames)[:1, :, :120, :216]
     feats = []
@@ -1758,7 +1206,7 @@ def phase_debug_flags(counters, root: str):
     --vis_prop --vis_frame --profile and an --opt YAML that sets
     raft_iters to 3 (K1 launches 3, not 20); the debug directories hold
     their files and the trace holds K1's kernel."""
-    frames, masks = synthetic_video(n=6)
+    frames, masks = square_clip(6)
     os.makedirs(f"{root}/dbg", exist_ok=True)
     np.save(f"{root}/dbg/frames.npy", frames)
     np.save(f"{root}/dbg/masks.npy", masks)
@@ -1898,26 +1346,27 @@ def phase_jpeg_fixtures() -> dict:
 def davis_clip(n: int = 24):
     """A DAVIS-style clip: 854x480 frames (bench.py's smoothed noise,
     panning 4 px a frame) with a 112 px square hole moving with it."""
-    return synthetic_video(n=n, h=480, w=854, hole=112, y0=180, x0=320,
-                           pan=4, seed=3)
+    from portbench import traffic
+
+    return (traffic.panning_background(np.random.RandomState(3), n, 480, 854,
+                                       4),
+            traffic.square_masks(n, 480, 854, 112, 180, 320, 4))
 
 
 def k2_at_window_shapes(shapes: list) -> dict:
-    """K2 against its plain version at each (N, L) the exact windows gave
-    it, in f32 and bf16 (``check_k2``'s tolerances), and its bf16 time at
-    each shape. Returns {(N, L): ms}."""
+    """K2 held to its plain version (``check_k2``) at each (N, L) the
+    exact windows gave it, in f32 and bf16, and its bf16 time there.
+    Returns {(N, L): ms}."""
     import torch
+    import torch_port_kernel_cases as kc
     from fgt_tpu_torch.ops import flash_attention as fa
 
-    g = torch.Generator(device="cuda").manual_seed(4)
     ms = {}
-    for n, l, ch in sorted(set(shapes)):
+    for n, l, _ in sorted(set(shapes)):
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (torch.randn(n, l, ch, device="cuda", generator=g)
-                       .to(dtype) for _ in range(3))
-            check_k2(q, k, v, ch ** -0.5,
-                     f"{str(dtype)[6:]} exact window N={n} L={l}")
-        ms[(n, l)] = cuda_ms(lambda: fa.flash_mhsa(q, k, v, ch ** -0.5), 10)
+            q, k, v = kc.qkv(n, l, dtype, 4)
+            kc.check_k2(q, k, v, kc.SCALE)
+        ms[(n, l)] = cuda_ms(lambda: fa.flash_mhsa(q, k, v, kc.SCALE), 10)
     return ms
 
 
@@ -1951,12 +1400,13 @@ def phase_jpeg_clip(counters, root: str) -> dict:
     clip (24 frames 854x480, baseline 4:2:0, PNG masks) at 432x240, full
     width, bf16, on the K1 path: the default run (batched windows, device
     PCG), then ``--exact_windows`` (one FGT forward per window: 8, 12,
-    13, 12 and 11 frames, so 5 x 4 = 20 K2 launches, each of whose shapes
-    is then held against K2's plain version in f32 and bf16), then
-    ``--host_diffusion`` (s2's regionfill by the host's multigrid solve:
-    K7 launched twice in the other two runs, never in this one). Each
+    13, 12 and 11 frames, so 5 x 4 = 20 K2 launches, K2 then held to
+    its plain version at each of their shapes, f32 and bf16, and timed),
+    then ``--host_diffusion`` (s2's regionfill by the host's multigrid
+    solve: K7 launched twice in the other two runs, never in this one). Each
     output [24, 240, 432, 3] u8, within 1 of the resized source
     outside the hole."""
+    import torch_port_kernel_cases as kc
     from fgt_tpu_torch.pipeline import video_inpainting as vi
 
     frames, masks = davis_clip()
@@ -1987,9 +1437,10 @@ def phase_jpeg_clip(counters, root: str) -> dict:
     want = sorted([8, 12, 13, 12, 11] * 4)                      # a frame
     log(f"JPEG clip --exact_windows: K2 shapes {sorted(set(exact))} "
         f"(frames a window x 4 blocks: {frames_per_window})")
-    if frames_per_window != want or any(l % 180 for _, l, _ in exact):
+    if frames_per_window != want or any(l % 180 for _, l, _ in exact) or \
+            {(n, l) for n, l, _ in exact} != set(kc.K2_EXACT_WINDOWS):
         raise AssertionError(f"exact windows: K2 shapes {exact}, want "
-                             f"windows of {want} frames")
+                             f"windows of {want} frames at N 16")
     ms = k2_at_window_shapes(exact)
     k2_total = sum(ms[(n, l)] for n, l, _ in exact)
     batched = stats["default"]["k2_shapes"]
@@ -2019,7 +1470,7 @@ def psnr(a, b) -> float:
 def phase_dataset_prep(counters, root: str, smi: str, vanilla_s: dict,
                        vanilla_peak: float) -> dict:
     """(d) A benchmark folder prepared with the port's own tools, then
-    object removal on it: phase 6's 24 frames at 432x240 through
+    object removal on it: phase 3's 24 frames at 432x240 through
     ``readers.save_frames_to_dir``; moving-stroke masks
     (``core.masks.get_video_masks_by_moving_random_stroke(24, 432, 240,
     seed=0)``) saved by ``MaskReader.save_files``; their boxes
@@ -2038,7 +1489,7 @@ def phase_dataset_prep(counters, root: str, smi: str, vanilla_s: dict,
     from fgt_tpu_torch.data import readers
 
     t0 = time.perf_counter()
-    frames, _ = synthetic_video()
+    frames, _ = square_clip()
     fdir = f"{root}/prep/frames"
     readers.save_frames_to_dir(list(frames), fdir)
     strokes = core_masks.get_video_masks_by_moving_random_stroke(
@@ -2086,10 +1537,10 @@ def phase_dataset_prep(counters, root: str, smi: str, vanilla_s: dict,
         stats[label] = {"frames_per_s": 24 / work, "peak_gib": peak,
                         "out": out}
     vanilla_fps = 24 / sum(vanilla_s.values())
-    log("dataset prep vs phase 6, warm, same run: " + "; ".join(
+    log("dataset prep vs phase 3, warm, same run: " + "; ".join(
         f"{k} masks {v['frames_per_s']:.3f} frames/s, peak "
         f"{v['peak_gib']:.2f} GiB" for k, v in stats.items())
-        + f"; phase 6 (56x56 moving square) {vanilla_fps:.3f} frames/s, "
+        + f"; phase 3 (56x56 moving square) {vanilla_fps:.3f} frames/s, "
         f"peak {vanilla_peak:.2f} GiB; {smi}")
     video = readers.FrameReader(None, read=False)
     video.set_files(list(stats["stroke"]["out"]))
@@ -2257,7 +1708,7 @@ def phase_checkpoints(counters, root: str, smi: str) -> dict:
             f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " s"
             for k, v in load_s.items()) + f"; {smi}")
 
-    frames, masks = synthetic_video()
+    frames, masks = square_clip()
     np.save(f"{root}/ck/frames.npy", frames)
     np.save(f"{root}/ck/masks.npy", masks)
     outs = {}
@@ -2382,11 +1833,14 @@ def phase_small_reference(corr: str = "fused", use_nonlocal: bool = False,
     reassociation, so the bound is on the mean."""
     import torch
     from fgt_tpu_torch.pipeline import video_inpainting as vi
+    from portbench import traffic
 
     fgt_cfg = dict(vi.DEFAULT_FGT_CONFIG, numBlocks=2, mlp_ratio=4,
                    res_h=64, res_w=64, conv_type=conv_type, norm=norm)
     lafc_cfg = dict(vi.DEFAULT_LAFC_CONFIG, conv_type=conv_type)
-    frames, masks = synthetic_video(n=6, h=64, w=64, hole=16, y0=24, x0=16)
+    frames = traffic.panning_background(np.random.RandomState(0), 6, 64, 64,
+                                        2)
+    masks = traffic.square_masks(6, 64, 64, 16, 24, 16, 2)
     outs = []
     for dev in ("cuda", "cpu"):
         models = vi.Models(dev, bf16=False, raft_iters=4, fgt_config=fgt_cfg,
@@ -2458,6 +1912,7 @@ def lafc_train_batch(b=4, t=3, h=256, w=256, seed=0, device="cuda"):
     from fgt_tpu_torch.core.edge import flow_edge
     from fgt_tpu_torch.core.warp import image_warp
     from fgt_tpu_torch.ops.diffusion import diffuse_flows_device
+    from torch_port_kernel_cases import smooth_coords
 
     gen = torch.Generator(device).manual_seed(seed)
     rng = np.random.RandomState(seed)
@@ -2496,27 +1951,6 @@ def lafc_train_batch(b=4, t=3, h=256, w=256, seed=0, device="cuda"):
             "shift_frame": shift}
 
 
-def conv_tflop(model, *inputs) -> float:
-    """TFLOP of a training step's convolutions: 3 x the forward's
-    (forward, input and weight gradients), 2 per multiply-add, counted
-    from each convolution's output shape on these inputs."""
-    import torch
-
-    macs = [0]
-
-    def hook(m, _, out):
-        macs[0] += out.numel() * m.in_channels // m.groups * int(
-            np.prod(m.kernel_size))
-
-    hooks = [m.register_forward_hook(hook) for m in model.modules()
-             if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d))]
-    with torch.no_grad():
-        model(*inputs)
-    for h in hooks:
-        h.remove()
-    return 3 * 2 * macs[0] / 1e12
-
-
 LAFC_METRICS = ("loss", "l1_masked", "l1_valid", "sm1", "sm2", "ternary",
                 "edge")
 
@@ -2544,11 +1978,8 @@ def train_lafc(counters, root: str, single: bool, smi: str) -> dict:
     t0 = time.perf_counter()
     trainer = LAFCTrainer(opt)
     n_par = sum(p.numel() for p in trainer.model.parameters())
-    tflop = conv_tflop(trainer.model, batch["diffused_flows"],
-                       batch["masks"])
     log(f"{label}: trainer built in {time.perf_counter() - t0:.2f} s; "
-        f"{n_par / 1e6:.3f} M parameters; {tflop:.4f} TFLOP of "
-        f"convolutions a step")
+        f"{n_par / 1e6:.3f} M parameters")
 
     trainer.total_iterations = 2                 # cold steps
     t0 = time.perf_counter()
@@ -2566,8 +1997,7 @@ def train_lafc(counters, root: str, single: bool, smi: str) -> dict:
     rows = read_metrics(trainer, 2)
     steps_per_s = (len(rows) - 1) / (rows[-1]["time"] - rows[0]["time"])
     log(f"{label} train: {TRAIN_STEPS} steps, {steps_per_s:.4f} "
-        f"steps/s ({1e3 / steps_per_s:.3f} ms/step, "
-        f"{tflop * steps_per_s:.2f} TFLOP/s of convolutions; wall "
+        f"steps/s ({1e3 / steps_per_s:.3f} ms/step; wall "
         f"{wall:.2f} s with the final checkpoint); peak device memory "
         f"{peak:.3f} GiB; {smi}")
     for r in rows:
@@ -2610,7 +2040,7 @@ def train_lafc(counters, root: str, single: bool, smi: str) -> dict:
     if any(launches.values()):
         raise AssertionError(f"{label}: stage-1 training launched a kernel")
     final = resumed.save_checkpoint(1)
-    stats = dict(steps_per_s=steps_per_s, peak_gib=peak, tflop=tflop,
+    stats = dict(steps_per_s=steps_per_s, peak_gib=peak,
                  gen_state=final["gen_state"],
                  latest=os.path.join(resumed.run_dir, "latest"))
     del trainer, resumed
@@ -2625,7 +2055,7 @@ def phase_lafc_train(kernels, inference_counters, root: str, smi: str):
     stage 2's flow oracle."""
     stats = {single: train_lafc(kernels, root, single, smi)
              for single in (False, True)}
-    frames, masks = synthetic_video(n=6)
+    frames, masks = square_clip(6)
     np.save(f"{root}/s1_frames.npy", frames)
     np.save(f"{root}/s1_masks.npy", masks)
     out, _, _ = run_cli("6 frames with the trained LAFC", inference_counters,
@@ -2740,7 +2170,7 @@ def read_metrics(trainer, first_step: int) -> list:
     return [r for r in rows if r["step"] > first_step]
 
 
-def phase_train(counters, profile: bool, oracle: str):
+def phase_train(counters, oracle: str):
     """Full-width FGT GAN training on the card (see the module doc), with
     ``oracle`` (the LAFC-single trainer's state dict) as the frozen flow
     oracle."""
@@ -2812,9 +2242,6 @@ def phase_train(counters, profile: bool, oracle: str):
                     n_emb += 1
         log(f"train: l1 {l1[0]:.4f} -> {l1[-1]:.4f}; {n_emb} TMHSA q/k/v "
             f"embedding weights with finite nonzero gradients")
-
-        if profile:
-            profile_steps(trainer, batch)
 
         # resume: save the trio, 3 steps, reload into a new trainer, 3 steps
         paths = trainer.save_checkpoint(0)
@@ -3621,7 +3048,7 @@ def phase_parallel(kernels, root: str, smi: str) -> dict:
     from fgt_tpu_torch.pipeline import video_inpainting as vi
     from fgt_tpu_torch.utils import checkpoint
 
-    frames, masks = synthetic_video()
+    frames, masks = square_clip()
     base = CLI_RANDOM + ["--path", write_pngs(f"{root}/frames", frames),
                          "--path_mask", write_pngs(f"{root}/masks",
                                                    masks * 255),
@@ -3860,45 +3287,6 @@ def overfit_protocol(gate, kernels, out: str, fgt_only: bool,
     return dict(rec, wall=wall, launches=launches)
 
 
-def profile_steps(trainer, batch):
-    """Device time of two training steps (torch.profiler): busy and idle
-    share, the flash kernels' share, time by operator and by kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    trainer.total_iterations = trainer.current_step + 1
-    trainer.train([batch])                    # warm, outside the trace
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(2):
-            trainer.current_step += 1
-            trainer._train_step(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = sorted(kernel_events(prof),
-                     key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in kernels) / 2e3
-    flash = sum(e.self_device_time_total for e in kernels
-                if "flash_" in e.key) / 2e3
-    log(f"profile: {wall / 2 * 1e3:.3f} ms/step wall under the profiler; "
-        f"kernels {busy:.3f} ms/step (idle share "
-        f"{max(0.0, 1 - busy / (wall / 2 * 1e3)):.3f}); K2+K4+K5 "
-        f"{flash:.3f} ms/step ({flash / busy:.3f} of kernel time)")
-    ops = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CPU
-                  and e.key.startswith("aten::")),
-                 key=lambda e: -e.device_time_total)
-    for e in ops[:12]:
-        log(f"profile op: {e.device_time_total / 2e3:9.3f} ms/step "
-            f"x{e.count // 2:5d}  {e.key}")
-    for e in kernels[:16]:
-        log(f"profile kernel: {e.self_device_time_total / 2e3:9.3f} ms/step "
-            f"x{e.count // 2:5d}  {e.key[:110]}")
-
-
 def conv_types_removal(counters, root: str, smi: str, vanilla_s: dict):
     """Object removal with gated LAFC (cnum 48) and gated BN FGT (512
     hidden, 8 blocks, 4 heads), bf16, on the K1 path, from JAX-layout
@@ -3944,7 +3332,7 @@ def conv_types_removal(counters, root: str, smi: str, vanilla_s: dict):
     n_gate = sum(p.numel() for n, p in models.fgt.named_parameters()
                  if "gatingConv" in n)
     del models
-    frames, masks = synthetic_video()
+    frames, masks = square_clip()
     np.save(f"{ck}/frames.npy", frames)
     np.save(f"{ck}/masks.npy", masks)
     for label in ("cold", "warm"):
@@ -4145,10 +3533,11 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
     from fgt_tpu_torch import native
     from fgt_tpu_torch.ops import (_build, corr_fused, corr_lookup,
                                    diffusion, flash_attention, poisson)
+    import torch_port_kernel_cases as kc
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4166,35 +3555,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_jpeg_fixtures()
     log(f"phase_jpeg_fixtures: {time.perf_counter() - t0:.2f} s")
-    resources = resource_usage()
+    resource_usage()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    k1, k2, k3, k45 = {}, {}, {}, {}
-    for dt in (torch.float32, torch.bfloat16):
-        phase_k1(dt, k1)
-        phase_k2(dt, k2)
-        phase_k45(dt, k45, resources)
-        phase_k3(dt, k3)
-    alt = k1[str(torch.float32)]["noisy"]
-    log(f"K1 float32, the --alternate_corr contract (f32 features and "
-        f"levels, C=256, r=4, the f32 body): kernel_ms {alt['ms']:.4f} "
-        f"plain_ms {alt['plain_ms']:.4f} bound_ms {alt['bound_ms']:.4f} "
-        f"({alt['bound_by']}), max_abs_err {alt['max_abs_err']:.3g}")
     t0 = time.perf_counter()
-    phase_k2_canvas(k2, smi)
-    log(f"phase_k2_canvas: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    phase_k6({}, smi)
-    log(f"phase_k6: {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    k7 = {}
-    phase_k7(k7, smi)
-    log(f"phase_k7: {time.perf_counter() - t0:.2f} s")
-    phase_k1(torch.bfloat16, k1, C=128, r=3)     # RAFT --small
-    phase_k3_small(k3)
-    phase_pyramid_build()
-    phase_refine_bf16()
+    k = time_kernels(kernel_rows(), smi)
+    log(f"time_kernels: {time.perf_counter() - t0:.2f} s")
+    log(f"TF32 pyramid build against f32: {kc.check_pyramid_tf32()}")
+    log(f"RAFT bf16 refine, K1 against its plain version: "
+        f"{kc.check_refine_bf16()}")
     counters = (corr_fused.lookup_corr_fused, corr_lookup.lookup_corr_pyramid,
                 flash_attention.flash_mhsa, poisson.poisson_pcg,
                 diffusion.diffusion_mg)
@@ -4237,7 +3607,7 @@ def main() -> int:
         oracle, lafc_stats = phase_lafc_train(all_counters, counters,
                                               stage_root, smi)
         train_launches, fgt_stats = phase_train(
-            train_counters, "--profile" in sys.argv, oracle)
+            train_counters, oracle)
     with tempfile.TemporaryDirectory() as cli_root:
         cli = phase_cli_train(all_counters, cli_root, smi)
     with tempfile.TemporaryDirectory() as cli_root:
@@ -4271,34 +3641,35 @@ def main() -> int:
     phase_small_train()
     phase_small_lafc_train()
 
-    bf16 = str(torch.bfloat16)
     kernels = [
         dict(name="corr_fused_lookup", route="cuda",
              source="fgt_tpu_torch/csrc/corr_fused.cu",
              replaces="fgt_tpu/ops/corr_fused_pallas.py:65",
-             launches=launches["lookup_corr_fused"], **k1[bf16]["smooth"]),
+             launches=launches["lookup_corr_fused"],
+             **k["K1 bfloat16 C256 r4 smooth"]),
         dict(name="flash_attention_forward", route="cuda",
              source="fgt_tpu_torch/csrc/flash_attention.cu",
              replaces="fgt_tpu/ops/flash_attention.py:33",
-             launches=launches["flash_mhsa"], **k2[bf16]),
+             launches=launches["flash_mhsa"], **k["K2 bfloat16 N80 L2340"]),
         dict(name="corr_lookup_pyramid", route="cuda",
              source="fgt_tpu_torch/csrc/corr_lookup.cu",
              replaces="fgt_tpu/ops/corr_lookup_pallas.py:43",
              launches=pyr_launches["lookup_corr_pyramid"],
-             **k3[bf16]["bf16"]),
+             **k["K3 bfloat16 r4 bfloat16 taps"]),
         dict(name="flash_attention_dq", route="cuda",
              source="fgt_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="fgt_tpu/ops/flash_attention.py:73",
              launches=train_launches["flash_attention_dq"],
-             **k45["dq"][bf16]),
+             **k["K4 bfloat16 N32 L900"]),
         dict(name="flash_attention_dkv", route="cuda",
              source="fgt_tpu_torch/csrc/flash_attention_bwd.cu",
              replaces="fgt_tpu/ops/flash_attention.py:105",
              launches=train_launches["flash_attention_dkv"],
-             **k45["dkv"][bf16]),
+             **k["K5 bfloat16 N32 L900"]),
         dict(name="diffusion_mg", route="cuda",
              source="fgt_tpu_torch/csrc/diffusion_mg.cu", replaces=None,
-             launches=launches["diffusion_mg"], **k7["strokes"]),
+             launches=launches["diffusion_mg"],
+             **k["K7 strokes 46x240x432"]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,8 +15,8 @@
 // element, so the layout's own floor is the 32-byte sectors those rows
 // touch (~1.6 a row in bf16), not their bytes.
 //
-// Design (what the warp-per-pixel body, kept below as the yardstick,
-// lacked: it gathered one level's window at a time with 2-byte loads):
+// Design (what an earlier body with a warp per pixel lacked: it gathered
+// one level's window at a time with 2-byte loads):
 //  1. Persistent warps walk over pixels (grid = the SMs' resident blocks).
 //     Each warp keeps a two-pixel ring in shared memory: all levels'
 //     windows of the next pixel are in flight as cp.async copies while the
@@ -256,73 +256,6 @@ int launch_radius(const Levels& lv, int num_levels, const float* coords,
   }
 }
 
-// ---- The warp-per-pixel body: one level's window at a time.
-// Kept only as the yardstick the redesign is timed against (chip_smoke.py);
-// nothing in the port calls it.
-
-constexpr int kMaxWindow = 256;  // (2r+2)^2 for r <= 7
-
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __bfloat162float(__ushort_as_bfloat16(bits));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-corr_lookup_warp_kernel(Levels lv, int num_levels,
-                        const float* __restrict__ coords,
-                        float* __restrict__ out, int n_pix, int radius) {
-  __shared__ float window[kWarps][kMaxWindow];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * kWarps + warp;
-  if (n >= n_pix) return;
-  const int k = 2 * radius + 1;
-  const int kp = k + 1;
-  const int kk = k * k;
-  const int nwin = kp * kp;
-  float* win = window[warp];
-  const float cx0 = coords[2 * n];
-  const float cy0 = coords[2 * n + 1];
-  float* outp = out + static_cast<size_t>(n) * num_levels * kk;
-  for (int l = 0; l < num_levels; ++l) {
-    const int hl = lv.h[l];
-    const int wl = lv.w[l];
-    const float inv = 1.0f / static_cast<float>(1 << l);
-    const float cx = cx0 * inv;
-    const float cy = cy0 * inv;
-    const float flx = floorf(cx);
-    const float fly = floorf(cy);
-    const float fx = cx - flx;
-    const float fy = cy - fly;
-    const int x0 = floor_clamped(flx) - radius;
-    const int y0 = floor_clamped(fly) - radius;
-    const T* base = static_cast<const T*>(lv.ptr[l]) +
-                    static_cast<size_t>(n) * hl * wl;
-    for (int i = lane; i < nwin; i += 32) {
-      const int r = i / kp;
-      const int yy = y0 + r;
-      const int xx = x0 + i - r * kp;
-      win[i] = (yy >= 0 && yy < hl && xx >= 0 && xx < wl)
-                   ? load(base + static_cast<size_t>(yy) * wl + xx)
-                   : 0.f;
-    }
-    __syncwarp();
-    const float gx = 1.f - fx;
-    const float gy = 1.f - fy;
-    for (int t = lane; t < kk; t += 32) {
-      const int ax = t / k;
-      const int by = t - ax * k;
-      const float* p = win + by * kp + ax;
-      const float c0 = __fadd_rn(__fmul_rn(gy, p[0]), __fmul_rn(fy, p[kp]));
-      const float c1 = __fadd_rn(__fmul_rn(gy, p[1]), __fmul_rn(fy, p[kp + 1]));
-      outp[l * kk + t] = __fadd_rn(__fmul_rn(gx, c0), __fmul_rn(fx, c1));
-    }
-    __syncwarp();
-  }
-}
-
 bool read_levels(const void* const* level_ptrs, const int* level_hw,
                  int num_levels, Levels* lv) {
   if (num_levels < 1 || num_levels > kMaxLevels) return false;
@@ -365,25 +298,4 @@ extern "C" int corr_lookup_pyramid(const void* const* level_ptrs,
                                                n_pix, radius, s);
   return launch_radius<float, float>(lv, num_levels, coords, out, n_pix,
                                      radius, s);
-}
-
-// The warp-per-pixel body (f32 out), same arguments but no out_dtype.
-extern "C" int corr_lookup_pyramid_warp(const void* const* level_ptrs,
-                                        const int* level_hw, int num_levels,
-                                        const float* coords, float* out,
-                                        int n_pix, int radius, int dtype,
-                                        void* stream) {
-  Levels lv;
-  if (!read_levels(level_ptrs, level_hw, num_levels, &lv) || radius < 0 ||
-      (2 * radius + 2) * (2 * radius + 2) > kMaxWindow || n_pix <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_pix + kWarps - 1) / kWarps);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    corr_lookup_warp_kernel<__nv_bfloat16><<<grid, kWarps * 32, 0, s>>>(
-        lv, num_levels, coords, out, n_pix, radius);
-  else
-    corr_lookup_warp_kernel<float><<<grid, kWarps * 32, 0, s>>>(
-        lv, num_levels, coords, out, n_pix, radius);
-  return static_cast<int>(cudaGetLastError());
 }

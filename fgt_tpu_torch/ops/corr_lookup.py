@@ -46,9 +46,7 @@ template parameter (:data:`KERNEL_RADII`; any other radius raises), and
 the taps come out in the caller's dtype: bf16 for the bf16 update block
 (the f32 tap rounded once, as ``.to(torch.bfloat16)`` rounds it), f32
 otherwise. Every product and sum is rounded on its own, y then x, so the
-kernel equals its plain version bit for bit. ``lookup_corr_pyramid_warp``
-launches that warp-per-pixel body, kept only as the yardstick
-``chip_smoke.py`` times beside the kernel.
+kernel equals its plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -166,24 +164,14 @@ def lookup_corr_pyramid_plain(pyramid: list, coords: torch.Tensor,
     return out.reshape(B, H, W, len(pyramid) * kk).to(out_dtype)
 
 
-def _bind(entry: str, out_dtype_arg: bool):
-    fn = getattr(load_cuda_library("corr_lookup"), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_int] * out_dtype_arg + [ctypes.c_void_p])
-    return fn
-
-
 @functools.cache
 def _kernel():
-    return _bind("corr_lookup_pyramid", True)
-
-
-@functools.cache
-def _warp_kernel():
-    return _bind("corr_lookup_pyramid_warp", False)
+    fn = load_cuda_library("corr_lookup").corr_lookup_pyramid
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    return fn
 
 
 def _check(pyramid, coords, radius, out_dtype):
@@ -209,24 +197,6 @@ def _check(pyramid, coords, radius, out_dtype):
                              "on the card")
 
 
-def _launch(fn, pyramid, coords, radius, out_dtype, *extra):
-    B, H, W, _ = coords.shape
-    k = 2 * radius + 1
-    cxy = coords.float().contiguous()
-    if cxy.data_ptr() % 8:                   # the kernel loads (x, y) pairs
-        cxy = cxy.clone()
-    out = torch.empty(B, H, W, len(pyramid) * k * k, dtype=out_dtype,
-                      device=coords.device)
-    ptrs = (ctypes.c_void_p * MAX_LEVELS)(*[v.data_ptr() for v in pyramid])
-    dims = (ctypes.c_int * (2 * MAX_LEVELS))(
-        *[s for v in pyramid for s in v.shape[1:3]])
-    err = fn(ptrs, dims, len(pyramid), cxy.data_ptr(), out.data_ptr(),
-             B * H * W, radius, _DTYPE_CODE[pyramid[0].dtype], *extra,
-             torch.cuda.current_stream(coords.device).cuda_stream)
-    check_launch(err, fn.__name__)
-    return out
-
-
 def lookup_corr_pyramid(pyramid: list, coords: torch.Tensor, radius: int,
                         out_dtype: torch.dtype = torch.float32
                         ) -> torch.Tensor:
@@ -237,19 +207,25 @@ def lookup_corr_pyramid(pyramid: list, coords: torch.Tensor, radius: int,
     if coords.device.type == "cpu":
         return lookup_corr_pyramid_plain(pyramid, coords, radius, out_dtype)
     _check(pyramid, coords, radius, out_dtype)
-    out = _launch(_kernel(), pyramid, coords, radius, out_dtype,
-                  _DTYPE_CODE[out_dtype])
+    B, H, W, _ = coords.shape
+    k = 2 * radius + 1
+    cxy = coords.float().contiguous()
+    if cxy.data_ptr() % 8:                   # the kernel loads (x, y) pairs
+        cxy = cxy.clone()
+    out = torch.empty(B, H, W, len(pyramid) * k * k, dtype=out_dtype,
+                      device=coords.device)
+    ptrs = (ctypes.c_void_p * MAX_LEVELS)(*[v.data_ptr() for v in pyramid])
+    dims = (ctypes.c_int * (2 * MAX_LEVELS))(
+        *[s for v in pyramid for s in v.shape[1:3]])
+    fn = _kernel()
+    err = fn(ptrs, dims, len(pyramid), cxy.data_ptr(), out.data_ptr(),
+             B * H * W, radius, _DTYPE_CODE[pyramid[0].dtype],
+             _DTYPE_CODE[out_dtype],
+             torch.cuda.current_stream(coords.device).cuda_stream)
+    check_launch(err, fn.__name__)
     lookup_corr_pyramid.launches += 1
     return out
 
 
 lookup_corr_pyramid.launches = 0
 
-
-def lookup_corr_pyramid_warp(pyramid: list, coords: torch.Tensor,
-                             radius: int) -> torch.Tensor:
-    """K3's former body (a warp per pixel, one level at a time, f32
-    taps) on CUDA tensors: the yardstick ``chip_smoke.py`` times beside
-    :func:`lookup_corr_pyramid`. Nothing in the port calls it."""
-    _check(pyramid, coords, radius, torch.float32)
-    return _launch(_warp_kernel(), pyramid, coords, radius, torch.float32)

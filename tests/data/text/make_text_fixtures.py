@@ -8,7 +8,8 @@ oracle that ``chip_smoke.phase_compare_frames`` holds the port's
 render.
 
 * ``on_frame_<k>.png``: the top-left 24 x 160 of the evaluation phase's
-  first frame (``chip_smoke.synthetic_video(seed=30)``), titled with
+  first frame (``portbench.traffic.panning_background`` from seed 30,
+  ``chip_smoke.square_clip(seed=30)``'s frames), titled with
   each name the phase draws;
 * ``on_black_<k>.png``: black, titled with those names and some of the
   CPU tests' titles (a coverage map: red and green hold it, blue is 0).
@@ -39,9 +40,9 @@ BLACK_NAMES = PHASE_NAMES + ("davis_gt", "bmx-trees", "FGT (ours)",
 def first_frame_strip() -> np.ndarray:
     """The top-left strip of the evaluation phase's first frame."""
     sys.path.insert(0, REPO)
-    import chip_smoke
+    from portbench.traffic import panning_background
 
-    frames, _ = chip_smoke.synthetic_video(seed=30)
+    frames = panning_background(np.random.RandomState(30), 24, 240, 432, 2)
     return frames[0, :STRIP[0], :STRIP[1]].copy()
 
 

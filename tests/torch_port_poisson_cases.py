@@ -1,6 +1,7 @@
 """s5 inputs for the Poisson tests (``test_torch_port_poisson.py`` on
-the CPU, ``test_torch_port_cuda.py`` on the card), and the pipeline's CPU
-loop over frames (scipy ``splu``) they compare with. Imports no JAX."""
+the CPU, ``test_torch_port_cuda.py`` on the card) and ``chip_smoke.py``'s
+timing table, the pipeline's CPU loop over frames (scipy ``splu``) they
+compare with, and K6's check (:func:`check_k6`). Imports no JAX."""
 
 import numpy as np
 
@@ -78,3 +79,56 @@ def worst_filled_gap(got, want, holes, left) -> float:
     filled = holes & ~left
     return max((float(np.abs(g - w)[f].max(initial=0.0))
                 for g, w, f in zip(got, want, filled)), default=0.0)
+
+
+def k6_operands(video, gx, gy, holes, gms, device="cuda") -> list:
+    """K6's operands of a clip on ``device``: the frames and gradients
+    in f64, the masks, and each frame's hole pixels (numpy)."""
+    import torch
+
+    return ([torch.from_numpy(a).to(device).double() for a in (video, gx, gy)]
+            + [torch.from_numpy(a).to(device) for a in (holes, gms)]
+            + [holes.reshape(len(holes), -1).sum(1)])
+
+
+def check_k6(video, gx, gy, holes, gms, device="cuda") -> dict:
+    """K6 on a clip: the clip path (``poisson_blend_clip``, one launch)
+    against the per-frame splu loop (the same pixels left, within 1e-6
+    where Poisson fills), and the kernel on :func:`k6_operands` against
+    its plain version (within 1e-7 where Poisson fills, the input
+    outside the hole, every plane iterating, iterations within max(3,
+    5%) of the plain version's). Raises AssertionError on a miss.
+    Returns {max_abs_err (to the plain version), splu_err, iters,
+    plain_iters (each [least, most]), plane_iters ([frames, 3])}."""
+    import torch
+
+    from fgt_tpu_torch.ops import poisson as k6
+
+    def require(ok, what):
+        if not ok:
+            raise AssertionError(f"K6: {what}")
+
+    before = k6.poisson_pcg.launches
+    got, left = tpoisson.poisson_blend_clip(video, gx, gy, holes, gms,
+                                            torch.device(device))
+    require(k6.poisson_pcg.launches == before + 1, "not 1 launch")
+    want, want_left = splu_clip(video, gx, gy, holes, gms)
+    require(np.array_equal(left, want_left), "other pixels left than splu")
+    splu_err = worst_filled_gap(got, want, holes, left)
+    require(splu_err <= 1e-6, f"{splu_err:.4g} from splu")
+    ops = k6_operands(video, gx, gy, holes, gms, device)
+    x, iters = k6.poisson_pcg(*ops).result()
+    x_twin, it_twin = k6.poisson_pcg_plain(*ops[:5])
+    err = float(np.abs(x - x_twin.cpu().numpy())[holes & ~left].max())
+    require(err <= 1e-7, f"{err:.4g} from the plain version")
+    require(np.array_equal(x[~holes], video.astype(np.float64)[~holes]),
+            "pixels outside the hole changed")
+    it_twin = it_twin.cpu().numpy()
+    require((iters > 0).all(), "a plane did not iterate")
+    require(np.abs(iters - it_twin).max() <= max(3, 0.05 * it_twin.max()),
+            f"iterations {iters.min()}-{iters.max()}, the plain version's "
+            f"{it_twin.min()}-{it_twin.max()}")
+    return dict(max_abs_err=err, splu_err=splu_err,
+                iters=[int(iters.min()), int(iters.max())],
+                plain_iters=[int(it_twin.min()), int(it_twin.max())],
+                plane_iters=iters)
